@@ -1,8 +1,12 @@
-"""Carry a GGArray's state between the JAX reference and the port, as numpy.
+"""Carry a GGArray's or an arena's state between the JAX reference and the
+port, as numpy.
 
 ``ggarray_from_numpy`` builds the port's :class:`GGArray` from the
 reference's leaves given as numpy arrays (``np.asarray`` of each bucket
-level and of ``sizes``); ``ggarray_to_numpy`` goes back.  numpy has no
+level and of ``sizes``); ``ggarray_to_numpy`` goes back.
+``arena_from_numpy`` / ``arena_to_numpy`` do the same for a
+:class:`~repro_torch.pool.SlabArena`, as a dict of numpy arrays (see
+:data:`ARENA_KEYS`).  numpy has no
 bfloat16 of its own: ``np.asarray`` of a JAX bf16 array gives an
 ``ml_dtypes`` bfloat16 array, which torch does not take, so bf16 travels as
 its ``uint16`` bit pattern — accepted on the way in (by dtype name) and
@@ -10,7 +14,7 @@ returned on the way out.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -18,7 +22,20 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core.ggarray import GGArray
 
-__all__ = ["ggarray_from_numpy", "ggarray_to_numpy", "tensor_from_numpy", "tensor_to_numpy"]
+__all__ = [
+    "ARENA_KEYS",
+    "arena_from_numpy",
+    "arena_to_numpy",
+    "ggarray_from_numpy",
+    "ggarray_to_numpy",
+    "tensor_from_numpy",
+    "tensor_to_numpy",
+]
+
+# An arena's state as numpy: the extents' data (a list, bf16 as uint16
+# bits), the device free bitmap, the page tables and sizes, and the host
+# allocator's owner, refcount and free arrays.
+ARENA_KEYS = ("extents", "free", "pages", "sizes", "owner", "refcount", "alloc_free")
 
 
 def tensor_from_numpy(arr: np.ndarray, device: "str | torch.device | None" = None) -> torch.Tensor:
@@ -62,3 +79,67 @@ def ggarray_to_numpy(arr: GGArray) -> tuple[tuple[np.ndarray, ...], np.ndarray, 
         tensor_to_numpy(arr.sizes).astype(np.int32),
         arr.b0,
     )
+
+
+def arena_to_numpy(arena: Any) -> dict:
+    """A port ``SlabArena``'s state as numpy, keyed by :data:`ARENA_KEYS`."""
+    return {
+        "extents": [tensor_to_numpy(e) for e in arena.pool.extents],
+        "free": tensor_to_numpy(arena.pool.free),
+        "pages": tensor_to_numpy(arena.arr.pages).astype(np.int32),
+        "sizes": tensor_to_numpy(arena.arr.sizes).astype(np.int32),
+        "owner": np.array(arena.alloc.owner, np.int32),
+        "refcount": np.array(arena.alloc.refcount, np.int32),
+        "alloc_free": np.array(arena.alloc.free, bool),
+    }
+
+
+def arena_from_numpy(
+    state: dict,
+    *,
+    device: "str | torch.device | None" = None,
+    live_ub: "np.ndarray | None" = None,
+    **arena_kwargs: Any,
+) -> Any:
+    """A port ``SlabArena`` holding ``state`` (keys :data:`ARENA_KEYS`, e.g.
+    the reference arena's leaves as numpy).
+
+    ``arena_kwargs`` are the constructor's (``grow_chunk``, ``quota_slabs``,
+    …); ``dtype`` and the geometry come from the extents.  The host book is
+    rebuilt from the page tables: each array's pages in table order, the
+    slab→page map, the table width.  ``live_ub`` seeds the planner's bounds
+    (default: the sizes, exact after host-known masks).  Counters that only
+    the history knows (claims, releases, which slabs were ever released)
+    start at zero.
+    """
+    from repro_torch.pool.arena import ArenaGGArray, SlabArena
+    from repro_torch.pool.extents import ExtentPool
+
+    extents = tuple(tensor_from_numpy(e, device) for e in state["extents"])
+    pages = np.asarray(state["pages"], np.int32)
+    narrays, max_pages = pages.shape
+    slab_size, item = extents[0].shape[1], tuple(extents[0].shape[2:])
+    arena = SlabArena(narrays, slab_size, item_shape=item, dtype=extents[0].dtype,
+                      initial_slabs=0, max_pages=max_pages, device=device, **arena_kwargs)
+    dev = arena.device
+    arena.pool = ExtentPool(extents=extents,
+                            free=tensor_from_numpy(np.asarray(state["free"], bool), dev))
+    sizes = np.asarray(state["sizes"], np.int32)
+    arena.arr = ArenaGGArray(pages=tensor_from_numpy(pages, dev),
+                             sizes=tensor_from_numpy(sizes, dev))
+    n_slabs = sum(e.shape[0] for e in state["extents"])
+    book = arena.book
+    book.grow(n_slabs)
+    book.max_pages = max_pages
+    book.alloc.free = np.array(state["alloc_free"], bool)
+    book.alloc.owner = np.array(state["owner"], np.int32)
+    book.alloc.refcount = np.array(state["refcount"], np.int32)
+    book.alloc.grown_slabs = n_slabs
+    book.alloc.peak_live = book.alloc.live_count
+    for i in range(narrays):
+        row = [int(s) for s in pages[i] if s >= 0]
+        book.pages_of[i] = row
+        book.npages[i] = len(row)
+        book.page_of_slab[row] = np.arange(len(row))
+    arena.planner.ub = np.asarray(sizes if live_ub is None else live_ub, np.int64).copy()
+    return arena

@@ -30,7 +30,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import indexing
 from repro_torch.core.insertion import insertion_offsets
-from repro_torch.kernels.common import put_drop_, scatter_levels_
+from repro_torch.kernels.common import put_drop_, scatter_levels_, to_device
 
 __all__ = [
     "GGArray",
@@ -272,12 +272,6 @@ class CapacityPlanner:
 PUSH_BACK_METHODS = ("atomic", "auto", "fused", "mxu", "scan", "tile")
 
 
-def _as_device(x: Any, dev: torch.device) -> torch.Tensor:
-    """A tensor on ``dev``: numpy / lists are copied over, tensors already
-    there are used as they are."""
-    return torch.as_tensor(x, device=dev)
-
-
 def _push_back_(
     gg: GGArray,
     elems: Any,
@@ -285,7 +279,7 @@ def _push_back_(
     method: str,
 ) -> tuple[GGArray, torch.Tensor]:
     """Shared body of ``push_back`` / ``append``: writes ``gg``'s levels in place."""
-    elems = _as_device(elems, gg.device)
+    elems = to_device(elems, gg.device)
     if elems.ndim < 2 or elems.shape[0] != gg.nblocks:
         raise ValueError(
             f"elems must be (nblocks={gg.nblocks}, m, ...), got {tuple(elems.shape)}"
@@ -296,7 +290,7 @@ def _push_back_(
         method = resolve_push_back_method(method, elems.shape[1])
     if mask is None:
         mask = torch.ones(elems.shape[:2], dtype=torch.bool, device=gg.device)
-    mask = _as_device(mask, gg.device)
+    mask = to_device(mask, gg.device)
     if mask.dtype.is_floating_point or mask.dtype.is_complex:
         raise TypeError(f"mask must be bool or integer, got {mask.dtype}")
     if mask.dtype != torch.bool:
@@ -389,7 +383,7 @@ def _gather_inblock(gg: GGArray, block: torch.Tensor, pos: torch.Tensor) -> torc
 
 def read_global(gg: GGArray, idx: Any) -> torch.Tensor:
     """rw_g: read by global index (block-major order) via binary search."""
-    idx = _as_device(idx, gg.device)
+    idx = to_device(idx, gg.device)
     starts = block_starts(gg)
     block = indexing.find_block(starts, idx).long()
     return _gather_inblock(gg, block, idx - starts[block])
@@ -400,8 +394,8 @@ def write_global(gg: GGArray, idx: Any, vals: Any) -> GGArray:
 
     Returns a new array; ``gg``'s levels are left untouched.
     """
-    idx = _as_device(idx, gg.device)
-    vals = _as_device(vals, gg.device).to(gg.dtype)
+    idx = to_device(idx, gg.device)
+    vals = to_device(vals, gg.device).to(gg.dtype)
     starts = block_starts(gg)
     block = indexing.find_block(starts, idx).long()
     pos = idx - starts[block]
@@ -417,7 +411,7 @@ def write_global(gg: GGArray, idx: Any, vals: Any) -> GGArray:
 
 def gather_block(gg: GGArray, block: Any, pos: Any) -> torch.Tensor:
     """rw_b read: caller already knows the owning block (no search)."""
-    return _gather_inblock(gg, _as_device(block, gg.device), _as_device(pos, gg.device))
+    return _gather_inblock(gg, to_device(block, gg.device), to_device(pos, gg.device))
 
 
 def map_elements(gg: GGArray, fn: Callable[[torch.Tensor], torch.Tensor]) -> GGArray:

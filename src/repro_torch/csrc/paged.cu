@@ -1,0 +1,241 @@
+// K8/K9 and K12 — the slab arena's paged gather and slab append.
+//
+// Both kernels address the pool through an extent table: a device int64
+// array [ptr_0 .. ptr_{E-1}, start_0 .. start_E] holding each extent's base
+// pointer and the global id of its first slab (start_E = n_slabs), built on
+// the host by kernels/common.py::extent_table and cached per extent
+// geometry.  A slab id s resolves by an upper-bound search over the starts
+// (about ten steps at 700 extents): the last e with start_e <= s, then
+// ptr_e + (s - start_e) * slab_bytes.  One flat pool is the case E = 1.
+// This replaces the reference's per-extent operand list and its parked
+// per-extent DMA (src/repro/kernels/common.py::extent_row).
+//
+// K8/K9 replace src/repro/kernels/paged/kernel.py::paged_gather_pallas and
+// ::paged_gather_pallas_extents: (N, P) page table -> (N, P*T, item) views,
+// page p of row n being slab pages[n, p], or zeros under page -1 and under
+// ids past the pool (with one flat pool the reference clips ids past the
+// pool to the last slab instead; clip_high selects that).  Bound: bytes —
+// every output page written once, every live page read once.  Design: a
+// 1-D grid over (page, chunk of the page); thread 0 of a block resolves the
+// page's slab once, then the block copies its chunk in 16-byte units where
+// the slab size and every pointer allow it (else 4, 2 or 1 bytes).  Loads
+// and stores are both contiguous.  Items are copied as bits, so f32, int32
+// and bf16 come out exact.  All addressing is 64-bit.
+//
+// K12 replaces src/repro/kernels/paged/kernel.py::slab_append_pallas: a
+// wave (N, m, item) with its mask lands at positions sizes[n] + exclusive
+// scan of the mask, through slab ownership — slot j of slab s holds
+// logical position bases[s] + j of array owners[s].  Two kernels, launched
+// back to back on one stream:
+//   1. slab_compact — one block per array: the exclusive scan of the mask
+//      row in chunks of 1024 lanes (block_exclusive_scan, as in K3) writes
+//      the positions (-1 where masked) and the new sizes, and the block
+//      copies each chunk's live items, in order, into a scratch row
+//      (N, m, item) — coalesced, one unit per thread.
+//   2. slab_scatter — one block per slab of the whole pool (all extents in
+//      one launch): a slab owned by o copies the window
+//      [max(0, sizes[o] - bases[s]), min(T, sizes[o] + count[o] - bases[s]))
+//      of o's scratch row into its slots, a contiguous copy.  Slabs with
+//      owner -1 are never written; owners past N are clamped to N - 1, as
+//      the reference clamps them.  Live lanes that land past every claimed
+//      slab are written nowhere, yet keep their position and count.
+// This keeps the reference's semantics for any owners/bases table, also
+// ones the arena never builds (two slabs with one window both get it).
+// Bound: bytes — the mask and the wave read once, the live items and the
+// positions written once; the scratch round trip is above that bound.
+#include <climits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kGatherThreads = 256;
+constexpr int64_t kGatherUnitsPerBlock = kGatherThreads * 16;
+constexpr int kCompactThreads = 1024;
+constexpr int kScatterThreads = 512;
+
+// Base address of slab s (0 <= s < start_E) through the extent table.
+__device__ __forceinline__ char* slab_address(const int64_t* __restrict__ tbl, int next,
+                                              int64_t s, int64_t slab_bytes) {
+  const int64_t* start = tbl + next;
+  int lo = 0, hi = next - 1;  // last e with start[e] <= s
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= s) lo = mid; else hi = mid - 1;
+  }
+  return reinterpret_cast<char*>(tbl[lo]) + (s - start[lo]) * slab_bytes;
+}
+
+template <typename U>
+__global__ void __launch_bounds__(kGatherThreads)
+paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, int clip_high,
+                    const int* __restrict__ pages, U* __restrict__ out, int64_t slab_units,
+                    int64_t chunks) {
+  __shared__ const U* src_shared;
+  const int64_t page = blockIdx.x / chunks;
+  const int64_t chunk = blockIdx.x % chunks;
+  if (threadIdx.x == 0) {
+    int64_t s = pages[page];
+    if (clip_high && s >= n_slabs) s = n_slabs - 1;
+    src_shared = (s >= 0 && s < n_slabs)
+        ? reinterpret_cast<const U*>(slab_address(tbl, next, s, slab_units * sizeof(U)))
+        : nullptr;
+  }
+  __syncthreads();
+  const U* src = src_shared;
+  U* dst = out + page * slab_units;
+  const int64_t u0 = chunk * kGatherUnitsPerBlock;
+  const int64_t u_end = u0 + kGatherUnitsPerBlock;
+  const int64_t u1 = u_end < slab_units ? u_end : slab_units;
+  if (src != nullptr) {
+    for (int64_t u = u0 + threadIdx.x; u < u1; u += kGatherThreads) dst[u] = src[u];
+  } else {
+    const U z{};
+    for (int64_t u = u0 + threadIdx.x; u < u1; u += kGatherThreads) dst[u] = z;
+  }
+}
+
+template <typename U>
+__global__ void __launch_bounds__(kCompactThreads)
+slab_compact_kernel(const unsigned char* __restrict__ mask, const int* __restrict__ sizes,
+                    const U* __restrict__ elems, U* __restrict__ scratch,
+                    int* __restrict__ pos_out, int* __restrict__ new_sizes, int64_t m,
+                    int64_t item_units) {
+  __shared__ int scan_smem[32];
+  __shared__ int lane_of[kCompactThreads];  // live item k of the chunk -> its lane
+  const int64_t row = blockIdx.x;
+  const int size = sizes[row];
+  const U* src_row = elems + row * m * item_units;
+  U* dst_row = scratch + row * m * item_units;
+  int carry = 0;
+  for (int64_t j0 = 0; j0 < m; j0 += kCompactThreads) {
+    const int64_t j = j0 + threadIdx.x;
+    const int live = (j < m && mask[row * m + j] != 0) ? 1 : 0;
+    int total;
+    const int off = block_exclusive_scan<kCompactThreads>(live, scan_smem, &total);
+    if (j < m) pos_out[row * m + j] = live ? size + carry + off : -1;
+    if (live) lane_of[off] = static_cast<int>(j - j0);
+    __syncthreads();
+    const int64_t n_units = static_cast<int64_t>(total) * item_units;
+    U* dst = dst_row + static_cast<int64_t>(carry) * item_units;
+    for (int64_t q = threadIdx.x; q < n_units; q += kCompactThreads) {
+      const int64_t k = q / item_units;
+      const int64_t u = q - k * item_units;
+      dst[q] = src_row[(j0 + lane_of[k]) * item_units + u];
+    }
+    __syncthreads();  // lane_of is rewritten by the next chunk
+    carry += total;
+  }
+  if (threadIdx.x == 0) new_sizes[row] = size + carry;
+}
+
+template <typename U>
+__global__ void __launch_bounds__(kScatterThreads)
+slab_scatter_kernel(const int64_t* __restrict__ tbl, int next, const int* __restrict__ owners,
+                    const int* __restrict__ bases, const int* __restrict__ sizes,
+                    const int* __restrict__ new_sizes, const U* __restrict__ scratch,
+                    int64_t narrays, int64_t m, int64_t slab_size, int64_t item_units) {
+  const int64_t s = blockIdx.x;
+  const int owner = owners[s];
+  if (owner < 0) return;
+  const int64_t own = owner < narrays ? owner : narrays - 1;
+  const int64_t size = sizes[own];
+  const int64_t count = static_cast<int64_t>(new_sizes[own]) - size;
+  const int64_t base = bases[s];
+  const int64_t lo = size - base > 0 ? size - base : 0;
+  const int64_t hi_raw = size + count - base;
+  const int64_t hi = hi_raw < slab_size ? hi_raw : slab_size;
+  if (lo >= hi) return;
+  U* dst = reinterpret_cast<U*>(
+      slab_address(tbl, next, s, slab_size * item_units * static_cast<int64_t>(sizeof(U))));
+  dst += lo * item_units;
+  const U* src = scratch + (own * m + base + lo - size) * item_units;
+  const int64_t n_units = (hi - lo) * item_units;
+  for (int64_t q = threadIdx.x; q < n_units; q += kScatterThreads) dst[q] = src[q];
+}
+
+template <typename U>
+int launch_gather(const int64_t* tbl, int next, int64_t n_slabs, int clip_high,
+                  const int* pages, void* out, int64_t npages, int64_t slab_bytes,
+                  cudaStream_t stream) {
+  const int64_t slab_units = slab_bytes / static_cast<int64_t>(sizeof(U));
+  const int64_t chunks = (slab_units + kGatherUnitsPerBlock - 1) / kGatherUnitsPerBlock;
+  const int64_t grid = npages * chunks;
+  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  paged_gather_kernel<U><<<static_cast<unsigned>(grid), kGatherThreads, 0, stream>>>(
+      tbl, next, n_slabs, clip_high, pages, static_cast<U*>(out), slab_units, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename U>
+int launch_append(const int64_t* tbl, int next, int64_t n_slabs, const int* owners,
+                  const int* bases, const int* sizes, const void* elems,
+                  const unsigned char* mask, void* scratch, int* pos_out, int* new_sizes,
+                  int64_t narrays, int64_t m, int64_t slab_size, int64_t item_bytes,
+                  cudaStream_t stream) {
+  const int64_t item_units = item_bytes / static_cast<int64_t>(sizeof(U));
+  if (narrays > INT_MAX || n_slabs > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  slab_compact_kernel<U><<<static_cast<unsigned>(narrays), kCompactThreads, 0, stream>>>(
+      mask, sizes, static_cast<const U*>(elems), static_cast<U*>(scratch), pos_out, new_sizes,
+      m, item_units);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_slabs == 0) return 0;
+  slab_scatter_kernel<U><<<static_cast<unsigned>(n_slabs), kScatterThreads, 0, stream>>>(
+      tbl, next, owners, bases, sizes, new_sizes, static_cast<const U*>(scratch), narrays, m,
+      slab_size, item_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// table: the device extent table of next extents (see above); n_slabs =
+// start_E.  pages: (npages,) int32.  out: (npages, slab_bytes).  unit: the
+// copy width in bytes (16, 4, 2 or 1), dividing slab_bytes and every
+// pointer.
+extern "C" int rt_paged_gather(const void* table, int next, int64_t n_slabs, int clip_high,
+                               const void* pages, void* out, int64_t npages,
+                               int64_t slab_bytes, int unit, void* stream) {
+  if (next < 1 || slab_bytes < 1 || n_slabs < 1 || slab_bytes % unit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (npages <= 0) return 0;
+  const auto* tbl = static_cast<const int64_t*>(table);
+  const auto* pg = static_cast<const int*>(pages);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (unit) {
+    case 16: return launch_gather<uint4>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
+    case 4: return launch_gather<uint32_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
+    case 2: return launch_gather<uint16_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
+    case 1: return launch_gather<unsigned char>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// table, next, n_slabs: as above.  owners, bases: (n_slabs,) int32.
+// sizes: (narrays,) int32.  elems, scratch: (narrays, m, item_bytes).
+// mask: (narrays, m) bool.  pos_out: (narrays, m) int32.  new_sizes:
+// (narrays,) int32.  The pool is written in place.
+extern "C" int rt_slab_append(const void* table, int next, int64_t n_slabs, const void* owners,
+                              const void* bases, const void* sizes, const void* elems,
+                              const void* mask, void* scratch, void* pos_out, void* new_sizes,
+                              int64_t narrays, int64_t m, int64_t slab_size,
+                              int64_t item_bytes, int unit, void* stream) {
+  if (next < 1 || slab_size < 1 || item_bytes < 1 || item_bytes % unit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (narrays <= 0 || m <= 0) return 0;
+  const auto* tbl = static_cast<const int64_t*>(table);
+  const auto* own = static_cast<const int*>(owners);
+  const auto* bas = static_cast<const int*>(bases);
+  const auto* sz = static_cast<const int*>(sizes);
+  const auto* mk = static_cast<const unsigned char*>(mask);
+  auto* pos = static_cast<int*>(pos_out);
+  auto* ns = static_cast<int*>(new_sizes);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (unit) {
+    case 16: return launch_append<uint4>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
+    case 4: return launch_append<uint32_t>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
+    case 2: return launch_append<uint16_t>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
+    case 1: return launch_append<unsigned char>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,4 +1,5 @@
-"""Shared kernel plumbing: launch counts, wrapper checks, the drop-scatter.
+"""Shared kernel plumbing: launch counts, wrapper checks, the drop-scatter,
+the extent table.
 
 Nothing of the reference's ``GridPlan`` or its (8, 128) padding carries over:
 a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
@@ -10,10 +11,16 @@ a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
   kernel does not take, and on the status the C entry point returns;
 * :func:`put_drop_`, the plain-PyTorch form of JAX's ``.at[...].set(...,
   mode="drop")``, and :func:`scatter_levels_` built on it, shared by the
-  plain versions and ``core.ggarray``.
+  plain versions and ``core.ggarray``;
+* :func:`extent_table`, the device table through which the paged kernels
+  (K8/K9, K12) address a pool of one or many extents — it replaces the
+  reference's per-extent operands and ``kernels/common.py::extent_row``.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
+import numpy as np
 import torch
 
 __all__ = [
@@ -28,12 +35,18 @@ __all__ = [
     "check_tensor",
     "check_status",
     "stream_of",
+    "to_device",
+    "copy_unit",
+    "extent_table",
     "put_drop_",
     "scatter_levels_",
 ]
 
 # Every CUDA kernel of the port, by the name its wrapper counts under.
-KERNELS = ("row_scan", "push_back", "compact_blocks", "segmented_gather")
+KERNELS = (
+    "row_scan", "push_back", "compact_blocks", "segmented_gather",
+    "paged_gather", "paged_gather_extents", "slab_append",
+)
 
 _launches = {name: 0 for name in KERNELS}
 
@@ -102,6 +115,66 @@ def check_status(rc: int, lib, kernel: str) -> None:
 def stream_of(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the int a C entry point takes."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """A tensor on ``dev`` without a host sync.
+
+    A tensor already on ``dev`` passes through; other data becomes a tensor
+    as ``torch.as_tensor`` makes it.  Host data goes to a card with
+    ``non_blocking=True``: from pageable memory ``cudaMemcpyAsync`` stages
+    the bytes before it returns, so the source may go at once, and PyTorch
+    does not synchronise the stream (a blocking copy would, which
+    ``torch.cuda.set_sync_debug_mode`` reports).
+    """
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if t.device == dev:
+        return t
+    # only host → card is safe without waiting: a copy to the host would be
+    # read before it lands
+    return t.to(dev, non_blocking=t.device.type == "cpu" and dev.type == "cuda")
+
+
+def copy_unit(nbytes: int, *tensors: torch.Tensor) -> int:
+    """The widest copy unit (16, 4, 2 or 1 bytes) dividing ``nbytes`` and
+    the address of every tensor."""
+    for unit in (16, 4, 2):
+        if nbytes % unit == 0 and all(t.data_ptr() % unit == 0 for t in tensors):
+            return unit
+    return 1
+
+
+# Extent tables by (device, extent pointers and sizes); a pool's table is
+# built once per geometry, so an append or a gather copies nothing to the
+# card unless the pool grew.
+_extent_tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_EXTENT_TABLES_KEPT = 64
+
+
+def extent_table(extents: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The device int64 table ``[ptr_0 … ptr_{E-1}, start_0 … start_E]``.
+
+    ``ptr_e`` is extent ``e``'s base address and ``start_e`` the global id
+    of its first slab (``start_E`` = the slab count): the ``slab_tables``
+    prefix.  A kernel resolves slab ``s`` by an upper-bound search over the
+    starts — O(log E), and E is O(√n) under ``"tz"`` (about 700 extents at
+    1.3·10⁵ slabs), too many for a fixed kernel parameter.  Built on the
+    host and cached per geometry; rebuilt only when the pool grows.
+    """
+    dev = extents[0].device
+    key = (str(dev),) + tuple((e.data_ptr(), e.shape[0]) for e in extents)
+    table = _extent_tables.get(key)
+    if table is not None:
+        _extent_tables.move_to_end(key)
+        return table
+    starts = np.concatenate([[0], np.cumsum([e.shape[0] for e in extents])])
+    host = np.concatenate([np.asarray([e.data_ptr() for e in extents], np.uint64).view(np.int64),
+                           starts.astype(np.int64)])
+    table = to_device(torch.from_numpy(host), dev)
+    _extent_tables[key] = table
+    while len(_extent_tables) > _EXTENT_TABLES_KEPT:
+        _extent_tables.popitem(last=False)
+    return table
 
 
 def put_drop_(

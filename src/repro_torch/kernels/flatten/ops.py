@@ -19,7 +19,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels.flatten import kernel as _kernel
 from repro_torch.kernels.flatten import ref as _ref
 
-__all__ = ["compact_blocks", "flatten", "flatten_segmented", "flatten_dispatch"]
+__all__ = ["compact_blocks", "segmented_gather", "flatten", "flatten_segmented", "flatten_dispatch"]
 
 def compact_blocks(
     levels: tuple[torch.Tensor, ...], b0: int, *, memory_space: str | None = None
@@ -29,6 +29,16 @@ def compact_blocks(
     if levels[0].device.type == "cpu":
         return _ref.compact_blocks(levels, b0)
     return _kernel.compact_blocks_cuda(levels, b0)
+
+
+def segmented_gather(
+    compact: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """``(nblocks, cap)`` rows of scalar items + int32 starts/ends → block-major
+    ``(nblocks·cap,)`` order (K7); the arena's flatten calls it directly."""
+    if compact.device.type == "cpu":
+        return _ref.gather_global(compact, starts, ends)
+    return _kernel.segmented_gather_cuda(compact, starts, ends)
 
 
 def _prefix_tables(sizes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -47,9 +57,7 @@ def flatten_segmented(
     """GGArray flatten: compact + linear-time segmented gather → ``(nblocks·cap,)``."""
     compact = compact_blocks(levels, b0, memory_space=memory_space)
     starts, ends = _prefix_tables(sizes)
-    if compact.device.type == "cpu":
-        return _ref.gather_global(compact, starts, ends)
-    return _kernel.segmented_gather_cuda(compact, starts, ends)
+    return segmented_gather(compact, starts, ends)
 
 
 def flatten_dispatch(

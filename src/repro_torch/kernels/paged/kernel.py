@@ -1,0 +1,143 @@
+"""K8/K9 and K12 launchers: the CUDA paged gather and slab append (``csrc/paged.cu``).
+
+K8 replaces ``repro/kernels/paged/kernel.py::paged_gather_pallas``, K9
+``::paged_gather_pallas_extents`` and K12 ``::slab_append_pallas``.  Both
+kernels address the pool through :func:`repro_torch.kernels.common.extent_table`,
+so one launch covers every extent.  Items of any shape are carried as raw
+bytes (16-byte units where sizes and addresses allow).  The slab append
+writes the extents in place — the counterpart of the reference's donated,
+aliased pool.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, common
+
+__all__ = ["paged_gather_cuda", "slab_append_cuda"]
+
+_c = ctypes.c_void_p
+_i64 = ctypes.c_int64
+_int = ctypes.c_int
+
+
+def _lib():
+    lib = _build.library("paged")
+    lib.rt_paged_gather.argtypes = [_c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _c]
+    lib.rt_paged_gather.restype = _int
+    lib.rt_slab_append.argtypes = [
+        _c, _int, _i64, _c, _c, _c, _c, _c, _c, _c, _c,  # table .. new_sizes
+        _i64, _i64, _i64, _i64, _int, _c,  # narrays, m, T, item_bytes, unit, stream
+    ]
+    lib.rt_slab_append.restype = _int
+    return lib
+
+
+def _check_extents(extents: tuple[torch.Tensor, ...], what: str) -> tuple[torch.device, int, tuple]:
+    """→ (device, slab size T, item shape); every extent (S_e, T, *item) alike."""
+    if not extents:
+        raise ValueError(f"{what}: no extents")
+    dev = extents[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: tensors on {dev}, expected cuda")
+    T, item = extents[0].shape[1], tuple(extents[0].shape[2:])
+    for e, ext in enumerate(extents):
+        common.check_tensor(ext, f"{what} extent {e}", device=dev, dtypes=(extents[0].dtype,))
+        if ext.ndim < 2 or tuple(ext.shape[1:]) != (T, *item):
+            raise ValueError(f"{what} extent {e}: shape {tuple(ext.shape)}, expected (S_e, {T}, *{item})")
+    return dev, T, item
+
+
+def _item_bytes(t: torch.Tensor, item: tuple) -> int:
+    n = t.element_size()
+    for d in item:
+        n *= d
+    return n
+
+
+def paged_gather_cuda(
+    extents: tuple[torch.Tensor, ...], pages: torch.Tensor, *, clip_high: bool
+) -> torch.Tensor:
+    """Launch K8 (one extent) or K9 (several) → ``(N, P·T, *item)``.
+
+    ``extents``: each ``(S_e, T, *item)``, in global slab-id order, none
+    empty; ``pages``: ``(N, P)`` int32 global slab ids.  Page −1 reads
+    zeros, and so do ids past the pool unless ``clip_high`` (then they read
+    the last slab, as the reference's flat-pool gather does).
+    """
+    dev, T, item = _check_extents(extents, "paged_gather")
+    common.check_tensor(pages, "paged_gather pages", device=dev, dtypes=(torch.int32,))
+    if pages.ndim != 2:
+        raise ValueError(f"paged_gather pages: expected (N, P), got {tuple(pages.shape)}")
+    if any(e.shape[0] == 0 for e in extents):
+        raise ValueError("paged_gather: empty extents must be dropped first")
+    N, P = pages.shape
+    out = torch.empty((N, P * T, *item), dtype=extents[0].dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    n_slabs = sum(e.shape[0] for e in extents)
+    slab_bytes = T * _item_bytes(extents[0], item)
+    unit = common.copy_unit(slab_bytes, out, *extents)
+    table = common.extent_table(tuple(extents))
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.rt_paged_gather(
+            table.data_ptr(), len(extents), n_slabs, int(clip_high), pages.data_ptr(),
+            out.data_ptr(), N * P, slab_bytes, unit, common.stream_of(dev),
+        )
+    name = "paged_gather" if len(extents) == 1 else "paged_gather_extents"
+    common.check_status(rc, lib, name)
+    common.count_launch(name)
+    return out
+
+
+def slab_append_cuda(
+    extents: tuple[torch.Tensor, ...],
+    owners: torch.Tensor,
+    bases: torch.Tensor,
+    sizes: torch.Tensor,
+    elems: torch.Tensor,
+    mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K12 → (new sizes, positions); the extents are written in place.
+
+    ``extents``: each ``(S_e, T, *item)`` in global slab-id order;
+    ``owners``/``bases``: ``(n_slabs,)`` int32; ``sizes``: ``(N,)`` int32;
+    ``elems``: ``(N, m, *item)`` of the extents' dtype; ``mask``: ``(N, m)``
+    bool.  All contiguous, on one CUDA device.
+    """
+    dev, T, item = _check_extents(extents, "slab_append")
+    if elems.ndim < 2:
+        raise ValueError(f"slab_append elems: expected (N, m, *item), got {tuple(elems.shape)}")
+    N, m = elems.shape[:2]
+    n_slabs = sum(e.shape[0] for e in extents)
+    common.check_tensor(elems, "slab_append elems", device=dev, dtypes=(extents[0].dtype,),
+                        shape=(N, m, *item))
+    common.check_tensor(mask, "slab_append mask", device=dev, dtypes=(torch.bool,), shape=(N, m))
+    common.check_tensor(sizes, "slab_append sizes", device=dev, dtypes=(torch.int32,), shape=(N,))
+    for name, t in (("owners", owners), ("bases", bases)):
+        common.check_tensor(t, f"slab_append {name}", device=dev, dtypes=(torch.int32,),
+                            shape=(n_slabs,))
+    pos = torch.empty((N, m), dtype=torch.int32, device=dev)
+    new_sizes = torch.empty_like(sizes)
+    if N == 0 or m == 0:
+        new_sizes.copy_(sizes)
+        return new_sizes, pos
+    live = tuple(e for e in extents if e.shape[0] > 0) or extents[:1]
+    item_bytes = _item_bytes(elems, item)
+    scratch = torch.empty_like(elems)
+    unit = common.copy_unit(item_bytes, elems, scratch, *live)
+    table = common.extent_table(live)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.rt_slab_append(
+            table.data_ptr(), len(live), n_slabs, owners.data_ptr(), bases.data_ptr(),
+            sizes.data_ptr(), elems.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+            pos.data_ptr(), new_sizes.data_ptr(), N, m, T, item_bytes, unit,
+            common.stream_of(dev),
+        )
+    common.check_status(rc, lib, "slab_append")
+    common.count_launch("slab_append")
+    return new_sizes, pos

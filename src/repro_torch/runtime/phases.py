@@ -12,7 +12,9 @@
   intact), or ``rebalance=True`` to redistribute the frozen contents evenly
   via ``from_flat``.
 
-Arena-backed pipelines (``from_arena``) come with the slab arena port.
+``from_arena`` runs the same lifecycle over a slab arena
+(``repro_torch.pool.SlabArena``): append claims shared-pool slabs (K12),
+freeze flattens through the page tables (K8/K9 + K7).
 """
 from __future__ import annotations
 
@@ -162,6 +164,7 @@ class TwoPhasePipeline:
             raise ValueError(f"flatten_impl {flatten_impl!r} not in {FLATTEN_IMPLS}")
         common.check_memory_space(memory_space)
         self._gg = gg.init(nblocks, b0, item_shape, dtype, nbuckets=nbuckets, device=device)
+        self._arena = None
         self._frozen: FrozenArray | None = None
         self._phase = Phase.GROW
         self.flatten_impl = flatten_impl
@@ -183,12 +186,39 @@ class TwoPhasePipeline:
         common.check_memory_space(memory_space)
         pipe = cls.__new__(cls)
         pipe._gg = arr
+        pipe._arena = None
         pipe._frozen = None
         pipe._phase = Phase.GROW
         pipe.flatten_impl = flatten_impl
         pipe.memory_space = memory_space
         pipe.stats = FreezeStats(host_syncs_fn=lambda: pipe._planner.host_syncs)
         pipe._planner = gg.CapacityPlanner.for_array(arr)  # one seed read
+        return pipe
+
+    @classmethod
+    def from_arena(cls, arena):
+        """Run the two-phase lifecycle over arena-backed storage.
+
+        ``arena`` is a :class:`repro_torch.pool.SlabArena` whose ``narrays``
+        play the role of blocks: append claims shared-pool slabs instead of
+        growing owned buckets, and freeze() flattens through the page tables
+        (paged gather + the same segmented global ordering).  The phase
+        discipline, the ``FrozenArray`` view and the stats are the same, so
+        consumers (``data/packing.py``'s Packer) switch backends without code
+        changes; extent arenas (``grow_chunk="doubling"``/``"tz"``) included,
+        where ``stats.grow_events`` counts zero-copy extent appends.
+        """
+        pipe = cls.__new__(cls)
+        pipe._gg = None
+        pipe._arena = arena
+        pipe._frozen = None
+        pipe._phase = Phase.GROW
+        pipe.flatten_impl = "segmented"
+        pipe.memory_space = arena.memory_space  # the arena owns the choice
+        # share the arena's registry: pool.* and runtime.* metrics land in
+        # one snapshot; the arena's planner backs host_syncs
+        pipe.stats = FreezeStats(arena.registry, host_syncs_fn=lambda: arena.host_syncs)
+        pipe._planner = None  # the arena's TenantPlanner owns the bounds
         return pipe
 
     # ---- introspection ---------------------------------------------------
@@ -199,20 +229,34 @@ class TwoPhasePipeline:
     @property
     def array(self) -> gg.GGArray:
         """The underlying GGArray (valid in either phase; grows only in GROW)."""
+        if self._gg is None:
+            raise PhaseError("arena-backed pipeline: use .arena, not .array")
         return self._gg
 
     @property
+    def arena(self):
+        if self._arena is None:
+            raise PhaseError("ggarray-backed pipeline: use .array, not .arena")
+        return self._arena
+
+    @property
+    def _store(self):
+        return self._arena if self._arena is not None else self._gg
+
+    @property
     def nblocks(self) -> int:
-        return self._gg.nblocks
+        return self._store.nblocks
 
     @property
     def sizes(self) -> torch.Tensor:
-        return self._gg.sizes
+        return self._store.sizes
 
     def total_size(self) -> int:
-        return int(self._gg.sizes.sum().item())
+        return int(self._store.sizes.sum().item())
 
     def memory_elems(self) -> int:
+        if self._arena is not None:
+            return self._arena.memory_elems()
         return gg.memory_elems(self._gg)
 
     def _require(self, phase: Phase, op: str) -> None:
@@ -236,6 +280,12 @@ class TwoPhasePipeline:
         """
         self._require(Phase.GROW, "append")
         reg = self.stats.registry
+        if self._arena is not None:
+            before = self._arena.pool_grow_events
+            pos = self._arena.append(elems, mask)
+            reg.counter("runtime.grow_events").inc(self._arena.pool_grow_events - before)
+            reg.counter("runtime.appends").inc()
+            return pos
         before = self._gg.nbuckets
         self._gg = self._planner.reserve(self._gg, elems.shape[1], mask=mask)
         reg.counter("runtime.grow_events").inc(self._gg.nbuckets - before)
@@ -249,16 +299,19 @@ class TwoPhasePipeline:
         """Flatten into a contiguous global-order array; enter FROZEN phase."""
         self._require(Phase.GROW, "freeze")
         t0 = time.perf_counter()
-        arr = self._gg
-        starts = gg.block_starts(arr)
-        if self.flatten_impl == "core" or arr.item_shape:
-            flat, total = gg.flatten(arr)
+        if self._arena is not None:
+            flat, total, starts = self._arena.flatten()
         else:
-            flat = flatten_ops.flatten(
-                arr.buckets, arr.sizes, arr.b0, impl=self.flatten_impl,
-                memory_space=self.memory_space,
-            )
-            total = torch.sum(arr.sizes, dtype=torch.int32)
+            arr = self._gg
+            starts = gg.block_starts(arr)
+            if self.flatten_impl == "core" or arr.item_shape:
+                flat, total = gg.flatten(arr)
+            else:
+                flat = flatten_ops.flatten(
+                    arr.buckets, arr.sizes, arr.b0, impl=self.flatten_impl,
+                    memory_space=self.memory_space,
+                )
+                total = torch.sum(arr.sizes, dtype=torch.int32)
         if flat.is_cuda:
             torch.cuda.synchronize(flat.device)  # wall time covers the device work
         dt = time.perf_counter() - t0
@@ -279,6 +332,11 @@ class TwoPhasePipeline:
         ``rebalance=True`` redistributes the frozen contents evenly instead."""
         self._require(Phase.FROZEN, "thaw")
         t0 = time.perf_counter()
+        if rebalance and self._arena is not None:
+            raise PhaseError(
+                "arena-backed pipelines cannot rebalance on thaw: slabs are "
+                "shared-pool pages, not redistributable owned buffers"
+            )
         if rebalance:
             frozen = self._frozen
             assert frozen is not None
@@ -296,7 +354,7 @@ class TwoPhasePipeline:
         reg.histogram("runtime.thaw_ms", "thaw() wall-clock").observe(
             (time.perf_counter() - t0) * 1e3
         )
-        return self._gg
+        return self._store
 
     # ---- FROZEN phase ----------------------------------------------------
     @property

@@ -44,6 +44,8 @@ def test_every_module_imports_without_jax_or_repro():
     out = _run(code)
     assert out.strip().endswith("[]"), out
     assert "repro_torch.runtime.phases" in MODULES and "repro_torch.convert" in MODULES
+    assert {"repro_torch.pool.arena", "repro_torch.kernels.paged.ops",
+            "repro_torch.data.packing"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():
@@ -56,7 +58,8 @@ def test_sources_name_no_jax_and_no_reference_package():
 def test_import_needs_no_nvcc_and_builds_nothing():
     code = (
         "import repro_torch.runtime, repro_torch.kernels.flatten.ops, "
-        "repro_torch.kernels.push_back.ops, repro_torch.kernels.scan_tile.ops\n"
+        "repro_torch.kernels.push_back.ops, repro_torch.kernels.scan_tile.ops, "
+        "repro_torch.kernels.paged.ops, repro_torch.pool, repro_torch.data\n"
         "from repro_torch.kernels import _build\n"
         "print(len(_build._loaded))\n"
     )
@@ -112,3 +115,33 @@ def test_kernel_launchers_refuse_non_cuda_tensors(kind):
         else:
             fl.flatten_segmented((torch.zeros((2, 2), device=meta),),
                                  torch.zeros(2, dtype=torch.int32, device=meta), 2)
+
+
+def test_arena_entry_points_need_a_card_unless_asked_for_cpu():
+    from repro_torch.data import Packer
+    from repro_torch.pool import SlabArena, init_extent_pool
+    from repro_torch.pool.arena import init_pool
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    for make in (lambda: SlabArena(2, 4), lambda: init_extent_pool(2, 4),
+                 lambda: init_pool(2, 4), lambda: Packer(backend="arena")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert SlabArena(2, 4, device="cpu").pool.free.device.type == "cpu"
+
+
+def test_cpu_arena_path_launches_no_kernel():
+    from repro_torch.kernels import common
+    from repro_torch.pool import SlabArena
+    from repro_torch.runtime import TwoPhasePipeline
+
+    common.reset_launch_counts()
+    for grow_chunk in (1, "doubling"):
+        pipe = TwoPhasePipeline.from_arena(SlabArena(3, 2, grow_chunk=grow_chunk, device="cpu"))
+        for _ in range(3):
+            pipe.append(torch.ones((3, 5)))
+        pipe.freeze()
+        pipe.arena.logical_view()
+    assert common.launch_counts() == {k: 0 for k in common.KERNELS}
+    assert {"paged_gather", "paged_gather_extents", "slab_append"} <= set(common.KERNELS)

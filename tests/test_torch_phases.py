@@ -167,3 +167,42 @@ def test_item_shape_routes_to_core_flatten():
     fo, fr = ours.freeze(), ref.freeze()
     assert tuple(fo.data.shape) == (ours.memory_elems(), 3)
     _assert_frozen_same(fo, fr)
+
+
+@pytest.mark.parametrize("grow_chunk", [1, "doubling", "tz"])
+def test_from_arena_lifecycle_matches_reference(grow_chunk):
+    """Arena-backed pipelines (``from_arena``): positions, freeze, thaw,
+    regrow, refreeze and stats bitwise equal to the JAX package's."""
+    from repro.pool import SlabArena as RefArena
+    from repro_torch.pool import SlabArena
+
+    ours = TwoPhasePipeline.from_arena(SlabArena(4, 4, grow_chunk=grow_chunk, device="cpu"))
+    ref = RefPipeline.from_arena(RefArena(4, 4, dtype=jnp.float32, grow_chunk=grow_chunk))
+    for i, (elems, mask) in enumerate(_waves(5, mmax=9)):
+        host = i % 2 == 0
+        p_o = ours.append(torch.from_numpy(elems), mask if host else torch.from_numpy(mask))
+        p_r = ref.append(jnp.asarray(elems), mask if host else jnp.asarray(mask))
+        np.testing.assert_array_equal(p_o.numpy(), np.asarray(p_r))
+    _assert_frozen_same(ours.freeze(), ref.freeze())
+    assert ours.thaw() is ours.arena
+    ref.thaw()
+    with pytest.raises(PhaseError):
+        ours.array
+    for elems, mask in _waves(6, steps=2):
+        ours.append(torch.from_numpy(elems), mask)
+        ref.append(jnp.asarray(elems), mask)
+    _assert_frozen_same(ours.freeze(), ref.freeze())
+    with pytest.raises(PhaseError, match="rebalance"):
+        ours.thaw(rebalance=True)
+    for name in ("appends", "grow_events", "freezes", "thaws", "host_syncs", "elements_frozen"):
+        assert getattr(ours.stats, name) == getattr(ref.stats, name), name
+    assert ours.total_size() == ref.total_size()
+    assert ours.memory_elems() == ref.memory_elems()
+    assert ours.nblocks == ref.nblocks == 4
+    np.testing.assert_array_equal(ours.sizes.numpy(), np.asarray(ref.sizes))
+
+
+def test_ggarray_pipeline_has_no_arena():
+    pipe = TwoPhasePipeline(nblocks=2, b0=2, device="cpu")
+    with pytest.raises(PhaseError):
+        pipe.arena

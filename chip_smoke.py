@@ -7,13 +7,15 @@ Run from the root of the repository.  Phases, one JSON line each:
 
 1. device — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build — every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc``.
-3. kernels — K1 (row scan), K3 (push-back), K6 (compaction), K7
-   (segmented gather), K8/K9 (paged gather, one extent / many) and K12
-   (slab append) against their plain PyTorch versions, bitwise, at small
+3. kernels — K1 (row scan), K3 (push-back, one group and the KV cache's
+   two), K6 (compaction), K7 (segmented gather), K8/K9 (paged gather, one
+   extent / many) and K12 (slab append) against their plain PyTorch
+   versions, bitwise; K13 (flash prefill) and K10/K11 (paged decode
+   attention) within the reference tests' attention tolerances; at small
    ragged shapes (three payload types, scalar and (8, 128) items, flat /
    doubling / tz extents, page -1, fuzzed owner tables) and at the main
    paths' shapes, with the kernel's, the plain version's and (where one
-   exists) a library call's times and the bytes bound.
+   exists) a library call's times and the bound (bytes, or bf16 flops for K13).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -30,8 +32,22 @@ Run from the root of the repository.  Phases, one JSON line each:
    items in 2048-token slabs: one ragged prefill wave, 32 decode waves, the
    logical view and the flatten checked bitwise).  ``Packer(backend="arena")``
    against ``Packer(backend="pipeline")`` on 256 documents.
-6. kernels — one line listing every ported kernel.
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. serving — qwen2.5-3b at full width with random bf16 weights and the
+   reference's TPU-kernel settings (``attention_impl="pallas"``,
+   ``paged_attend_impl="pallas"``).  ``serve.engine``: ``Engine(policy=
+   "ggarray")`` on 4 prompts of 256-1792 tokens (padded to 1792) and 320
+   new tokens — one growth, no bytes copied, one host sync; prefill, TTFT,
+   decode steps under the sync check.  ``serve.batch.doubling`` and
+   ``serve.batch.1``: ``BatchEngine`` with 8 slots and 16 (12) requests of
+   512-4096 tokens, 64 new, chunked admission, over doubling extents (K11)
+   and a flat pool grown by realloc (K10); free list, pool bound, reuse,
+   copied bytes, two host syncs, steady decode steps under the sync check.
+   ``serve.cross_check``: Engine's last-position prefill logits (K13) against
+   BatchEngine's (chunked prefill).  ``serve.captured``: K13, K3 (two
+   groups), K10/K11 against their plain versions on layer-0 inputs captured
+   from those runs.
+7. kernels — one line listing every ported kernel.
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are zeroed just before each path and read just after it; a
 kernel of a path that never launched fails the run.  Any failed check raises and the script exits non-zero.  Without a CUDA
@@ -58,6 +74,9 @@ PEAK_BYTES_PER_S = (
 )
 # Integer adds and compares run on the CUDA cores: the fp32 non-tensor peak.
 PEAK_OPS_PER_S = 67e12
+# Dense bf16 tensor-core peak of an H100 SXM (NVIDIA's data sheet): the
+# bound of attention's products, whatever the kernel computes them with.
+PEAK_BF16_FLOPS = 989e12
 
 KERNELS = {
     "row_scan": ("src/repro_torch/csrc/scan_tile.cu",
@@ -74,6 +93,14 @@ KERNELS = {
                              "src/repro/kernels/paged/kernel.py:229"),
     "slab_append": ("src/repro_torch/csrc/paged.cu",
                     "src/repro/kernels/paged/kernel.py:687"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:67"),
+    "paged_attend": ("src/repro_torch/csrc/paged_attend.cu",
+                     "src/repro/kernels/paged/kernel.py:377"),
+    "paged_attend_extents": ("src/repro_torch/csrc/paged_attend.cu",
+                             "src/repro/kernels/paged/kernel.py:523"),
+    "push_back_multi": ("src/repro_torch/csrc/push_back.cu",
+                        "src/repro/kernels/push_back/kernel.py:255"),
 }
 
 SLICE1_KERNELS = ("row_scan", "push_back", "compact_blocks", "segmented_gather")
@@ -86,6 +113,18 @@ STEADY_M, STEADY_WAVES = 64, 16
 # then 32 decode steps.
 KV_ARRAYS, KV_ITEM, KV_MIN, KV_MAX, KV_DECODE = 64, (8, 128), 1024, 16384, 32
 PACK_DOCS, PACK_MIN, PACK_MAX, PACK_BLOCKS = 256, 512, 8192, 64
+# Serving: qwen2.5-3b at full width (src/repro/configs/qwen25_3b.py: 36
+# layers, d_model 2048, 16 heads over 2 KV heads of 128, d_ff 11008, vocab
+# 151936, bf16), random weights from the seed.  Engine: 4 prompts of
+# 256-1792 tokens (padded to 1792, a multiple of K13's 256 tile) and 320 new
+# tokens, so the longest crosses cache_b0 = 2048 once.  BatchEngine: 8 slots,
+# 16 requests of 512-4096 prompt tokens, 64 new tokens, 2048-token slabs.
+SERVE_ARCH, SERVE_PROMPTS, SERVE_MIN, SERVE_LEN, SERVE_NEW, SERVE_SLAB = "qwen2.5-3b", 4, 256, 1792, 320, 2048
+BATCH_SLOTS, BATCH_REQS, BATCH_MIN, BATCH_MAX, BATCH_NEW = 8, 16, 512, 4096, 64
+# The flat (grow_chunk=1) BatchEngine run serves 12 requests (more than its 8
+# slots, so freed slabs are reused): every growth there reallocates and
+# copies the whole pool.
+BATCH_REQS_FLAT = 12
 DEV = "cuda"
 
 
@@ -105,9 +144,9 @@ def peak_bytes_per_s(name: str) -> float:
     raise RuntimeError(f"no bandwidth figure for card {name!r}")
 
 
-def bound_ms(nbytes: float, nops: float, name: str) -> tuple[float, str]:
+def bound_ms(nbytes: float, nops: float, name: str, peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / peak_bytes_per_s(name) * 1e3
-    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -123,6 +162,33 @@ def cuda_ms(fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: for calls whose Python wrapper takes longer than
+    the kernel, ``cuda_ms`` would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up: builds, extent tables, allocator pools
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -275,6 +341,8 @@ def kernel_phase(card: str, gen) -> dict:
     torch.cuda.empty_cache()
     paged_cases(card, rand_payload, note, timing)
     torch.cuda.synchronize()
+    serve_kernel_cases(card, res, timing)
+    torch.cuda.synchronize()
     for name in KERNELS:
         r, t = res[name], timing[name]
         r.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
@@ -283,6 +351,7 @@ def kernel_phase(card: str, gen) -> dict:
         if "extra" in t:
             emit({"phase": "kernel.kv", "name": name, "card": card, **t["extra"]})
         check(r["mismatches"] == 0, f"{name}: {r['mismatches']} elements differ from the plain version")
+        check(r["cases"] > 0, f"{name}: never held against its plain version")
     return res
 
 
@@ -489,6 +558,239 @@ def paged_cases(card: str, payload, note, timing) -> None:
               view_shape=f"pages ({KV_ARRAYS}, 16), {S} live, 2 extents, out {view_bytes} bytes")
     timing["slab_append"]["extra"] = kv
     del exts, wide, owners, bases, pages
+    torch.cuda.empty_cache()
+
+
+# Attention tolerances of the reference's own tests
+# (tests/kernels/test_attention_kernels.py): rtol = atol = 2e-3 in f32,
+# test_flash_dtypes' 2e-2 in bf16.
+ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+def close(res: dict, name: str, got, want, tol: float) -> None:
+    """Hold a float kernel's output against its plain version: elements
+    with |got - want| > tol + tol |want| count as mismatches (allclose)."""
+    import torch
+
+    g, w = got.double(), want.double()
+    if g.shape != w.shape:
+        bad, err = max(g.numel(), w.numel(), 1), float("inf")
+    else:
+        diff = (g - w).abs()
+        bad = int((~(diff <= tol + tol * w.abs())).sum().item())
+        err = float(diff.max().item()) if diff.numel() else 0.0
+    r = res[name]
+    r["mismatches"] += bad
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["tolerance"] = max(r.get("tolerance", 0.0), tol)
+    r["cases"] += 1
+
+
+def flash_case(res, gen, B, H, KH, Sq, Skv, D, dtype, causal, layout="bhsd"):
+    """K13 on (B, H, S, D) views — contiguous, or strided out of the model's
+    (B, S, H, D) layout — against ``ref.attention``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.flash_attention import ref as r_fa
+
+    def mk(heads, S):
+        if layout == "bshd":
+            return torch.randn((B, S, heads, D), generator=gen, device=DEV).to(dtype).transpose(1, 2)
+        return torch.randn((B, heads, S, D), generator=gen, device=DEV).to(dtype)
+
+    q, k, v = mk(H, Sq), mk(KH, Skv), mk(KH, Skv)
+    out = torch.empty_like(q)
+    got = k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=causal, sm_scale=D ** -0.5)
+    want = r_fa.attention(q.reshape(B * H, Sq, D), k.reshape(B * KH, Skv, D), v.reshape(B * KH, Skv, D),
+                          group=H // KH, causal=causal)
+    close(res, "flash_attention", got.reshape(B * H, Sq, D), want, ATTN_TOL[str(dtype).split(".")[-1]])
+    return q, k, v, out
+
+
+def attend_inputs(gen, B, KH, G, D, T, S, P, dtype, lengths):
+    """A random page table of distinct slabs for ``lengths`` (page -1 past
+    each sequence's pages and in one random live-page hole), q and a pool."""
+    import torch
+
+    pages = torch.full((B, P), -1, dtype=torch.int32)
+    perm = torch.randperm(S, generator=torch.Generator().manual_seed(S + P))
+    k = 0
+    for b, n in enumerate(lengths):
+        for p in range(min(-(-int(n) // T), P)):
+            pages[b, p] = int(perm[k])
+            k += 1
+    q = torch.randn((B, KH, G, D), generator=gen, device=DEV) * D ** -0.5
+    pool_k = torch.randn((S, T, KH, D), generator=gen, device=DEV).to(dtype)
+    pool_v = torch.randn((S, T, KH, D), generator=gen, device=DEV).to(dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).to(DEV)
+    return q, pool_k, pool_v, pages.to(DEV), lens
+
+
+def attend_case(res, q, pool_k, pool_v, pages, lens, layout):
+    """K10 (flat) or K11 (extents) against ``ref.attend_paged`` on the
+    reference's head-major view of the same pool."""
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+
+    S = pool_k.shape[0]
+    sizes = _extent_sizes(S, layout)
+    if sum(sizes) > S:
+        sizes[-1] -= sum(sizes) - S
+    sizes = [n for n in sizes if n > 0]
+    kx, vx = _split(pool_k, sizes), _split(pool_v, sizes)
+    got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+    want = r_pg.attend_paged(q, pool_k.permute(2, 0, 1, 3), pool_v.permute(2, 0, 1, 3), pages, lens)
+    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want,
+          ATTN_TOL["float32"])
+    return kx, vx
+
+
+def push_back_multi_case(res, gen, n, b0, nlev, m, item, sizes, p_live=1.0):
+    """The two-group K3 (k and v) against the plain push-back, group by
+    group, bitwise."""
+    import torch
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    def lv():
+        return tuple(torch.randn((n, w, *item), generator=gen, device=DEV).to(torch.bfloat16)
+                     for w in indexing.bucket_sizes(b0, nlev))
+
+    groups = (lv(), lv())
+    elems = tuple(torch.randn((n, m, *item), generator=gen, device=DEV).to(torch.bfloat16)
+                  for _ in groups)
+    mask = torch.rand((n, m), generator=gen, device=DEV) < p_live
+    got = tuple(tuple(x.clone() for x in g) for g in groups)
+    ns, pos = k_pb.push_back_cuda_multi(got, sizes, b0, elems, mask)
+    pairs = []
+    for g, (levels, e) in enumerate(zip(groups, elems)):
+        want = tuple(x.clone() for x in levels)
+        _, ws, wp = r_pb.push_back(want, sizes, b0, e, mask)
+        pairs += [*zip(got[g], want), (ns, ws), (pos, wp)]
+    r = res["push_back_multi"]
+    for a, b in pairs:
+        mism, err = compare(a, b)
+        r["mismatches"] += mism
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["cases"] += 1
+    return groups, elems, mask
+
+
+def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
+    """K13, K10/K11 and the two-group K3 against their plain versions at
+    small ragged shapes and at the serving paths' shapes, then timed there."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.flash_attention import ref as r_fa
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+
+    # K13: the reference test's shapes, a ragged length (100 = one tile of
+    # its own), every head dim, both dtypes, causal and not, both layouts.
+    for B, H, KH, Sq, Skv, D in ((1, 2, 2, 128, 128, 64), (1, 4, 2, 256, 256, 32),
+                                 (1, 2, 2, 64, 128, 128), (2, 4, 2, 100, 100, 16),
+                                 (3, 8, 1, 37, 37, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                flash_case(res, gen, B, H, KH, Sq, Skv, D, dtype, causal,
+                           "bshd" if (B + D) % 2 else "bhsd")
+    # the slice's shape: 4 prompts x 16 heads over 2 kv heads, 1792 tokens
+    B, H, KH, S, D = SERVE_PROMPTS, 16, 2, SERVE_LEN, 128
+    for causal in (False, True):
+        q, k, v, out = flash_case(res, gen, B, H, KH, S, S, D, torch.bfloat16, causal, "bshd")
+    qh, kh, vh = (x.reshape(-1, S, D) for x in (q, k, v))
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
+    timing["flash_attention"] = dict(
+        ms=cuda_ms(lambda: k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=True,
+                                                     sm_scale=D ** -0.5), 10),
+        plain_ms=cuda_ms(lambda: r_fa.attention(qh, kh, vh, group=H // KH, causal=True), 3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                  enable_gqa=True), 10),
+        bound=bound_ms(2 * (2 * B * H * S * D + 2 * B * KH * S * D), 4 * B * H * pairs * D, card,
+                       PEAK_BF16_FLOPS),
+        shape=f"q ({B}, {S}, {H}, {D}) bf16 strided, kv heads {KH}, causal",
+    )
+    del q, k, v, out, qh, kh, vh
+
+    # K10/K11: small ragged cases — page -1, lengths 0, inside a slab and at
+    # a slab's end, flat / doubling / tz extents, f32 and bf16 pools.
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in ("flat", "doubling", "tz"):
+            T, P, G, KH, D = 8, 5, 4, 2, 32
+            lengths = [0, 3, 8, 17, 40, 29]
+            S = sum(-(-n // T) for n in lengths) + 3
+            q, pk, pv, pages, lens = attend_inputs(gen, len(lengths), KH, G, D, T, S, P, dtype, lengths)
+            pages[4, 1] = -1  # an unclaimed hole inside a live sequence
+            attend_case(res, q, pk, pv, pages, lens, layout)
+    # the serving shape: q (8, 2, 8, 128) f32 over 2048-token bf16 slabs,
+    # lengths of BatchEngine's requests mid-decode
+    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
+    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
+                                             device=DEV).cpu()]
+    P = max(-(-n // T) for n in lengths)
+    S = sum(-(-n // T) for n in lengths)
+    q, pk, pv, pages, lens = attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    live_bytes = 2 * sum(lengths) * KH * D * 2
+    small = q.numel() * 4 * 2 + pages.numel() * 4 + Bq * 4
+    idx = pages.clamp(min=0).flatten().long()
+    kvmask = (torch.arange(P * T, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+    def library():
+        kg = pk.index_select(0, idx).view(Bq, P * T, KH, D).transpose(1, 2)
+        vg = pv.index_select(0, idx).view(Bq, P * T, KH, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.reshape(Bq, KH * G, 1, D).to(torch.bfloat16), kg, vg,
+                                              attn_mask=kvmask, scale=1.0, enable_gqa=True)
+
+    for layout, name in (("flat", "paged_attend"), ("doubling", "paged_attend_extents")):
+        kx, vx = attend_case(res, q, pk, pv, pages, lens, layout)
+        # device times from CUDA-graph replays: each call is shorter than
+        # its Python wrapper (cuda_ms of the kernel's wrapper, host-bound,
+        # is in the shape string)
+        timing[name] = dict(
+            ms=graph_ms(lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens), 20),
+            plain_ms=graph_ms(lambda: r_pg.attend_paged(q, pk.permute(2, 0, 1, 3), pv.permute(2, 0, 1, 3),
+                                                        pages, lens), 5),
+            library_ms=graph_ms(library, 20),
+            bound=bound_ms(live_bytes + small, 0, card),
+            shape=f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
+                  f"pages ({Bq}, {P}), {sum(lengths)} live tokens; CUDA-graph times; one call "
+                  f"from Python {cuda_ms(lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens), 20)} ms",
+        )
+        del kx, vx
+    del q, pk, pv, pages, lens, idx, kvmask
+
+    # the two-group K3: ragged waves over one and nine levels, then the
+    # Engine's decode append (4 sequences, m = 1, items (2, 128) bf16, the
+    # two levels of a cache grown once)
+    for n, b0, nlev, m in ((3, 2, 1, 1), (5, 2, 9, 7), (37, 4, 4, 130)):
+        cap = (b0 << nlev) - b0
+        sizes = torch.randint(0, cap + 1, (n,), generator=gen, device=DEV, dtype=torch.int32)
+        push_back_multi_case(res, gen, n, b0, nlev, m, (2, 8), sizes, p_live=0.6)
+    sizes = torch.randint(SERVE_SLAB, 2 * SERVE_SLAB, (SERVE_PROMPTS,), generator=gen, device=DEV,
+                          dtype=torch.int32)
+    groups, elems, mask = push_back_multi_case(res, gen, SERVE_PROMPTS, SERVE_SLAB, 2, 1, (KH, D), sizes)
+    item_bytes = KH * D * 2
+    timing["push_back_multi"] = dict(
+        ms=graph_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50),
+        plain_ms=graph_ms(lambda: [r_pb.push_back(g, sizes, SERVE_SLAB, e, mask)
+                                   for g, e in zip(groups, elems)], 20),
+        library_ms=None,
+        bound=bound_ms(SERVE_PROMPTS * (1 + 4 + 4 + 4 + 4 * item_bytes), 0, card),
+        shape=f"2 groups x 2 levels of ({SERVE_PROMPTS}, {SERVE_SLAB}*2^b, {KH}, {D}) bf16, "
+              f"wave ({SERVE_PROMPTS}, 1); CUDA-graph times; one call from Python "
+              f"{cuda_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50)} ms",
+    )
+    del groups, elems, mask
     torch.cuda.empty_cache()
 
 
@@ -933,6 +1235,335 @@ def arena_paths(card: str, seed: int) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 6: serving qwen2.5-3b (Engine over the GGArray KV cache, BatchEngine
+# over the slab arena).
+# --------------------------------------------------------------------------
+
+def clone_tree(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+class Capture:
+    """Record (cloned) the arguments of the first call of ``module.name``
+    inside the ``with`` block — layer 0 of the first prefill or decode step
+    — so the kernel can be held against its plain version on them later."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig, self.args = module, name, getattr(module, name), None
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            if self.args is None:
+                self.args = clone_tree((args, kwargs))  # before the kernel writes in place
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def serve_model(seed: int):
+    """qwen2.5-3b at full width with the reference's TPU-kernel settings
+    (attention_impl="pallas", paged_attend_impl="pallas"), random bf16
+    weights made on the card from the seed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get(SERVE_ARCH), attention_impl="pallas", paged_attend_impl="pallas")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 300)
+    return cfg, transformer.init_params(cfg, gen)
+
+
+def kv_bytes_per_token(cfg) -> int:
+    return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2  # k and v, bf16
+
+
+def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
+    """Engine(policy="ggarray"): 4 prompts, 320 new tokens, one growth."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.flash_attention import ref as r_fa
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+    from repro_torch.serving import steps
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import sample
+
+    lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
+    lens[-1] = SERVE_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    common.reset_launch_counts()
+    eng = Engine(params, cfg, device=DEV)
+    with Capture(k_fa, "flash_attention_cuda") as cap_fa, Capture(k_pb, "push_back_cuda_multi") as cap_pb:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, SERVE_NEW)  # ends in the token drain: synchronised
+        wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    syncs = eng.obs.registry.counter("serve.host_syncs")
+    st = eng.stats
+    check(st.grow_events >= 1, "serve.engine: the cache never grew")
+    check(st.copied_bytes == 0, "serve.engine: ggarray growth copied bytes")
+    check(st.host_syncs == 1 and syncs.value(site="token_drain") == 1,
+          f"serve.engine: {st.host_syncs} host syncs, expected only the final token drain")
+    for p, o in zip(prompts, out):
+        check(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p, "serve.engine: output length / prompt")
+        check(all(0 <= t < cfg.vocab_size for t in o[len(p):]), "serve.engine: token outside the vocab")
+    for name in ("flash_attention", "push_back_multi"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the serve.engine path")
+
+    # layer 0 of the prefill (K13) and of the first decode step (K3, two
+    # groups), against the plain versions on the captured inputs
+    (q, k, v, o_), kw = cap_fa.args
+    got = k_fa.flash_attention_cuda(q, k, v, torch.empty_like(o_), **kw)
+    B, H, S, D = q.shape
+    want = r_fa.attention(q.reshape(B * H, S, D), k.reshape(-1, S, D), v.reshape(-1, S, D),
+                          group=kw["group"], causal=kw["causal"])
+    close(res, "flash_attention", got.reshape(B * H, S, D), want, ATTN_TOL["bfloat16"])
+    (groups, sizes, b0, elems, mask), _ = cap_pb.args
+    work = clone_tree(groups)
+    ns, pos = k_pb.push_back_cuda_multi(work, sizes, b0, elems, mask)
+    r = res["push_back_multi"]
+    for g, e, w in zip(groups, elems, work):
+        _, ws, wp = r_pb.push_back(g, sizes, b0, e, mask)
+        for a, b in [*zip(w, g), (ns, ws), (pos, wp)]:
+            r["mismatches"] += compare(a, b)[0]
+    r["cases"] += 1
+    del cap_fa, cap_pb, q, k, v, o_, got, want, groups, elems, work
+
+    # timed: prefill (K13 in every layer), first token, then decode steps
+    # (K3 + the bucket walk) timed by CUDA events under the sync check
+    toks = np.zeros((SERVE_PROMPTS, SERVE_LEN), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d = torch.from_numpy(toks).to(DEV)
+    lens_d = torch.from_numpy(lens.astype(np.int32)).to(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
+                                   lengths=lens_d)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = sample(None, logits)
+    torch.cuda.synchronize()
+    ttft_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all().item()), "serve.engine: prefill logits not finite")
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(16)]
+    length = lens_d
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a, b in ev:
+            a.record()
+            step_logits, caches = steps.decode_step(params, tok, caches, length, cfg)
+            tok = sample(None, step_logits)
+            b.record()
+            length = length + 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(step_logits).all().item()), "serve.engine: decode logits not finite")
+    step_ms = sorted(a.elapsed_time(b) for a, b in ev)
+    live_tokens = int(lens.sum()) + SERVE_PROMPTS * (SERVE_NEW - 1)
+    line = {"phase": "serve.engine", "card": card, "arch": SERVE_ARCH, "prompts": lens.tolist(),
+            "new_tokens": SERVE_NEW, "prefill_s": prefill_s, "ttft_s": ttft_s,
+            "prefill_tokens_per_s": SERVE_PROMPTS * SERVE_LEN / prefill_s,
+            "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_step_ms": step_ms,
+            "generate_s": wall, "tokens_per_s": SERVE_PROMPTS * SERVE_NEW / wall,
+            "grow_events": st.grow_events, "copied_bytes": st.copied_bytes,
+            "allocated_kv_bytes": st.allocated_bytes,
+            "live_kv_bytes": live_tokens * kv_bytes_per_token(cfg), "host_syncs": st.host_syncs,
+            "launches": {k: v for k, v in launches.items() if v}, "ok": True}
+    emit(line)
+    first = logits.float()
+    del caches, logits, step_logits, eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"prompts": prompts, "out": out, "logits": first, "launches": launches}
+
+
+def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict) -> dict:
+    """BatchEngine: 8 slots, ``nreq`` requests of 512-4096 prompt tokens and
+    64 new tokens, chunked admission; steady decode steps under the sync
+    check."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.serving.engine import BatchEngine
+
+    what = f"serve.batch.{grow_chunk}"
+    lens = rng.integers(BATCH_MIN, BATCH_MAX + 1, nreq)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    common.reset_launch_counts()
+    be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, grow_chunk=grow_chunk, device=DEV)
+    rids = [be.submit(p, BATCH_NEW) for p in prompts]
+    steady_ev = []
+    with Capture(k_pg, "paged_attend_cuda") as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            quiet = not be.sched.pending and not be.sched.prefilling
+            if quiet:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    a.record()
+                    more = be.step()
+                    b.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                steady_ev.append((a, b))
+            else:
+                more = be.step()
+            if not more:
+                break
+        out = be.run()  # the two drains
+        wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    st = be.stats
+    syncs = be.obs.registry.counter("serve.host_syncs")
+    run_syncs = st.host_syncs  # before check_free_list, which reads the device
+    check(run_syncs == 2 and syncs.value(site="stream_drain") == 1
+          and syncs.value(site="first_token_drain") == 1,
+          f"{what}: {run_syncs} host syncs, expected the two drains of run()")
+    be.check_free_list()
+    # The reference holds its flat pool (grow_chunk=1) to pool < 2 peak live
+    # + T max_batch (tests/serving/test_batch_engine.py:81).  Doubling
+    # extents may overshoot the demand (live + one partial slab per slot,
+    # reserved prompts included) by up to 2x, so that run is held to
+    # 2 (peak live + T max_batch).
+    bound = (2 * st.peak_live_tokens + be.T * be.B if grow_chunk == 1
+             else 2 * (st.peak_live_tokens + be.T * be.B))
+    check(st.peak_pool_tokens < bound, f"{what}: pool {st.peak_pool_tokens} >= bound {bound}")
+    check(st.reused_slabs > 0, f"{what}: completed sequences' slabs were not reused")
+    check(len(steady_ev) >= 1, f"{what}: no steady-state decode step")
+    extents = sum(1 for n in be._extent_sizes if n > 0) if grow_chunk == "doubling" else 1
+    if grow_chunk == "doubling":
+        check(st.pool_copied_bytes == 0, f"{what}: extent growth copied pool bytes")
+        check(extents > 1, f"{what}: the pool never grew past one extent")
+    for rid, p in zip(rids, prompts):
+        o = out[rid]
+        check(len(o) == len(p) + BATCH_NEW and o[:len(p)] == p, f"{what}: output length / prompt")
+        check(all(0 <= t < cfg.vocab_size for t in o[len(p):]), f"{what}: token outside the vocab")
+    need = "paged_attend_extents" if grow_chunk == "doubling" else "paged_attend"
+    check(launches[need] >= 1, f"kernel {need} never launched on the {what} path")
+
+    # layer 0 of the first decode step, against the plain version
+    (q, kx, vx, pages, lens_d), _ = cap.args
+    got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens_d)
+    want = r_pg.attend_paged(q, torch.cat(kx).permute(2, 0, 1, 3), torch.cat(vx).permute(2, 0, 1, 3),
+                             pages, lens_d)
+    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want, ATTN_TOL["float32"])
+    del cap, q, kx, vx, got, want
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
+    ttft = be.obs.registry.histogram("serve.ttft_ms")
+    generated = sum(len(out[r]) - len(p) for r, p in zip(rids, prompts))
+    emit({"phase": what, "card": card, "arch": SERVE_ARCH, "requests": nreq, "slots": BATCH_SLOTS,
+          "prompt_tokens": int(lens.sum()), "new_tokens": BATCH_NEW, "run_s": wall,
+          "tokens_per_s": generated / wall, "prefill_tokens_per_s_overall": int(lens.sum()) / wall,
+          "ttft_ms_median": ttft.quantile(0.5), "ttft_ms_max": ttft.quantile(1.0),
+          "steady_steps": len(steady_ev), "steady_step_ms_median": step_ms[len(step_ms) // 2],
+          "decode_steps": st.decode_steps, "prefill_chunks": st.prefill_chunks,
+          "peak_live_tokens": st.peak_live_tokens, "peak_pool_tokens": st.peak_pool_tokens,
+          "pool_bound_tokens": bound,
+          "pool_grow_events": st.pool_grow_events, "pool_copied_bytes": st.pool_copied_bytes,
+          "reused_slabs": st.reused_slabs, "extents": extents, "host_syncs": run_syncs,
+          "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+    del be
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_cross_check(card: str, cfg, params, engine_run: dict) -> None:
+    """Engine's last-position prefill logits (K13, one padded batch) against
+    BatchEngine's (chunked prefill, one prompt at a time) on the same
+    prompts; the share of greedy tokens on which the two agree is printed,
+    not gated (random weights make near-ties)."""
+    import torch
+
+    from repro_torch.serving.engine import BatchEngine
+
+    class Capturing(BatchEngine):
+        def _finish_prefill(self, req, slot, logits):
+            self.prefill_logits[req.rid] = logits[0].float()
+            super()._finish_prefill(req, slot, logits)
+
+    be = Capturing(params, cfg, max_batch=BATCH_SLOTS, grow_chunk="doubling", device=DEV)
+    be.prefill_logits = {}
+    prompts = engine_run["prompts"]
+    n_new = BATCH_NEW
+    out = be.run_all(prompts, n_new)
+    V = cfg.vocab_size  # the padded vocab columns hold -1e30 on both sides
+    a = engine_run["logits"][:, :V]
+    b = torch.stack([be.prefill_logits[r] for r in range(len(prompts))])[:, :V]
+    rel = float(((a - b).norm() / a.norm()).item())
+    err = float((a - b).abs().max().item())
+    same = sum(x == y for o, e, p in zip(out, engine_run["out"], prompts)
+               for x, y in zip(o[len(p):], e[len(p):len(p) + n_new]))
+    # bf16 activations through 36 layers, two attention paths (K13 on the
+    # padded batch, chunked f32 einsums one prompt at a time)
+    tol = 5e-2
+    emit({"phase": "serve.cross_check", "card": card, "prompts": len(prompts),
+          "logits_max_abs_err": err, "logits_max_abs": float(a.abs().max().item()),
+          "logits_rel_l2_err": rel, "rel_l2_tolerance": tol,
+          "greedy_agreement": same / (len(prompts) * n_new), "ok": rel <= tol})
+    check(rel <= tol, f"serve cross-check: prefill logits differ by {rel} (relative L2) > {tol}")
+    del be
+    torch.cuda.empty_cache()
+
+
+def serve_paths(card: str, seed: int, res: dict) -> dict:
+    """The serving paths, launch counts zeroed before each and read after →
+    the counts summed over the paths."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 200)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = serve_model(seed)
+    eng = serve_engine_path(card, cfg, params, rng, res)
+    runs = {"engine": eng["launches"],
+            "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res),
+            "batch.flat": serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)}
+    serve_cross_check(card, cfg, params, eng)
+    r = {k: {n: res[k][n] for n in ("mismatches", "max_abs_err", "cases")}
+         for k in ("flash_attention", "push_back_multi", "paged_attend", "paged_attend_extents")}
+    emit({"phase": "serve.captured", "card": card, "kernels": r})
+    for name, v in r.items():
+        check(v["mismatches"] == 0, f"{name}: the serving run's captured inputs disagree with the plain version")
+    emit({"phase": "serve.launches", "card": card, "launches": runs,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del params
+    torch.cuda.empty_cache()
+    total = {k: 0 for k in KERNELS}
+    for counts in runs.values():
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -981,19 +1612,24 @@ def main() -> int:
 
     # 5. the arena's paths
     arena_launches = arena_paths(card, args.seed)
-    launches = {k: launches[k] + arena_launches[k] for k in KERNELS}
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line
+    # 6. the serving paths
+    serve_launches = serve_paths(card, args.seed, res)
+    launches = {k: launches[k] + arena_launches[k] + serve_launches[k] for k in KERNELS}
+
+    # 7. the kernels line
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], "mismatches": res[name]["mismatches"],
+         "tolerance": res[name].get("tolerance", 0.0),
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": res[name]["library_ms"],
          "shape": res[name]["shape"], "card": card}
         for name in KERNELS
     ]})
-    # 7. the last line
+    # 8. the last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,7 +6,10 @@ reference's leaves given as numpy arrays (``np.asarray`` of each bucket
 level and of ``sizes``); ``ggarray_to_numpy`` goes back.
 ``arena_from_numpy`` / ``arena_to_numpy`` do the same for a
 :class:`~repro_torch.pool.SlabArena`, as a dict of numpy arrays (see
-:data:`ARENA_KEYS`).  numpy has no
+:data:`ARENA_KEYS`).  ``params_from_numpy`` turns the reference's model
+parameter tree (layers stacked along the period axis) into the port's,
+which has the same structure, so both packages compute the same function.
+numpy has no
 bfloat16 of its own: ``np.asarray`` of a JAX bf16 array gives an
 ``ml_dtypes`` bfloat16 array, which torch does not take, so bf16 travels as
 its ``uint16`` bit pattern — accepted on the way in (by dtype name) and
@@ -28,6 +31,7 @@ __all__ = [
     "arena_to_numpy",
     "ggarray_from_numpy",
     "ggarray_to_numpy",
+    "params_from_numpy",
     "tensor_from_numpy",
     "tensor_to_numpy",
 ]
@@ -143,3 +147,43 @@ def arena_from_numpy(
         book.page_of_slab[row] = np.arange(len(row))
     arena.planner.ub = np.asarray(sizes if live_ub is None else live_ub, np.int64).copy()
     return arena
+
+
+def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" = None) -> Any:
+    """The reference's parameter tree as numpy → the port's, on ``device``.
+
+    ``tree`` is ``jax.tree.map(np.asarray, params)`` of the reference's
+    ``transformer.init_params``: ``{"embed", "final_norm", "layers": [slot
+    dicts with leaves stacked over n_periods], ("unembed")}``.  The port
+    keeps that structure leaf for leaf.  bf16 leaves may come as ml_dtypes
+    bfloat16 or as their ``uint16`` bits; every leaf must have
+    ``cfg.param_dtype``.
+    """
+    from repro_torch.models.transformer import DTYPES, check_supported
+
+    check_supported(cfg)
+    want = DTYPES[cfg.param_dtype]
+
+    def leaf(path: str, arr) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if arr.dtype == np.uint16 and want == torch.bfloat16:
+            t = tensor_from_numpy(arr.view(np.int16), device).view(torch.bfloat16)
+        else:
+            t = tensor_from_numpy(arr, device)
+        if t.dtype != want:
+            raise TypeError(f"params_from_numpy: {path} is {t.dtype}, config says {want}")
+        return t
+
+    def walk(path: str, node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(f"{path}/{k}", v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(f"{path}/{i}", v) for i, v in enumerate(node)]
+        return leaf(path, node)
+
+    out = walk("", tree)
+    for i, slot in enumerate(out["layers"]):
+        if slot["norm1"].shape[0] != cfg.n_periods:
+            raise ValueError(f"params_from_numpy: layers/{i} holds {slot['norm1'].shape[0]} "
+                             f"periods, config says {cfg.n_periods}")
+    return out

@@ -1,6 +1,7 @@
-// Shared by every kernel library of the port: the C-side error string and
-// the block-wide exclusive scan that the row scan (K1) and the fused
-// push-back (K3) both use.
+// Shared by every kernel library of the port: the C-side error string, the
+// block-wide exclusive scan that the row scan (K1) and the fused push-back
+// (K3) both use, and the extent-table lookup of the paged kernels (K8, K9,
+// K10, K11, K12).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,4 +43,19 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total
   *total = smem[kWarps - 1];
   __syncthreads();
   return warp_prefix + x - v;
+}
+
+// Base address of slab s (0 <= s < start_E) through the extent table
+// [ptr_0 .. ptr_{E-1}, start_0 .. start_E] of `next` extents
+// (kernels/common.py::extent_table): the last e with start_e <= s, found by
+// binary search, then ptr_e + (s - start_e) * slab_bytes.
+__device__ __forceinline__ char* slab_address(const int64_t* __restrict__ tbl, int next,
+                                              int64_t s, int64_t slab_bytes) {
+  const int64_t* start = tbl + next;
+  int lo = 0, hi = next - 1;  // last e with start[e] <= s
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= s) lo = mid; else hi = mid - 1;
+  }
+  return reinterpret_cast<char*>(tbl[lo]) + (s - start[lo]) * slab_bytes;
 }

@@ -54,18 +54,6 @@ constexpr int64_t kGatherUnitsPerBlock = kGatherThreads * 16;
 constexpr int kCompactThreads = 1024;
 constexpr int kScatterThreads = 512;
 
-// Base address of slab s (0 <= s < start_E) through the extent table.
-__device__ __forceinline__ char* slab_address(const int64_t* __restrict__ tbl, int next,
-                                              int64_t s, int64_t slab_bytes) {
-  const int64_t* start = tbl + next;
-  int lo = 0, hi = next - 1;  // last e with start[e] <= s
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (start[mid] <= s) lo = mid; else hi = mid - 1;
-  }
-  return reinterpret_cast<char*>(tbl[lo]) + (s - start[lo]) * slab_bytes;
-}
-
 template <typename U>
 __global__ void __launch_bounds__(kGatherThreads)
 paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, int clip_high,

@@ -13,7 +13,7 @@ a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
   mode="drop")``, and :func:`scatter_levels_` built on it, shared by the
   plain versions and ``core.ggarray``;
 * :func:`extent_table`, the device table through which the paged kernels
-  (K8/K9, K12) address a pool of one or many extents — it replaces the
+  (K8/K9, K10/K11, K12) address a pool of one or many extents — it replaces the
   reference's per-extent operands and ``kernels/common.py::extent_row``.
 """
 from __future__ import annotations
@@ -46,6 +46,7 @@ __all__ = [
 KERNELS = (
     "row_scan", "push_back", "compact_blocks", "segmented_gather",
     "paged_gather", "paged_gather_extents", "slab_append",
+    "flash_attention", "paged_attend", "paged_attend_extents", "push_back_multi",
 )
 
 _launches = {name: 0 for name in KERNELS}
@@ -146,9 +147,10 @@ def copy_unit(nbytes: int, *tensors: torch.Tensor) -> int:
 
 # Extent tables by (device, extent pointers and sizes); a pool's table is
 # built once per geometry, so an append or a gather copies nothing to the
-# card unless the pool grew.
+# card unless the pool grew.  A served model holds two pools (k and v) per
+# layer, each with its own table: 36 layers need 72 live entries.
 _extent_tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
-_EXTENT_TABLES_KEPT = 64
+_EXTENT_TABLES_KEPT = 1024
 
 
 def extent_table(extents: tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -205,11 +207,13 @@ def put_drop_(
     valid = valid.expand(lane_shape).reshape(-1)
     idx = [i.expand(lane_shape).reshape(-1).to(torch.int64) for i in index]
     vals = vals.expand(*lane_shape, *item).reshape(nlanes, *item)
-    first = torch.argmax(valid.to(torch.int32))  # first valid lane, else 0
-    any_valid = valid[first]
+    # first valid lane, else 0; taken with index_select, since indexing by
+    # a 0-d device tensor reads it on the host
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    any_valid = valid.index_select(0, first)[0]
     zero = torch.zeros((), dtype=torch.int64, device=dst.device)
-    rep_idx = [torch.where(any_valid, i[first], zero) for i in idx]
-    rep_val = torch.where(any_valid, vals[first], dst[(0,) * len(index)])
+    rep_idx = [torch.where(any_valid, i.index_select(0, first)[0], zero) for i in idx]
+    rep_val = torch.where(any_valid, vals.index_select(0, first)[0], dst[(0,) * len(index)])
     lane_valid = valid.reshape((nlanes,) + (1,) * len(item))
     idx = [torch.where(valid, i, r) for i, r in zip(idx, rep_idx)]
     vals = torch.where(lane_valid, vals, rep_val)

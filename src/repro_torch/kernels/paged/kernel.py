@@ -1,9 +1,12 @@
-"""K8/K9 and K12 launchers: the CUDA paged gather and slab append (``csrc/paged.cu``).
+"""K8/K9, K12 and K10/K11 launchers: the CUDA paged gather and slab append
+(``csrc/paged.cu``) and the paged decode attention (``csrc/paged_attend.cu``).
 
 K8 replaces ``repro/kernels/paged/kernel.py::paged_gather_pallas``, K9
-``::paged_gather_pallas_extents`` and K12 ``::slab_append_pallas``.  Both
-kernels address the pool through :func:`repro_torch.kernels.common.extent_table`,
-so one launch covers every extent.  Items of any shape are carried as raw
+``::paged_gather_pallas_extents``, K12 ``::slab_append_pallas``, K10
+``::paged_attend_pallas`` and K11 ``::paged_attend_pallas_extents``.  Every
+kernel addresses the pool through
+:func:`repro_torch.kernels.common.extent_table`, so one launch covers every
+extent.  Items of any shape are carried as raw
 bytes (16-byte units where sizes and addresses allow).  The slab append
 writes the extents in place — the counterpart of the reference's donated,
 aliased pool.
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build, common
 
-__all__ = ["paged_gather_cuda", "slab_append_cuda"]
+__all__ = ["paged_gather_cuda", "slab_append_cuda", "paged_attend_cuda", "ATTEND_SEGMENT"]
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -33,6 +36,24 @@ def _lib():
     ]
     lib.rt_slab_append.restype = _int
     return lib
+
+
+def _attend_lib():
+    lib = _build.library("paged_attend")
+    lib.rt_paged_attend.argtypes = [
+        _c, _c, _int, _i64, _int, _c, _c, _c,  # ktable .. lengths
+        _c, _c, _c, _c, _int,  # part_m, part_l, part_acc, out, dtype
+        _i64, _i64, _i64, _i64, _i64, _i64, _i64, _c,  # B, KH, G, D, P, T, seg, stream
+    ]
+    lib.rt_paged_attend.restype = _int
+    return lib
+
+
+# Tokens per pass-1 block of the paged attention (csrc/paged_attend.cu).
+ATTEND_SEGMENT = 256
+ATTEND_HEAD_DIMS = (16, 32, 64, 128)
+ATTEND_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ATTEND_MAX_GROUP = 16
 
 
 def _check_extents(extents: tuple[torch.Tensor, ...], what: str) -> tuple[torch.device, int, tuple]:
@@ -141,3 +162,73 @@ def slab_append_cuda(
     common.check_status(rc, lib, "slab_append")
     common.count_launch("slab_append")
     return new_sizes, pos
+
+
+def paged_attend_cuda(
+    q: torch.Tensor,
+    k_extents: tuple[torch.Tensor, ...],
+    v_extents: tuple[torch.Tensor, ...],
+    pages: torch.Tensor,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K10 (one extent) or K11 (several) → ``(B, KH, G, D)`` f32.
+
+    ``q``: ``(B, KH, G, D)`` f32, pre-scaled; ``k_extents``/``v_extents``:
+    each ``(S_e, T, KH, D)``, the token-major slabs the cache holds, in global
+    slab-id order, none empty, the same geometry for k and v; ``pages``:
+    ``(B, P)`` int32 global slab ids; ``lengths``: ``(B,)`` int32.  Page −1
+    and pages at or past the length are skipped; ids past the pool read the
+    last slab of one flat pool and are skipped through extents.
+    """
+    dev, T, item = _check_extents(k_extents, "paged_attend k")
+    dev_v, T_v, item_v = _check_extents(v_extents, "paged_attend v")
+    if (dev_v, T_v, item_v) != (dev, T, item) or [e.shape[0] for e in k_extents] != [
+            e.shape[0] for e in v_extents] or v_extents[0].dtype != k_extents[0].dtype:
+        raise ValueError("paged_attend: k and v pools differ in geometry or dtype")
+    if len(item) != 2:
+        raise ValueError(f"paged_attend pool: expected slabs (S_e, T, KH, D), got item {item}")
+    KH, D = item
+    if q.ndim != 4:
+        raise ValueError(f"paged_attend q: expected (B, KH, G, D), got {tuple(q.shape)}")
+    B, _, G, _ = q.shape
+    common.check_tensor(q, "paged_attend q", device=dev, dtypes=(torch.float32,),
+                        shape=(B, KH, G, D))
+    common.check_tensor(lengths, "paged_attend lengths", device=dev, dtypes=(torch.int32,),
+                        shape=(B,))
+    common.check_tensor(pages, "paged_attend pages", device=dev, dtypes=(torch.int32,))
+    if pages.ndim != 2 or pages.shape[0] != B:
+        raise ValueError(f"paged_attend pages: expected ({B}, P), got {tuple(pages.shape)}")
+    if D not in ATTEND_HEAD_DIMS:
+        raise ValueError(f"paged_attend: head dim {D} not in {ATTEND_HEAD_DIMS}")
+    if not 1 <= G <= ATTEND_MAX_GROUP:
+        raise ValueError(f"paged_attend: {G} query heads per kv head, supported 1..{ATTEND_MAX_GROUP}")
+    dtype = ATTEND_POOL_DTYPES.get(k_extents[0].dtype)
+    if dtype is None:
+        raise TypeError(f"paged_attend: pool dtype {k_extents[0].dtype} not in "
+                        f"{tuple(ATTEND_POOL_DTYPES)}")
+    if any(e.shape[0] == 0 for e in k_extents):
+        raise ValueError("paged_attend: empty extents must be dropped first")
+    P = pages.shape[1]
+    out = torch.empty((B, KH, G, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    seg = min(T, ATTEND_SEGMENT)
+    nparts = P * (-(-T // seg))
+    part_m = torch.empty((B * KH * nparts * G,), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B * KH * nparts * G * D,), dtype=torch.float32, device=dev)
+    n_slabs = sum(e.shape[0] for e in k_extents)
+    ktable = common.extent_table(tuple(k_extents))
+    vtable = common.extent_table(tuple(v_extents))
+    lib = _attend_lib()
+    with torch.cuda.device(dev):
+        rc = lib.rt_paged_attend(
+            ktable.data_ptr(), vtable.data_ptr(), len(k_extents), n_slabs,
+            int(len(k_extents) == 1), q.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), dtype,
+            B, KH, G, D, P, T, seg, common.stream_of(dev),
+        )
+    name = "paged_attend" if len(k_extents) == 1 else "paged_attend_extents"
+    common.check_status(rc, lib, name)
+    common.count_launch(name)
+    return out

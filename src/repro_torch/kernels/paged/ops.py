@@ -1,4 +1,4 @@
-"""Paged ops: the wrappers around K8/K9 and K12 — port of ``paged/ops.py``.
+"""Paged ops: the wrappers around K8/K9, K10/K11 and K12 — port of ``paged/ops.py``.
 
 A pool argument is one tensor ``(S, T, *item)``, a tuple or list of extents
 ``(S_e, T, *item)`` in global slab-id order, or a
@@ -95,17 +95,21 @@ def paged_attend(
 ) -> torch.Tensor:
     """→ (B, KH, G, D) f32 attention output through the page table.
 
-    The plain version on the CPU; on a CUDA tensor it raises until K10/K11
-    (paged flash-decode attention) are ported with serving.
+    One extent is K10, several are K11; both read the token-major slabs in
+    place (no transpose, no concatenation of extents on the card).  The
+    plain version on the CPU takes the reference's head-major view of the
+    concatenated pool.  A pool with no slabs attends to nothing: zeros.
     """
     common.check_memory_space(memory_space)
     _no_instrument(instrument)
     k_exts = _live(_extents_of(k_pool)[0])
     v_exts = _live(_extents_of(v_pool)[0])
+    if sum(e.shape[0] for e in k_exts) == 0:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     if q.device.type != "cpu":
-        raise NotImplementedError(
-            "paged_attend needs K10/K11 (paged attention), not ported to CUDA "
-            "yet (ROADMAP.md, Queue 2)"
+        return _kernel.paged_attend_cuda(
+            q.to(torch.float32).contiguous(), k_exts, v_exts,
+            pages.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous(),
         )
     k1 = k_exts[0] if len(k_exts) == 1 else torch.cat(k_exts, 0)
     v1 = v_exts[0] if len(v_exts) == 1 else torch.cat(v_exts, 0)

@@ -2,9 +2,9 @@
 
 Each computes what its kernel computes, on any device: the wrappers in
 ``ops.py`` take them for CPU tensors, and ``chip_smoke.py`` holds the CUDA
-kernels against them on the card.  Data movement only (the attention is a
-float reduction and has no kernel in the port yet), so the gathers and the
-append are bitwise the reference's oracles.
+kernels against them on the card.  The gathers and the append move data, so
+they are bitwise the reference's oracles; the attention (K10/K11) is a float
+reduction, held within a stated tolerance.
 """
 from __future__ import annotations
 

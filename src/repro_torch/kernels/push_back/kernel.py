@@ -4,8 +4,8 @@ Replaces ``repro/kernels/push_back/kernel.py::push_back_pallas``.  The level
 tensors are written in place — the counterpart of the reference's
 ``input_output_aliases`` on the levels.  Items of any shape are carried as
 ``item_bytes`` of raw bits per lane.  The C side takes a [group][level]
-pointer table; this slice launches one group (the multi-group KV-cache
-append comes with serving).
+pointer table: one launch writes up to four payload groups that share the
+mask (the KV cache's k and v), each with its own item size.
 """
 from __future__ import annotations
 
@@ -16,11 +16,12 @@ import torch
 from repro_torch.core import indexing
 from repro_torch.kernels import _build, common
 
-__all__ = ["push_back_cuda", "PAYLOAD_DTYPES"]
+__all__ = ["push_back_cuda", "push_back_cuda_multi", "PAYLOAD_DTYPES"]
 
 # Payloads are copied as 2- or 4-byte words.
 PAYLOAD_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.float16)
 MAX_LEVELS = 32
+MAX_GROUPS = 4  # csrc/push_back.cu kMaxGroups
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -50,42 +51,79 @@ def push_back_cuda(
     ``sizes``: ``(nblocks,)`` int32; ``elems``: ``(nblocks, m, *item)``;
     ``mask``: ``(nblocks, m)`` bool.  All contiguous, on one CUDA device.
     """
-    dev = elems.device
+    return push_back_cuda_multi((levels,), sizes, b0, (elems,), mask)
+
+
+def push_back_cuda_multi(
+    level_groups: tuple[tuple[torch.Tensor, ...], ...],
+    sizes: torch.Tensor,
+    b0: int,
+    elem_groups: tuple[torch.Tensor, ...],
+    mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 once over ``len(level_groups)`` payload groups → (new sizes,
+    positions).
+
+    Every group shares the one offset scan and the one mask: group g's wave
+    ``elem_groups[g]`` ``(nblocks, m, *item_g)`` lands in its own levels
+    ``level_groups[g]`` (level b ``(nblocks, B0·2^b, *item_g)``, written in
+    place) at the same positions — the KV cache's k and v in one launch.
+    """
+    if not 1 <= len(level_groups) <= MAX_GROUPS or len(elem_groups) != len(level_groups):
+        raise ValueError(f"push_back: {len(level_groups)} level groups and {len(elem_groups)} "
+                         f"payload groups, supported 1..{MAX_GROUPS} of each, equal counts")
+    elems0 = elem_groups[0]
+    dev = elems0.device
     if dev.type != "cuda":
         raise ValueError(f"push_back_cuda: tensors on {dev}, expected cuda")
-    if elems.ndim < 2:
-        raise ValueError(f"push_back elems: expected (nblocks, m, *item), got {tuple(elems.shape)}")
-    nblocks, m = elems.shape[:2]
-    item = tuple(elems.shape[2:])
-    if not 1 <= len(levels) <= MAX_LEVELS:
-        raise ValueError(f"push_back: {len(levels)} levels, supported 1..{MAX_LEVELS}")
-    common.check_tensor(elems, "push_back elems", device=dev, dtypes=PAYLOAD_DTYPES)
+    if elems0.ndim < 2:
+        raise ValueError(f"push_back elems: expected (nblocks, m, *item), got {tuple(elems0.shape)}")
+    nblocks, m = elems0.shape[:2]
+    nlevels = len(level_groups[0])
+    if not 1 <= nlevels <= MAX_LEVELS:
+        raise ValueError(f"push_back: {nlevels} levels, supported 1..{MAX_LEVELS}")
     common.check_tensor(mask, "push_back mask", device=dev, dtypes=(torch.bool,),
                         shape=(nblocks, m))
     common.check_tensor(sizes, "push_back sizes", device=dev, dtypes=(torch.int32,),
                         shape=(nblocks,))
-    for b, (level, width) in enumerate(zip(levels, indexing.bucket_sizes(b0, len(levels)))):
-        common.check_tensor(level, f"push_back level {b}", device=dev, dtypes=(elems.dtype,),
-                            shape=(nblocks, width, *item))
+    widths = indexing.bucket_sizes(b0, nlevels)
+    item_bytes = []
+    for g, (levels, elems) in enumerate(zip(level_groups, elem_groups)):
+        common.check_tensor(elems, f"push_back elems[{g}]", device=dev, dtypes=PAYLOAD_DTYPES)
+        if tuple(elems.shape[:2]) != (nblocks, m):
+            raise ValueError(f"push_back elems[{g}]: shape {tuple(elems.shape)}, expected "
+                             f"({nblocks}, {m}, *item)")
+        if len(levels) != nlevels:
+            raise ValueError(f"push_back group {g}: {len(levels)} levels, expected {nlevels}")
+        item = tuple(elems.shape[2:])
+        for b, (level, width) in enumerate(zip(levels, widths)):
+            common.check_tensor(level, f"push_back group {g} level {b}", device=dev,
+                                dtypes=(elems.dtype,), shape=(nblocks, width, *item))
+        nbytes = elems.element_size()
+        for d in item:
+            nbytes *= d
+        item_bytes.append(nbytes)
     pos = torch.empty((nblocks, m), dtype=torch.int32, device=dev)
     new_sizes = torch.empty_like(sizes)
     if nblocks == 0 or m == 0:
         new_sizes.copy_(sizes)
         return new_sizes, pos
-    item_bytes = elems.element_size()
-    for d in item:
-        item_bytes *= d
     lib = _lib()
-    level_ptrs = (ctypes.c_void_p * len(levels))(*(lv.data_ptr() for lv in levels))
-    elem_ptrs = (ctypes.c_void_p * 1)(elems.data_ptr())
-    nbytes = (ctypes.c_int64 * 1)(item_bytes)
+    ngroups = len(level_groups)
+    level_ptrs = (ctypes.c_void_p * (ngroups * nlevels))(
+        *(lv.data_ptr() for levels in level_groups for lv in levels))
+    elem_ptrs = (ctypes.c_void_p * ngroups)(*(e.data_ptr() for e in elem_groups))
+    nbytes = (ctypes.c_int64 * ngroups)(*item_bytes)
     with torch.cuda.device(dev):
         rc = lib.rt_push_back(
             ctypes.cast(level_ptrs, _c), ctypes.cast(elem_ptrs, _c),
-            ctypes.cast(nbytes, _c), 1, len(levels),
+            ctypes.cast(nbytes, _c), ngroups, nlevels,
             mask.data_ptr(), sizes.data_ptr(), pos.data_ptr(), new_sizes.data_ptr(),
             nblocks, m, b0, common.stream_of(dev),
         )
-    common.check_status(rc, lib, "push_back")
-    common.count_launch("push_back")
+    # one launch either way; the multi-group launch (the KV cache's k and v)
+    # is counted apart so a run shows which of the two it went through
+    name = "push_back" if ngroups == 1 else "push_back_multi"
+    common.check_status(rc, lib, name)
+    common.count_launch(name)
     return new_sizes, pos

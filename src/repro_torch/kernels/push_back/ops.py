@@ -35,8 +35,8 @@ def push_back_fused_multi(
 ) -> tuple:
     """→ (level groups written in place, new sizes (nblocks,), positions (−1 masked)).
 
-    On a CUDA device this slice launches one group; more groups raise
-    ``NotImplementedError`` (the multi-group launch is queued in ROADMAP.md).
+    Every group shares the mask and the positions.  On a CUDA device all
+    groups go through one launch of K3 (up to four groups).
     """
     common.check_memory_space(memory_space)
     common.check_dispatch(dispatch)
@@ -51,13 +51,9 @@ def push_back_fused_multi(
         for levels, elems in zip(level_groups, elem_groups):
             _, new_sizes, pos = _ref.push_back(levels, sizes, b0, elems, mask)
         return level_groups, new_sizes, pos
-    if len(level_groups) != 1:
-        raise NotImplementedError(
-            "multi-group push-back on CUDA is not ported yet (ROADMAP.md, slice 3)"
-        )
-    new_sizes, pos = _kernel.push_back_cuda(
-        level_groups[0], sizes.to(torch.int32).contiguous(), b0,
-        elem_groups[0].contiguous(), mask.contiguous(),
+    new_sizes, pos = _kernel.push_back_cuda_multi(
+        level_groups, sizes.to(torch.int32).contiguous(), b0,
+        tuple(e.contiguous() for e in elem_groups), mask.contiguous(),
     )
     return level_groups, new_sizes, pos
 

@@ -1,5 +1,6 @@
-"""Telemetry of the port — so far only the metrics registry that
-``runtime.FreezeStats`` reads (port of ``repro.obs.registry``)."""
+"""Telemetry of the port (``repro.obs``): the metrics registry, span tracing
+and the serving timeline.  The flight recorder and the device counter plane
+(K15) come with slice 4 (ROADMAP.md)."""
 from repro_torch.obs.registry import (
     Counter,
     Gauge,
@@ -8,6 +9,8 @@ from repro_torch.obs.registry import (
     MetricsRegistry,
     default_registry,
 )
+from repro_torch.obs.timeline import ServingTimeline
+from repro_torch.obs.trace import Span, Tracer
 
 __all__ = [
     "Counter",
@@ -15,5 +18,8 @@ __all__ = [
     "GaugeFn",
     "Histogram",
     "MetricsRegistry",
+    "ServingTimeline",
+    "Span",
+    "Tracer",
     "default_registry",
 ]

@@ -46,6 +46,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.runtime.phases" in MODULES and "repro_torch.convert" in MODULES
     assert {"repro_torch.pool.arena", "repro_torch.kernels.paged.ops",
             "repro_torch.data.packing"} <= set(MODULES)
+    assert {"repro_torch.configs.registry", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention.ops", "repro_torch.serving.kvcache",
+            "repro_torch.serving.engine", "repro_torch.obs.timeline",
+            "repro_torch.launch.serve"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():
@@ -59,7 +63,9 @@ def test_import_needs_no_nvcc_and_builds_nothing():
     code = (
         "import repro_torch.runtime, repro_torch.kernels.flatten.ops, "
         "repro_torch.kernels.push_back.ops, repro_torch.kernels.scan_tile.ops, "
-        "repro_torch.kernels.paged.ops, repro_torch.pool, repro_torch.data\n"
+        "repro_torch.kernels.paged.ops, repro_torch.pool, repro_torch.data, "
+        "repro_torch.kernels.flash_attention.ops, repro_torch.serving.engine, "
+        "repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build\n"
         "print(len(_build._loaded))\n"
     )

@@ -5,8 +5,8 @@ seeded inputs, bitwise, for f32, int32 and bf16, scalar and non-scalar
 items, page −1 and ids past the pool, fuzzed owners/bases tables with free
 slabs, and lanes that land past every claimed slab.  Mirrors the gather and
 slab-append parts of ``tests/kernels/test_paged.py``; the paged attention
-(a float reduction, CPU plain version only until K10/K11) is held within a
-stated tolerance."""
+(K10/K11, a float reduction) is held within a stated tolerance against the
+reference's interpret-mode kernels."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -339,7 +339,7 @@ def test_cuda_launchers_refuse_non_cuda_tensors(kind):
             ops.slab_append(pool, torch.zeros(4, **i32), torch.zeros(4, **i32),
                             torch.zeros(2, **i32), torch.zeros((2, 3, 3), device=meta),
                             torch.ones((2, 3), dtype=torch.bool, device=meta))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="expected cuda"):
         ops.paged_attend(torch.zeros((1, 1, 1, 2), device=meta), pool, pool, pages[:1],
                          torch.ones(1, dtype=torch.int32, device=meta))
 
@@ -361,3 +361,41 @@ def test_to_device_passes_tensors_through_and_converts_host_data():
     np.testing.assert_array_equal(common.to_device(np.asarray([[True, False]]), cpu).numpy(),
                                   [[True, False]])
     assert common.to_device([1.5, 2.0], cpu).dtype == torch.float32  # torch.as_tensor's rules
+
+
+@pytest.mark.parametrize("layout", ["flat", "doubling", "tz"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attend_serving_cases_match_reference(layout, dtype):
+    """K10/K11's plain version at serving-like cases — lengths of 0, inside
+    a slab and at its end, an unclaimed (-1) page inside a live sequence,
+    G = 8 query heads per KV head — against the reference's paged_attend
+    (its Pallas kernels in interpret mode), within 2e-3 (f32 arithmetic in
+    another order; bf16 pools are read exactly)."""
+    from repro_torch.pool import extents as ext_mod
+
+    rng = np.random.default_rng(3)
+    T, KH, G, D = 4, 2, 8, 16
+    lengths = [0, 3, 4, 9, 14]
+    P = 4
+    S = sum(-(-n // T) for n in lengths) + 2
+    pages = _fleet(rng, S, len(lengths), P, [-(-n // T) for n in lengths])
+    pages[4, 1] = -1
+    kp = _data(rng, (S, T, KH, D), dtype)
+    vp = _data(rng, (S, T, KH, D), dtype)
+    q = rng.standard_normal((len(lengths), KH, G, D)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    if layout == "flat":
+        cuts = ()
+    else:
+        sizes = ext_mod.plan_extents((), S, layout) if layout == "tz" else [2, 2, 4, 8, 16]
+        cuts = tuple(int(c) for c in np.cumsum(sizes) if c < S)
+    kparts, vparts = _split(kp, cuts), _split(vp, cuts)
+    if len(kparts) == 1:
+        kp_p, vp_p, kp_r, vp_r = _t(kp), _t(vp), jnp.asarray(kp), jnp.asarray(vp)
+    else:
+        kp_p, vp_p = tuple(_t(e) for e in kparts), tuple(_t(e) for e in vparts)
+        kp_r, vp_r = tuple(jnp.asarray(e) for e in kparts), tuple(jnp.asarray(e) for e in vparts)
+    ours = ops.paged_attend(_t(q), kp_p, vp_p, torch.from_numpy(pages), torch.from_numpy(lens))
+    theirs = rops.paged_attend(jnp.asarray(q), kp_r, vp_r, jnp.asarray(pages), jnp.asarray(lens))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-3, atol=2e-3)
+    assert np.all(ours.numpy()[0] == 0), "a sequence of length 0 reads zeros"

@@ -171,3 +171,48 @@ def test_multi_group_plain_path_shares_one_mask():
         for a, b in zip(grp, one):
             assert torch.equal(a, b)
         assert torch.equal(s1, sizes_m) and torch.equal(p1, pos_m)
+
+
+@pytest.mark.parametrize("nblocks,b0,nlev,m", [(4, 8, 2, 1), (3, 2, 4, 5), (5, 3, 1, 9)])
+def test_two_groups_match_reference_multi_group(nblocks, b0, nlev, m):
+    """The KV cache's append: k and v as two payload groups of (KH, D) bf16
+    items sharing one mask, against the reference's multi-group kernel
+    (interpret mode), bitwise — levels, sizes and positions."""
+    rng = np.random.default_rng(nblocks * 100 + m)
+    widths = [b0 << b for b in range(nlev)]
+    item = (2, 4)
+    levels = [[np.asarray(jnp.asarray(rng.standard_normal((nblocks, w, *item)), jnp.bfloat16))
+               for w in widths] for _ in range(2)]
+    elems = [np.asarray(jnp.asarray(rng.standard_normal((nblocks, m, *item)), jnp.bfloat16))
+             for _ in range(2)]
+    cap = b0 * ((1 << nlev) - 1)
+    sizes = rng.integers(0, cap + 1, nblocks).astype(np.int32)
+    mask = rng.random((nblocks, m)) < (1.0 if m == 1 else 0.6)
+    theirs = ref_pb.push_back_fused_multi(
+        tuple(tuple(jnp.asarray(x) for x in g) for g in levels), jnp.asarray(sizes), b0,
+        tuple(jnp.asarray(e) for e in elems), jnp.asarray(mask), interpret=True)
+    groups = tuple(tuple(_t(x) for x in g) for g in levels)
+    ours = pb.push_back_fused_multi(groups, torch.from_numpy(sizes), b0,
+                                    tuple(_t(e) for e in elems), torch.from_numpy(mask))
+    assert ours[0] is groups  # written in place
+    for g_ours, g_theirs in zip(ours[0], theirs[0]):
+        for a, b in zip(g_ours, g_theirs):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(theirs[1]))
+    np.testing.assert_array_equal(ours[2].numpy(), np.asarray(theirs[2]))
+
+
+def test_multi_group_launcher_checks_groups_before_the_card():
+    from repro_torch.kernels.push_back import kernel as k_pb
+
+    meta = torch.device("meta")
+    lv = (torch.zeros((2, 2, 3), device=meta),)
+    e = torch.zeros((2, 1, 3), device=meta)
+    sizes = torch.zeros(2, dtype=torch.int32, device=meta)
+    mask = torch.ones((2, 1), dtype=torch.bool, device=meta)
+    with pytest.raises(ValueError, match="expected cuda"):
+        pb.push_back_fused_multi((lv, lv), sizes, 2, (e, e), mask)
+    with pytest.raises(ValueError, match="supported 1..4"):
+        k_pb.push_back_cuda_multi((lv,) * 5, sizes, 2, (e,) * 5, mask)
+    with pytest.raises(ValueError, match="equal counts"):
+        k_pb.push_back_cuda_multi((lv, lv), sizes, 2, (e,), mask)

@@ -16,12 +16,31 @@ Run from the root of the repository.  Phases, one JSON line each:
    doubling / tz extents, page -1, fuzzed owner tables) and at the main
    paths' shapes, with the kernel's, the plain version's and (where one
    exists) a library call's times and the bound (bytes, or bf16 flops for K13).
+   K2 (tensor-core scan) bitwise on int32 masks and full-range int32, f32
+   within rtol 1e-3 / atol 1e-4; K5a (dispatch) and K5b (combine) bitwise
+   with unique positions, up to the freeze's 2.7e8 lanes (repeated
+   positions: int32 bitwise, floats within 1e-5 / 2e-2); K14 (flash-decode)
+   within 2 ulps (bf16) / 256 ulps (f32) of the output's largest magnitude,
+   head-major and token-major, lengths 0, inside and at S, the dead tail,
+   and the serving shape.
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
    grown by one more wave, refrozen and checked again; the same at one
    eighth of the size with ``method="tile"``; then 16 steady-state appends
    under ``torch.cuda.set_sync_debug_mode("error")``.
+   ``main.mxu``: the same grow with ``method="mxu"`` (K2), frozen by the
+   segmented gather and checked, frozen again with ``flatten_impl=
+   "dispatch"`` (K6 + K5a) and held bitwise against it (after adding +0.0:
+   the dispatch's scatter-add turns a -0.0 into +0.0, as the reference's
+   does); after the path's launch counts are read, the frozen array is read
+   back into the block-major plane through ``combine`` (K5b, which no path
+   of the reference calls) as a check.  ``baselines``: the same
+   eight waves into a static array sized for the end, a semi-static array
+   grown by realloc, one with memMap accounting and a GGArray, under the
+   insertion methods scan, tile (K1) and mxu (K2): per wave insert and
+   resize ms, allocated over live and copied bytes; contents checked.
+   ``lfvector``: one LFVector (b0 2048) pushed to 2^22 elements.
 5. arena paths — ``TwoPhasePipeline.from_arena(SlabArena(512, 2048,
    grow_chunk="doubling"))`` grown by the same eight waves, frozen, read and
    checked; every 4th array released and one more wave grown into the freed
@@ -45,7 +64,17 @@ Run from the root of the repository.  Phases, one JSON line each:
    ``serve.cross_check``: Engine's last-position prefill logits (K13) against
    BatchEngine's (chunked prefill).  ``serve.captured``: K13, K3 (two
    groups), K10/K11 against their plain versions on layer-0 inputs captured
-   from those runs.
+   from those runs.  ``serve.policies``: Engine under ``static``,
+   ``semistatic`` and ``two_phase`` on the same prompts, 272 new tokens
+   (one growth for the growing policies): TTFT, decode steps under the sync
+   check, grow/freeze events, copied and allocated bytes, one host sync;
+   the K/V written before the growth bitwise equal to ggarray's (the
+   realloc copy, thaw → grow → refreeze), first-step logits bitwise equal
+   to ggarray's (static: relative L2 <= 3e-2), the first step after the
+   growth within relative L2 3e-2; after the path's launch counts are read,
+   K14 (which no path of the reference calls) through its op on layer 0's
+   captured contiguous cache, held against its plain version and
+   ``kvcache.attend``.
 7. kernels — one line listing every ported kernel.
 8. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +130,14 @@ KERNELS = {
                              "src/repro/kernels/paged/kernel.py:523"),
     "push_back_multi": ("src/repro_torch/csrc/push_back.cu",
                         "src/repro/kernels/push_back/kernel.py:255"),
+    "row_scan_mxu": ("src/repro_torch/csrc/scan_mxu.cu",
+                     "src/repro/kernels/scan_mxu/kernel.py:55"),
+    "dispatch": ("src/repro_torch/csrc/dispatch.cu",
+                 "src/repro/kernels/dispatch_mxu/kernel.py:89"),
+    "combine": ("src/repro_torch/csrc/dispatch.cu",
+                "src/repro/kernels/dispatch_mxu/kernel.py:116"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:64"),
 }
 
 SLICE1_KERNELS = ("row_scan", "push_back", "compact_blocks", "segmented_gather")
@@ -125,6 +162,13 @@ BATCH_SLOTS, BATCH_REQS, BATCH_MIN, BATCH_MAX, BATCH_NEW = 8, 16, 512, 4096, 64
 # slots, so freed slabs are reused): every growth there reallocates and
 # copies the whole pool.
 BATCH_REQS_FLAT = 12
+# serve.policies: Engine under static / semistatic / two_phase on the
+# serve.engine prompts; 272 new tokens take the longest (1792) past
+# cache_b0 = 2048 after 256 decode steps, so each growing policy grows once.
+POLICY_NEW = 272
+# LFVector: one block, b0 = 2048, pushes of 2048 * 2^w (w = 0..10) and one
+# more of 2048, to 2^22 elements.
+LF_B0, LF_PUSHES = 2048, [2048 << w for w in range(11)] + [2048]
 DEV = "cuda"
 
 
@@ -342,6 +386,8 @@ def kernel_phase(card: str, gen) -> dict:
     paged_cases(card, rand_payload, note, timing)
     torch.cuda.synchronize()
     serve_kernel_cases(card, res, timing)
+    torch.cuda.synchronize()
+    slice4_kernel_cases(card, res, timing)
     torch.cuda.synchronize()
     for name in KERNELS:
         r, t = res[name], timing[name]
@@ -565,24 +611,48 @@ def paged_cases(card: str, payload, note, timing) -> None:
 # (tests/kernels/test_attention_kernels.py): rtol = atol = 2e-3 in f32,
 # test_flash_dtypes' 2e-2 in bf16.
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+# K14 against its plain version: both accumulate in f32 and differ only in
+# summation order (the plain f32 version alone is up to 13 f32 ulps of
+# max|out| off a float64 one at these shapes) and in the last rounding to
+# the output dtype, so the bound is tied to the output's scale: this many
+# ulps of the output dtype at max|want|, no relative term.
+K14_ULPS = {"float32": 256, "bfloat16": 2}
 
 
-def close(res: dict, name: str, got, want, tol: float) -> None:
-    """Hold a float kernel's output against its plain version: elements
-    with |got - want| > tol + tol |want| count as mismatches (allclose)."""
+def k14_tol(want) -> float:
+    """K14's absolute bound on ``want``'s elements: ``K14_ULPS`` ulps of its
+    dtype at its largest magnitude (0 where ``want`` is all zeros)."""
+    import math
+
     import torch
 
+    m = float(want.abs().max().item()) if want.numel() else 0.0
+    if m == 0.0:
+        return 0.0
+    ulp = torch.finfo(want.dtype).eps * 2.0 ** math.floor(math.log2(m))
+    return K14_ULPS[str(want.dtype).split(".")[-1]] * ulp
+
+
+def close(res: dict, name: str, got, want, tol: float, rtol: float | None = None) -> None:
+    """Hold a float kernel's output against its plain version: elements
+    with |got - want| > tol + rtol |want| count as mismatches (allclose;
+    rtol defaults to tol)."""
+    import torch
+
+    rtol = tol if rtol is None else rtol
     g, w = got.double(), want.double()
     if g.shape != w.shape:
         bad, err = max(g.numel(), w.numel(), 1), float("inf")
     else:
         diff = (g - w).abs()
-        bad = int((~(diff <= tol + tol * w.abs())).sum().item())
+        bad = int((~(diff <= tol + rtol * w.abs())).sum().item())
         err = float(diff.max().item()) if diff.numel() else 0.0
     r = res[name]
     r["mismatches"] += bad
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["tolerance"] = max(r.get("tolerance", 0.0), tol)
+    if rtol != tol:
+        r["rtol"] = max(r.get("rtol", 0.0), rtol)
     r["cases"] += 1
 
 
@@ -794,6 +864,203 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The reference's scan test shapes (tests/kernels/test_scan_kernels.py).
+SCAN_SHAPES = ((1, 1), (1, 128), (3, 100), (8, 256), (5, 513), (16, 1024), (2, 4096))
+# ... and its dispatch/combine and decode-attention test shapes
+# (tests/kernels/test_dispatch_mxu.py, test_attention_kernels.py).
+DISPATCH_SHAPES = ((8, 16, 8), (100, 64, 32), (128, 128, 128), (300, 512, 64))
+DECODE_SHAPES = ((2, 8, 2, 256, 64), (1, 4, 4, 512, 32), (3, 16, 2, 128, 128))
+# The f32 scan's tolerance: the reference test's rtol=1e-3, atol=1e-4.
+SCAN_F32_RTOL, SCAN_F32_ATOL = 1e-3, 1e-4
+# Float dispatch with repeated positions sums in the order the atomics land,
+# each add rounded: |kernel - plain| <= tol * (sum of the slot's |addends|),
+# tol 1e-5 (f32) / 2e-2 (bf16) for the at most 37 addends of these cases.
+DISPATCH_REPEAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
+    """K2 (tensor-core scan), K5a/K5b (dispatch, combine) and K14
+    (flash-decode) against their plain versions at the reference tests'
+    shapes, ragged ones and the main paths' shapes, then timed there."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.decode_attention import kernel as k_da
+    from repro_torch.kernels.decode_attention import ref as r_da
+    from repro_torch.kernels.dispatch_mxu import kernel as k_dm
+    from repro_torch.kernels.dispatch_mxu import ref as r_dm
+    from repro_torch.kernels.scan_mxu import kernel as k_sm
+    from repro_torch.kernels.scan_mxu import ref as r_sm
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+
+    def note(name, pairs):
+        r = res[name]
+        for a, b in pairs:
+            mism, err = compare(a, b)
+            r["mismatches"] += mism
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"] += 1
+
+    # K2: 0/1 masks and full-range int32 (wrap-around) bitwise; f32 within
+    # the reference's tolerance (normals at its shapes; positive values at
+    # the grow path's, where a cumsum of normals crosses zero and atol rules)
+    wide = ((NBLOCKS, B0 << 4), (NBLOCKS, B0 << (NWAVES - 1)))
+    for shape in SCAN_SHAPES + ((17, 2049), (33, 1000)) + wide:
+        mask = (torch.rand(shape, generator=gen, device=dev) < 0.5).to(torch.int32)
+        full = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        note("row_scan_mxu", [(k_sm.row_scan_mxu_cuda(mask), r_sm.row_scan(mask)),
+                              (k_sm.row_scan_mxu_cuda(full), r_sm.row_scan(full))])
+        del full
+        x = (torch.randn(shape, generator=gen, device=dev) if shape not in wide
+             else torch.rand(shape, generator=gen, device=dev))
+        close(res, "row_scan_mxu", k_sm.row_scan_mxu_cuda(x), r_sm.row_scan(x), SCAN_F32_ATOL,
+              rtol=SCAN_F32_RTOL)
+        del x
+    x = (torch.rand(wide[-1], generator=gen, device=dev) < 0.9).to(torch.int32)
+    timing["row_scan_mxu"] = dict(
+        ms=cuda_ms(lambda: k_sm.row_scan_mxu_cuda(x), 20),
+        plain_ms=cuda_ms(lambda: r_sm.row_scan(x), 20),
+        library_ms=cuda_ms(lambda: torch.cumsum(x, 1, dtype=torch.int32), 20),
+        bound=bound_ms(8 * x.numel(), x.numel(), card),
+        shape=f"{wide[-1]} int32 0/1 mask (the last grow wave)",
+    )
+    del x, mask
+
+    # K5a/K5b: the reference test's shapes, three payload types, unique
+    # positions (bitwise); repeated positions (int32 bitwise, floats within
+    # DISPATCH_REPEAT_TOL: sums in the order the atomics land)
+    repeat = {"cases": 0, "max_abs_err": 0.0, "mismatches": 0}
+    for T, S, D in DISPATCH_SHAPES + ((1000, 999, 1), (37, 5, 3)):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            x = (torch.randint(-2**30, 2**30, (T, D), generator=gen, device=dev, dtype=torch.int32)
+                 if dtype == torch.int32 else torch.randn((T, D), generator=gen, device=dev).to(dtype))
+            perm = torch.cat([torch.randperm(S, generator=gen, device=dev),
+                              torch.full((max(T - S, 0),), -1, device=dev, dtype=torch.int64)])[:T]
+            pos = torch.where(torch.rand(T, generator=gen, device=dev) < 0.8, perm, -1).to(torch.int32)
+            buf = k_dm.dispatch_cuda(x, pos, S)
+            note("dispatch", [(buf, r_dm.dispatch(x, pos, S))])
+            note("combine", [(k_dm.combine_cuda(buf, pos), r_dm.combine(buf, pos, T))])
+            far = torch.randint(-1, S + 3, (T,), generator=gen, device=dev, dtype=torch.int32)
+            note("combine", [(k_dm.combine_cuda(buf, far), r_dm.combine(buf, far, T))])  # clipped ids
+            rep = torch.randint(-1, max(S // 3, 1), (T,), generator=gen, device=dev, dtype=torch.int32)
+            got, want = k_dm.dispatch_cuda(x, rep, S), r_dm.dispatch(x, rep, S)
+            if dtype == torch.int32:
+                note("dispatch", [(got, want)])
+            else:
+                tol = DISPATCH_REPEAT_TOL[str(dtype).split(".")[-1]]
+                diff = (got.double() - want.double()).abs()
+                mag = r_dm.dispatch(x.double().abs(), rep, S)
+                repeat["mismatches"] += int((diff > tol * mag).sum().item())
+                repeat["max_abs_err"] = max(repeat["max_abs_err"], float(diff.max().item()))
+                repeat["cases"] += 1
+    emit({"phase": "kernel.dispatch_repeats", "card": card, "tolerance": DISPATCH_REPEAT_TOL, **repeat})
+    check(repeat["mismatches"] == 0, "dispatch: repeated positions outside the stated tolerance")
+
+    # the freeze's shape: the main path's 8-level plane, (512 x 522240, 1)
+    # f32 lanes, the live ones at their unique global positions
+    cap = indexing.capacity(B0, NWAVES)
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** NWAVES - 1)), dtype=torch.int32, device=dev)
+    sizes += torch.randint(-(B0 // 2), B0 // 2, (NBLOCKS,), generator=gen, device=dev, dtype=torch.int32)
+    starts = indexing.block_starts(sizes)
+    posn = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.where(posn < sizes[:, None], starts[:, None] + posn, -1).reshape(-1)
+    del posn
+    n_lanes, n_live = pos.numel(), int(sizes.sum().item())
+    x = torch.randn((n_lanes, 1), generator=gen, device=dev)
+    buf = k_dm.dispatch_cuda(x, pos, n_lanes)
+    note("dispatch", [(buf, r_dm.dispatch(x, pos, n_lanes))])
+    dump = torch.where(pos < 0, n_lanes, pos).long()  # dropped lanes into a spare row
+
+    def library_dispatch():
+        return torch.zeros((n_lanes + 1, 1), device=dev).index_add_(0, dump, x)
+
+    timing["dispatch"] = dict(
+        ms=cuda_ms(lambda: k_dm.dispatch_cuda(x, pos, n_lanes), 5),
+        plain_ms=cuda_ms(lambda: r_dm.dispatch(x, pos, n_lanes), 2),
+        library_ms=cuda_ms(library_dispatch, 5),
+        bound=bound_ms(4 * n_lanes * 3, 0, card),
+        shape=f"x ({n_lanes}, 1) f32, {n_live} live unique positions -> ({n_lanes}, 1); "
+              f"library: index_add_ into zeros with a spare row for the dropped lanes",
+    )
+    del dump
+    note("combine", [(k_dm.combine_cuda(buf, pos), r_dm.combine(buf, pos, n_lanes))])
+    gidx = pos.clamp(min=0).long()
+    timing["combine"] = dict(
+        ms=cuda_ms(lambda: k_dm.combine_cuda(buf, pos), 5),
+        plain_ms=cuda_ms(lambda: r_dm.combine(buf, pos, n_lanes), 2),
+        library_ms=cuda_ms(lambda: buf.index_select(0, gidx), 5),
+        bound=bound_ms(4 * n_lanes * 2 + 4 * n_live, 0, card),
+        shape=f"buf ({n_lanes}, 1) f32, pos ({n_lanes},), {n_live} live (the freeze read back); "
+              f"library: index_select, no zeroing",
+    )
+    del x, buf, pos, gidx, sizes, starts
+    torch.cuda.empty_cache()
+
+    # K14: the reference test's shapes, both dtypes, head-major and the
+    # static cache's token-major layout; lengths 0, inside a block and at S;
+    # the dead tail
+    def kv_pair(B, KH, S, D, dtype, layout):
+        if layout == "bshd":
+            return tuple(torch.randn((B, S, KH, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                         for _ in range(2))
+        return tuple(torch.randn((B, KH, S, D), generator=gen, device=dev).to(dtype) for _ in range(2))
+
+    for B, H, KH, S, D in DECODE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("bhsd", "bshd"):
+                q = torch.randn((B, KH, H // KH, D), generator=gen, device=dev).to(dtype)
+                k, v = kv_pair(B, KH, S, D, dtype, layout)
+                for lens in (torch.randint(1, S + 1, (B,), generator=gen, device=dev),
+                             torch.tensor([0, S // 2 + 3, S][:B], device=dev)):
+                    lens = lens.to(torch.int32)
+                    got = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+                    want = r_da.decode_attention(q, k, v, lens)
+                    close(res, "decode_attention", got, want, k14_tol(want), rtol=0.0)
+    B, H, KH, S, D = 1, 4, 2, 128, 32
+    q = torch.randn((B, KH, H // KH, D), generator=gen, device=dev)
+    k, v = kv_pair(B, KH, S, D, torch.float32, "bhsd")
+    lens = torch.tensor([40], dtype=torch.int32, device=dev)
+    clean = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+    k[:, :, 40:], v[:, :, 40:] = 1e6, -1e6
+    note("decode_attention", [(k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), clean)])
+
+    res["decode_attention"]["tolerance_rule"] = (
+        f"{K14_ULPS['bfloat16']} bf16 / {K14_ULPS['float32']} f32 ulps of max|want| per case, no rtol")
+
+    # the serving shape: 4 sequences, 2 KV heads x 8 queries of 128, bf16,
+    # token-major, the lengths of serve.policies' decode after its growth
+    B, KH, G, D = SERVE_PROMPTS, 2, 8, 128
+    S = 3 * SERVE_SLAB  # a frozen cache grown once: 2048 + 4096
+    lengths = torch.randint(SERVE_MIN, SERVE_LEN + 1, (B,), generator=gen, device=dev) + POLICY_NEW - 1
+    lengths[-1] = SERVE_LEN + POLICY_NEW - 1
+    lens = lengths.to(torch.int32)
+    q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = kv_pair(B, KH, S, D, torch.bfloat16, "bshd")
+    want = r_da.decode_attention(q, k, v, lens)
+    close(res, "decode_attention", k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5),
+          want, k14_tol(want), rtol=0.0)
+    live = int(lens.sum().item())
+    qs = q.reshape(B, KH * G, 1, D)
+    kvmask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    timing["decode_attention"] = dict(
+        ms=graph_ms(lambda: k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), 20),
+        plain_ms=graph_ms(lambda: r_da.decode_attention(q, k, v, lens), 5),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=kvmask,
+                                                                   enable_gqa=True), 20),
+        bound=bound_ms(2 * live * KH * D * 2 + 2 * q.numel() * 2 + 4 * B, 0, card),
+        shape=f"q ({B}, {KH}, {G}, {D}) bf16 over a token-major ({B}, {S}, {KH}, {D}) bf16 cache, "
+              f"{live} live tokens; CUDA-graph times; one call from Python "
+              f"{cuda_ms(lambda: k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), 20)} ms",
+    )
+    del q, k, v, qs, kvmask
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main path.
 # --------------------------------------------------------------------------
@@ -937,6 +1204,240 @@ def main_path(card: str, seed: int) -> dict:
     for name in SLICE1_KERNELS:
         check(launches[name] >= 1, f"kernel {name} never launched on the main path")
     return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 4b: the paper's comparison — the tensor-core insertion scan and the
+# dispatch freeze on the main path, the static and semi-static baselines,
+# and a single LFVector.
+# --------------------------------------------------------------------------
+
+def mxu_path(card: str, rng, gen) -> dict:
+    """The main path with ``method="mxu"`` (K2), frozen by the segmented
+    gather, then by the dispatch flatten (K6 + K5a); after the counts are
+    read, ``combine`` (K5b) reads the frozen array back as a check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels import common
+    from repro_torch.kernels.dispatch_mxu import ops as dispatch_ops
+    from repro_torch.kernels.flatten import ops as flatten_ops
+    from repro_torch.runtime import TwoPhasePipeline
+
+    common.reset_launch_counts()
+    pipe = TwoPhasePipeline(nblocks=NBLOCKS, b0=B0, device=DEV)
+    waves, t_grow = grow(pipe, rng, B0, "mxu", card)
+    t0 = time.perf_counter()
+    pipe.freeze()
+    t_freeze = time.perf_counter() - t0
+    full = check_frozen(pipe, waves, card, "mxu freeze")
+    del waves, full["want"]
+    seg = pipe.frozen
+    disp = TwoPhasePipeline.from_ggarray(pipe.array, flatten_impl="dispatch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disp.freeze()
+    torch.cuda.synchronize()
+    t_dispatch = time.perf_counter() - t0
+    # the dispatch adds each element into a zero slot (the reference's
+    # scatter-add), so a -0.0 comes out +0.0: bitwise equal to seg + 0.0
+    signed_zeros = int(((seg.data == 0) & torch.signbit(seg.data)).sum().item())
+    check(compare(disp.frozen.data, seg.data + 0.0)[0] == 0,
+          "mxu: the dispatch freeze differs from the segmented one (signs of zero aside)")
+    check(torch.equal(disp.frozen.block_starts, seg.block_starts) and int(disp.frozen.size) == full["n"],
+          "mxu: the dispatch freeze's size or block_starts differ")
+    launches = common.launch_counts()
+    # a check, not the path: read the frozen array back into the block-major
+    # plane through combine (K5b), which no path of the reference calls
+    arr = pipe.array
+    cap = indexing.capacity(arr.b0, arr.nbuckets)
+    starts = indexing.block_starts(arr.sizes)
+    posn = torch.arange(cap, dtype=torch.int32, device=DEV)[None, :]
+    pos = torch.where(posn < arr.sizes[:, None], starts[:, None] + posn, -1).reshape(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = dispatch_ops.combine(seg.data[:, None], pos)
+    torch.cuda.synchronize()
+    t_combine = time.perf_counter() - t0
+    plane = flatten_ops.compact_blocks(arr.buckets, arr.b0)
+    check(compare(back[:, 0], plane.reshape(-1))[0] == 0, "mxu: combine read-back differs from the levels")
+    del back, plane, pos, posn, disp, seg, pipe, arr
+    torch.cuda.synchronize()
+    emit({"phase": "main.mxu", "card": card, "elements": full["n"], "alloc_elems": full["alloc"],
+          "grow_s": t_grow, "freeze_s": t_freeze, "dispatch_freeze_s": t_dispatch,
+          "negative_zeros_made_positive_by_dispatch": signed_zeros,
+          "combine_read_s": t_combine, "launches": {k: v for k, v in launches.items() if v},
+          "ok": True})
+    for name in ("row_scan_mxu", "compact_blocks", "segmented_gather", "dispatch"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the main.mxu path")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _timed(fn):
+    """(result, wall ms) of ``fn`` between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def baselines_path(card: str, rng) -> dict:
+    """The paper's comparison on the main path's eight waves: a static array
+    pre-allocated to the final size, a semi-static array grown by realloc
+    (copy_on_grow=True) and one with memMap accounting (copy_on_grow=False:
+    only the allocation is timed), and GGArray, under the insertion methods
+    scan, tile (K1) and mxu (K2).  One line per structure and method with
+    per-wave insert and resize times, allocated over live elements and the
+    bytes growth copied; every structure's contents are checked against the
+    numpy expectation of its index order (flat arrays: wave after wave, lane
+    order; GGArray: block-major)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import CapacityPlanner, SemiStaticArray, static_init, static_push_back
+    from repro_torch.core import ggarray as gg
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flatten import ops as flatten_ops
+
+    waves = []
+    for w in range(NWAVES):
+        m = B0 << w
+        waves.append((rng.standard_normal((NBLOCKS, m), dtype=np.float32),
+                      rng.random((NBLOCKS, m), dtype=np.float32) < 0.9))
+    want_flat = np.concatenate([v[mk] for v, mk in waves])
+    want_gg = expected_order(waves)
+    total = want_flat.size
+    common.reset_launch_counts()
+    lines = []
+
+    def flat_run(kind: str, method: str) -> dict:
+        arr = static_init(total, device=DEV) if kind == "static" else SemiStaticArray.create(
+            NBLOCKS * B0, copy_on_grow=kind == "realloc", device=DEV)
+        per_wave, copied, untimed = [], 0, 0
+        for vals, mask in waves:
+            elems = torch.from_numpy(vals.reshape(-1)).to(DEV)
+            mk = torch.from_numpy(mask.reshape(-1)).to(DEV)
+            resize_ms = 0.0
+            if kind == "static":
+                (arr, _), insert_ms = _timed(lambda: static_push_back(arr, elems, mk, method=method))
+            else:
+                while arr.size + elems.shape[0] > arr.capacity:
+                    nbytes = arr.capacity * 4
+                    if kind == "realloc":
+                        _, ms = _timed(arr.grow)
+                        copied += nbytes
+                    else:  # memMap: time the allocation; the copy is made untimed
+                        _, ms = _timed(arr.grow_alloc_only)
+                        arr.grow()
+                        untimed += nbytes
+                    resize_ms += ms
+                _, insert_ms = _timed(lambda: arr.push_back(elems, mk, method=method))
+            cap = arr.capacity
+            size = int((arr.size if kind == "static" else arr.arr.size).item())
+            per_wave.append({"m": int(elems.shape[0]), "insert_ms": insert_ms, "resize_ms": resize_ms,
+                             "alloc_over_live": cap / size, "copied_bytes": copied})
+        data = arr.data if kind == "static" else arr.arr.data
+        got = data[:total].cpu().numpy()
+        check(np.array_equal(got.view(np.uint32), want_flat.view(np.uint32)),
+              f"baselines {kind}/{method}: contents differ from the expected order")
+        check(int(torch.count_nonzero(data[total:].view(torch.int32)).item()) == 0,
+              f"baselines {kind}/{method}: slots past the size are not 0")
+        return {"waves": per_wave, "capacity": cap, "copied_bytes": copied,
+                "untimed_copy_bytes": untimed}
+
+    def gg_run(method: str) -> dict:
+        arr, planner = gg.init(NBLOCKS, B0, device=DEV), CapacityPlanner()
+        per_wave = []
+        for vals, mask in waves:
+            elems = torch.from_numpy(vals).to(DEV)
+            before = arr.nbuckets
+            arr, resize_ms = _timed(lambda: planner.reserve(arr, vals.shape[1], mask=mask))
+            (arr, _, headroom), insert_ms = _timed(lambda: gg.append(arr, elems, mask, method=method))
+            planner.note_append(arr, headroom)
+            per_wave.append({"m": int(elems.numel()), "insert_ms": insert_ms, "resize_ms": resize_ms,
+                             "levels_added": arr.nbuckets - before,
+                             "alloc_over_live": arr.capacity / int(arr.sizes.sum().item()),
+                             "copied_bytes": 0})
+        flat = flatten_ops.flatten(arr.buckets, arr.sizes, arr.b0)
+        got = flat[:total].cpu().numpy()
+        check(np.array_equal(got.view(np.uint32), want_gg.view(np.uint32)),
+              f"baselines ggarray/{method}: contents differ from the expected order")
+        check(arr.capacity < 2 * total + B0 * NBLOCKS, f"baselines ggarray/{method}: §V bound fails")
+        return {"waves": per_wave, "capacity": arr.capacity, "copied_bytes": 0,
+                "host_syncs": planner.host_syncs}
+
+    for method in ("scan", "tile", "mxu"):
+        for kind in ("static", "realloc", "memmap", "ggarray"):
+            run = gg_run(method) if kind == "ggarray" else flat_run(kind, method)
+            line = {"phase": "baselines", "card": card, "structure": kind, "method": method,
+                    "elements": total, "insert_ms_total": sum(w["insert_ms"] for w in run["waves"]),
+                    "resize_ms_total": sum(w["resize_ms"] for w in run["waves"]), **run, "ok": True}
+            emit(line)
+            lines.append(line)
+            torch.cuda.empty_cache()
+    launches = common.launch_counts()
+    emit({"phase": "baselines.launches", "card": card, "launches": {k: v for k, v in launches.items() if v}})
+    for name in ("row_scan", "row_scan_mxu"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the baselines path")
+    return launches
+
+
+def lfvector_path(card: str, gen) -> dict:
+    """One LFVector (b0 = 2048) pushed to 2^22 float32 elements, the
+    insertion method cycling through scan, tile (K1) and mxu (K2): indices,
+    contents and the §V capacity bound checked."""
+    import torch
+
+    from repro_torch.core import LFVector
+    from repro_torch.kernels import common
+
+    common.reset_launch_counts()
+    vec = LFVector.create(b0=LF_B0, device=DEV)
+    chunks, push_ms, n = [], [], 0
+    methods = ("scan", "tile", "mxu")
+    for i, m in enumerate(LF_PUSHES):
+        x = torch.randn(m, generator=gen, device=DEV)
+        idx, ms = _timed(lambda: vec.push_back(x, method=methods[i % 3]))
+        check(torch.equal(idx, torch.arange(n, n + m, dtype=torch.int32, device=DEV)),
+              f"lfvector: push {i} returned wrong indices")
+        chunks.append(x)
+        push_ms.append(ms)
+        n += m
+    check(len(vec) == n == sum(LF_PUSHES), f"lfvector: size {len(vec)} != {sum(LF_PUSHES)}")
+    check(compare(vec.to_array(), torch.cat(chunks))[0] == 0, "lfvector: to_array differs from the pushes")
+    probe = torch.randint(0, n, (1 << 16,), generator=gen, device=DEV)
+    check(compare(vec[probe], torch.cat(chunks)[probe])[0] == 0, "lfvector: reads differ")
+    check(vec.capacity < 2 * n + LF_B0, f"lfvector: §V bound capacity {vec.capacity} >= 2n + b0")
+    launches = common.launch_counts()
+    emit({"phase": "lfvector", "card": card, "b0": LF_B0, "pushes": LF_PUSHES, "elements": n,
+          "capacity": vec.capacity, "nbuckets": vec.nbuckets, "push_ms": push_ms,
+          "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+    for name in ("row_scan", "row_scan_mxu"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the lfvector path")
+    return launches
+
+
+def slice4_core_paths(card: str, seed: int) -> dict:
+    """main.mxu, baselines and lfvector, launch counts zeroed before each →
+    the counts summed over the paths."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 400)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 401)
+    runs = {"main.mxu": mxu_path(card, rng, gen), "baselines": baselines_path(card, rng),
+            "lfvector": lfvector_path(card, gen)}
+    total = {k: 0 for k in KERNELS}
+    for counts in runs.values():
+        for k, v in counts.items():
+            total[k] += v
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -1313,7 +1814,8 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
     common.reset_launch_counts()
     eng = Engine(params, cfg, device=DEV)
-    with Capture(k_fa, "flash_attention_cuda") as cap_fa, Capture(k_pb, "push_back_cuda_multi") as cap_pb:
+    with Capture(k_fa, "flash_attention_cuda") as cap_fa, Capture(k_pb, "push_back_cuda_multi") as cap_pb, \
+            StepTimer(steps, "decode_step") as timer:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.generate(prompts, SERVE_NEW)  # ends in the token drain: synchronised
@@ -1350,43 +1852,38 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
     r["cases"] += 1
     del cap_fa, cap_pb, q, k, v, o_, got, want, groups, elems, work
 
-    # timed: prefill (K13 in every layer), first token, then decode steps
-    # (K3 + the bucket walk) timed by CUDA events under the sync check
+    # the K/V the growth must carry (written before the first step after
+    # it) and the prompts' K/V, for serve.policies
+    check(timer.grown_step is not None, "serve.engine: no decode step ran after the growth")
+    lens_d = torch.from_numpy(lens.astype(np.int32)).to(DEV)
+    kv_prompt = kv_written_before(eng.caches, lens_d)
+    kv_before_growth = kv_written_before(eng.caches, lens_d + timer.grown_step)
+    for what, lg in (("first", timer.first_logits), ("first after the growth", timer.grown_logits)):
+        check(bool(torch.isfinite(lg).all().item()), f"serve.engine: the {what} decode step's logits not finite")
+
+    # timed: prefill (K13 in every layer) and the first token; the decode
+    # steps are the generate run's, timed by CUDA events under the sync check
     toks = np.zeros((SERVE_PROMPTS, SERVE_LEN), np.int32)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
     toks_d = torch.from_numpy(toks).to(DEV)
-    lens_d = torch.from_numpy(lens.astype(np.int32)).to(DEV)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
                                    lengths=lens_d)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    tok = sample(None, logits)
+    sample(None, logits)
     torch.cuda.synchronize()
     ttft_s = time.perf_counter() - t0
     check(bool(torch.isfinite(logits).all().item()), "serve.engine: prefill logits not finite")
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(16)]
-    length = lens_d
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for a, b in ev:
-            a.record()
-            step_logits, caches = steps.decode_step(params, tok, caches, length, cfg)
-            tok = sample(None, step_logits)
-            b.record()
-            length = length + 1
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(step_logits).all().item()), "serve.engine: decode logits not finite")
-    step_ms = sorted(a.elapsed_time(b) for a, b in ev)
+    step_ms = timer.step_ms()
     live_tokens = int(lens.sum()) + SERVE_PROMPTS * (SERVE_NEW - 1)
     line = {"phase": "serve.engine", "card": card, "arch": SERVE_ARCH, "prompts": lens.tolist(),
             "new_tokens": SERVE_NEW, "prefill_s": prefill_s, "ttft_s": ttft_s,
             "prefill_tokens_per_s": SERVE_PROMPTS * SERVE_LEN / prefill_s,
-            "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_step_ms": step_ms,
+            "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_steps": len(step_ms),
+            "decode_step_ms_max": step_ms[-1], "first_step_after_growth": timer.grown_step,
             "generate_s": wall, "tokens_per_s": SERVE_PROMPTS * SERVE_NEW / wall,
             "grow_events": st.grow_events, "copied_bytes": st.copied_bytes,
             "allocated_kv_bytes": st.allocated_bytes,
@@ -1394,10 +1891,13 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
             "launches": {k: v for k, v in launches.items() if v}, "ok": True}
     emit(line)
     first = logits.float()
-    del caches, logits, step_logits, eng
+    del caches, logits, eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return {"prompts": prompts, "out": out, "logits": first, "launches": launches}
+    return {"prompts": prompts, "out": out, "logits": first, "launches": launches,
+            "step_logits": timer.first_logits, "grown_logits": timer.grown_logits,
+            "grow_step": timer.grown_step, "kv_prompt": kv_prompt,
+            "kv_before_growth": kv_before_growth}
 
 
 def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict) -> dict:
@@ -1534,6 +2034,240 @@ def serve_cross_check(card: str, cfg, params, engine_run: dict) -> None:
     torch.cuda.empty_cache()
 
 
+class StepTimer:
+    """Wrap ``module.name`` (a decode step, ``(params, token, caches, ...)``)
+    inside the ``with`` block: each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` between two recorded CUDA
+    events.  The logits of the first call are kept, and those of the first
+    call whose cache capacity (read from shapes) differs from the first
+    call's — the first step after a growth — with that call's index."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.events, self.first_logits = [], None
+        self.grown_logits, self.grown_step, self.capacity = None, None, None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.serving import kvcache
+
+        def wrapper(*args, **kwargs):
+            cap = kvcache.capacity_of(args[2][0])
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a.record()
+                out = self.orig(*args, **kwargs)
+                b.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.events.append((a, b))
+            if self.first_logits is None:
+                self.first_logits, self.capacity = out[0].float().clone(), cap
+            elif self.grown_logits is None and cap != self.capacity:
+                self.grown_logits, self.grown_step = out[0].float().clone(), len(self.events) - 1
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def step_ms(self) -> list:
+        return sorted(a.elapsed_time(b) for a, b in self.events)
+
+
+# Engine's logits where the same bf16 model and the same cache contents meet
+# attention summed over another layout: static's 2064 keys against 2048 at
+# the first step, and after the growth ggarray's two levels (2048 + 4096)
+# against semistatic's one 4096 and two_phase's one 6144.  The f32 sums
+# differ in order, which flips bf16 roundings that 36 layers carry: static
+# read a relative L2 of 0.0086 on an H100 (PERF.md); the bound is 3x that.
+# Where the layouts match (the first step of semistatic and two_phase
+# against ggarray), the logits are held bitwise.
+ORDER_LOGITS_TOL = 3e-2
+
+
+def cache_kv(c: dict, name: str):
+    """A cache slot's K or V (``name``) as one tensor, (..., B, capacity,
+    KH, D): the contiguous cache's own, or a ggarray's levels in order."""
+    import torch
+
+    if name in c:
+        return c[name]
+    levels = []
+    while f"{name}{len(levels)}" in c:
+        levels.append(c[f"{name}{len(levels)}"])
+    return torch.cat(levels, dim=-3)
+
+
+def kv_written_before(caches, upto) -> list:
+    """Every cache slot's K and V at the positions below ``upto`` (B,) of
+    each sequence, gathered: the part written before a given step."""
+    import torch
+
+    out = []
+    for c in caches:
+        for name in ("k", "v"):
+            x = cache_kv(c, name)
+            x = x.reshape(-1, *x.shape[-4:])
+            live = torch.arange(x.shape[-3], device=x.device)[None, :] < upto[:, None]
+            out.append(x[:, live])
+    return out
+
+
+def rel_l2(a, b, V: int) -> float:
+    a, b = a[:, :V], b[:, :V]
+    return float(((a - b).norm() / a.norm()).item())
+
+
+def serve_policies_path(card: str, cfg, params, engine_run: dict, res: dict) -> dict:
+    """Engine under static (max_len = longest prompt + new tokens),
+    semistatic and two_phase on serve.engine's prompts: TTFT, decode steps
+    (CUDA events, under the sync check), grow/freeze events, copied and
+    allocated bytes, host syncs.  The K/V written before the growth (the
+    prompts' for static) must equal ggarray's bitwise, the first step's
+    logits too (static within ``ORDER_LOGITS_TOL``), and the first step
+    after the growth within ``ORDER_LOGITS_TOL``.  After the counts are
+    read, K14 runs through its op on layer 0 of the first decode step's
+    captured contiguous cache and is held against its plain version and
+    ``kvcache.attend``'s output for the same step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import kernel as k_da
+    from repro_torch.kernels.decode_attention import ops as o_da
+    from repro_torch.kernels.decode_attention import ref as r_da
+    from repro_torch.serving import kvcache, steps
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import sample
+
+    prompts = engine_run["prompts"]
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    Lp = int(lens.max())
+    toks = np.zeros((len(prompts), Lp), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d, lens_d = torch.from_numpy(toks).to(DEV), torch.from_numpy(lens).to(DEV)
+    per_token = kv_bytes_per_token(cfg)
+    cap0 = kvcache.cache_capacity(cfg, "semistatic", Lp)  # the first capacity of the growing policies
+    V = cfg.vocab_size
+    first = {"ggarray": engine_run["step_logits"]}
+    grown = {"ggarray": engine_run["grown_logits"]}
+    kv_mismatches, runs, summary = {}, {}, {}
+    for policy in ("static", "semistatic", "two_phase"):
+        common.reset_launch_counts()
+        eng = Engine(params, cfg, policy=policy, max_len=Lp + POLICY_NEW, device=DEV)
+        with StepTimer(steps, "decode_step") as timer, Capture(kvcache, "attend") as cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.generate(prompts, POLICY_NEW)  # ends in the token drain: synchronised
+            wall = time.perf_counter() - t0
+        launches = common.launch_counts()
+        st = eng.stats
+        check(st.host_syncs == 1, f"serve.{policy}: {st.host_syncs} host syncs, expected the token drain")
+        for p, o in zip(prompts, out):
+            check(len(o) == len(p) + POLICY_NEW and o[:len(p)] == p, f"serve.{policy}: output length / prompt")
+            check(all(0 <= t < V for t in o[len(p):]), f"serve.{policy}: token outside the vocab")
+        check(launches["flash_attention"] >= 1, f"kernel flash_attention never launched on the serve.{policy} path")
+        # the K/V that the growth carried (the prompts' for static), bitwise ggarray's
+        if policy == "static":
+            check(st.grow_events == 0 and st.copied_bytes == 0, "serve.static: the static cache grew or copied")
+            check(timer.grown_logits is None, "serve.static: the cache capacity changed")
+            want, upto = engine_run["kv_prompt"], lens_d
+        else:
+            check(st.grow_events == 1, f"serve.{policy}: {st.grow_events} growths, expected 1")
+            check(st.copied_bytes == len(prompts) * cap0 * per_token,
+                  f"serve.{policy}: copied {st.copied_bytes} bytes, expected one copy of the first cache")
+            check(timer.grown_step == engine_run["grow_step"],
+                  f"serve.{policy}: grew before step {timer.grown_step}, ggarray before {engine_run['grow_step']}")
+            want, upto = engine_run["kv_before_growth"], lens_d + timer.grown_step
+            grown[policy] = timer.grown_logits
+        kv_mismatches[policy] = sum(compare(x, y)[0] for x, y in zip(kv_written_before(eng.caches, upto), want))
+        check(kv_mismatches[policy] == 0,
+              f"serve.{policy}: {kv_mismatches[policy]} K/V elements written before the growth differ from ggarray's")
+        if policy == "two_phase":
+            check(st.freeze_events == 2, f"serve.two_phase: {st.freeze_events} freezes, expected 2")
+        # not the path: K14 (no caller in the reference's paths) on layer 0
+        # of the first decode step's captured contiguous cache, against its
+        # plain version and kvcache.attend's output for the same step
+        (c, q, length, _), _ = cap.args
+        B, _, H, D = q.shape
+        kview, vview = c["k"].transpose(1, 2), c["v"].transpose(1, 2)  # (B, KH, cap, D), no copy
+        op_out = o_da.decode_attention(q[:, 0], kview, vview, length)
+        KH = kview.shape[1]
+        qg = q[:, 0].reshape(B, KH, H // KH, D).contiguous()
+        got = k_da.decode_attention_cuda(qg, kview, vview, length.to(torch.int32), sm_scale=D ** -0.5)
+        want = r_da.decode_attention(qg, kview, vview, length)
+        close(res, "decode_attention", got, want, k14_tol(want), rtol=0.0)
+        attend_out = kvcache.attend(c, q, length, cfg).reshape(B, H, D)
+        attend_err = float((op_out.float() - attend_out.float()).abs().max().item())
+        check(attend_err <= k14_tol(attend_out),
+              f"serve.{policy}: K14 on the cache differs from kvcache.attend by {attend_err}")
+        del cap, c, q, kview, vview, op_out, got, want, attend_out
+        # TTFT: the policy's prefill (a frozen copy for two_phase) and the first sample
+        hint = Lp + POLICY_NEW if policy == "static" else Lp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=hint,
+                                       policy="ggarray" if policy == "two_phase" else policy,
+                                       lengths=lens_d)
+        if policy == "two_phase":
+            caches = [kvcache.freeze_cache(cc) for cc in caches]
+        sample(None, logits)
+        torch.cuda.synchronize()
+        ttft_s = time.perf_counter() - t0
+        del logits, caches
+        torch.cuda.synchronize()
+        step_ms = timer.step_ms()
+        first[policy] = timer.first_logits
+        live_tokens = int(lens.sum()) + len(prompts) * (POLICY_NEW - 1)
+        agree = sum(x == y for o, e, p in zip(out, engine_run["out"], prompts)
+                    for x, y in zip(o[len(p):], e[len(p):len(p) + POLICY_NEW]))
+        line = {"phase": f"serve.policies.{policy}", "card": card, "arch": SERVE_ARCH,
+                "prompts": lens.tolist(), "new_tokens": POLICY_NEW, "ttft_s": ttft_s,
+                "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_steps": len(step_ms),
+                "decode_step_ms_max": step_ms[-1], "generate_s": wall,
+                "tokens_per_s": len(prompts) * POLICY_NEW / wall,
+                "grow_events": st.grow_events, "freeze_events": st.freeze_events,
+                "first_step_after_growth": timer.grown_step,
+                "copied_bytes": st.copied_bytes, "allocated_kv_bytes": st.allocated_bytes,
+                "live_kv_bytes": live_tokens * per_token, "host_syncs": st.host_syncs,
+                "kv_before_growth_mismatches_vs_ggarray": kv_mismatches[policy],
+                "greedy_agreement_with_ggarray": agree / (len(prompts) * POLICY_NEW),
+                "k14_vs_attend_max_abs_err": attend_err,
+                "launches": {k: v for k, v in launches.items() if v}, "ok": True}
+        emit(line)
+        summary[policy] = line
+        runs[policy] = launches
+        del eng, out
+        torch.cuda.empty_cache()
+    exact = {p: compare(first["ggarray"], first[p])[0] for p in ("semistatic", "two_phase")}
+    static_err = rel_l2(first["ggarray"], first["static"], V)
+    after = {p: rel_l2(grown["ggarray"], grown[p], V) for p in ("semistatic", "two_phase")}
+    after["semistatic~two_phase"] = rel_l2(grown["semistatic"], grown["two_phase"], V)
+    ok = (max(exact.values()) == 0 and static_err <= ORDER_LOGITS_TOL
+          and max(after.values()) <= ORDER_LOGITS_TOL)
+    emit({"phase": "serve.policies", "card": card,
+          "first_step_logits_mismatches_vs_ggarray": exact,
+          "static_first_step_logits_rel_l2_vs_ggarray": static_err,
+          "after_growth_logits_rel_l2_vs_ggarray": after, "rel_l2_tolerance": ORDER_LOGITS_TOL,
+          "kv_before_growth_mismatches_vs_ggarray": kv_mismatches, "ok": ok})
+    check(max(exact.values()) == 0, f"serve.policies: first-step logits differ from ggarray's: {exact}")
+    check(static_err <= ORDER_LOGITS_TOL,
+          f"serve.policies: static's first-step logits differ by {static_err} (relative L2)")
+    check(max(after.values()) <= ORDER_LOGITS_TOL,
+          f"serve.policies: logits after the growth differ by {max(after.values())} (relative L2)")
+    total = {k: 0 for k in KERNELS}
+    for counts in runs.values():
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
 def serve_paths(card: str, seed: int, res: dict) -> dict:
     """The serving paths, launch counts zeroed before each and read after →
     the counts summed over the paths."""
@@ -1548,8 +2282,10 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
             "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res),
             "batch.flat": serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)}
     serve_cross_check(card, cfg, params, eng)
+    runs["policies"] = serve_policies_path(card, cfg, params, eng, res)
     r = {k: {n: res[k][n] for n in ("mismatches", "max_abs_err", "cases")}
-         for k in ("flash_attention", "push_back_multi", "paged_attend", "paged_attend_extents")}
+         for k in ("flash_attention", "push_back_multi", "paged_attend", "paged_attend_extents",
+                   "decode_attention")}
     emit({"phase": "serve.captured", "card": card, "kernels": r})
     for name, v in r.items():
         check(v["mismatches"] == 0, f"{name}: the serving run's captured inputs disagree with the plain version")
@@ -1610,19 +2346,25 @@ def main() -> int:
     launches = main_path(card, args.seed)
     torch.cuda.empty_cache()
 
+    # 4b. the paper's comparison: main.mxu, baselines, lfvector
+    core_launches = slice4_core_paths(card, args.seed)
+    torch.cuda.empty_cache()
+
     # 5. the arena's paths
     arena_launches = arena_paths(card, args.seed)
     torch.cuda.empty_cache()
 
     # 6. the serving paths
     serve_launches = serve_paths(card, args.seed, res)
-    launches = {k: launches[k] + arena_launches[k] + serve_launches[k] for k in KERNELS}
+    launches = {k: launches[k] + core_launches[k] + arena_launches[k] + serve_launches[k]
+                for k in KERNELS}
 
     # 7. the kernels line
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], "mismatches": res[name]["mismatches"],
          "tolerance": res[name].get("tolerance", 0.0),
+         **({"tolerance_rule": res[name]["tolerance_rule"]} if "tolerance_rule" in res[name] else {}),
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": res[name]["library_ms"],

@@ -6,7 +6,9 @@ reference's leaves given as numpy arrays (``np.asarray`` of each bucket
 level and of ``sizes``); ``ggarray_to_numpy`` goes back.
 ``arena_from_numpy`` / ``arena_to_numpy`` do the same for a
 :class:`~repro_torch.pool.SlabArena`, as a dict of numpy arrays (see
-:data:`ARENA_KEYS`).  ``params_from_numpy`` turns the reference's model
+:data:`ARENA_KEYS`), and ``cache_from_numpy`` / ``cache_to_numpy`` for a KV
+cache slot (static, frozen, ggarray or paged: a dict of arrays, a paged
+pool possibly a tuple of extents).  ``params_from_numpy`` turns the reference's model
 parameter tree (layers stacked along the period axis) into the port's,
 which has the same structure, so both packages compute the same function.
 numpy has no
@@ -29,6 +31,8 @@ __all__ = [
     "ARENA_KEYS",
     "arena_from_numpy",
     "arena_to_numpy",
+    "cache_from_numpy",
+    "cache_to_numpy",
     "ggarray_from_numpy",
     "ggarray_to_numpy",
     "params_from_numpy",
@@ -187,3 +191,23 @@ def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" =
             raise ValueError(f"params_from_numpy: layers/{i} holds {slot['norm1'].shape[0]} "
                              f"periods, config says {cfg.n_periods}")
     return out
+
+
+def cache_from_numpy(cache: dict, device: "str | torch.device | None" = None) -> dict:
+    """A reference KV cache slot, its leaves as numpy (``np.asarray`` of each;
+    a paged pool may be a tuple of extents) → the port's slot on ``device``.
+    bf16 leaves may come as ml_dtypes bfloat16 or as ``uint16`` bits."""
+    def leaf(arr) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if arr.dtype == np.uint16:
+            return tensor_from_numpy(arr.view(np.int16), device).view(torch.bfloat16)
+        return tensor_from_numpy(arr, device)
+
+    return {k: tuple(leaf(e) for e in v) if isinstance(v, (tuple, list)) else leaf(v)
+            for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A port KV cache slot → numpy leaves (bf16 as ``uint16`` bits)."""
+    return {k: tuple(tensor_to_numpy(e) for e in v) if isinstance(v, tuple) else tensor_to_numpy(v)
+            for k, v in cache.items()}

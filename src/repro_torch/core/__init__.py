@@ -1,4 +1,5 @@
-"""GGArray core — port of ``repro.core`` (indexing, theory, insertion, ggarray)."""
+"""GGArray core — port of ``repro.core`` (indexing, theory, insertion, ggarray,
+lfvector, baselines)."""
 from repro_torch.core.ggarray import (
     PUSH_BACK_METHODS,
     CapacityPlanner,
@@ -20,12 +21,15 @@ from repro_torch.core.ggarray import (
     total_size,
     write_global,
 )
+from repro_torch.core.baselines import SemiStaticArray, StaticArray, static_init, static_push_back
 from repro_torch.core.insertion import INSERTION_METHODS, insertion_offsets
+from repro_torch.core.lfvector import LFVector
 
 __all__ = [
     "GGArray", "init", "push_back", "append", "grow", "needs_grow",
     "ensure_capacity", "reserve", "CapacityPlanner", "PUSH_BACK_METHODS",
     "flatten", "from_flat", "read_global", "write_global", "gather_block",
     "map_elements", "total_size", "memory_elems", "block_starts",
-    "insertion_offsets", "INSERTION_METHODS",
+    "StaticArray", "SemiStaticArray", "static_init", "static_push_back",
+    "insertion_offsets", "INSERTION_METHODS", "LFVector",
 ]

@@ -13,9 +13,8 @@ offset: the **exclusive prefix sum of the mask along the element axis**.
 ``tile``
     The hand-written row-scan kernel K1 (``kernels/scan_tile``).
 ``mxu``
-    The tensor-core matmul scan K2 in the reference.  K2 is not ported yet:
-    on a CUDA tensor this raises ``NotImplementedError``; on a CPU tensor it
-    takes the plain row scan, as every kernel wrapper does.
+    The tensor-core matmul scan K2 (``kernels/scan_mxu``): byte planes of the
+    int32 mask through u8 tensor-core products, bitwise equal to ``scan``.
 
 All functions take ``mask: (nblocks, m) bool`` and return ``(offsets,
 counts)``: ``offsets (nblocks, m) int32`` (valid where ``mask``) and
@@ -50,13 +49,12 @@ def _offsets_scan(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _offsets_mxu(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Tensor-core matmul scan — needs K2, which is not ported yet."""
-    if mask.device.type != "cpu":
-        raise NotImplementedError(
-            "insertion method 'mxu' needs K2 (scan_mxu), not ported to CUDA "
-            "yet (ROADMAP.md, Queue 2); use 'tile' or 'scan'"
-        )
-    return _offsets_scan(mask)
+    """Tensor-core matmul scan (K2) — the paper's tensor-core analog."""
+    from repro_torch.kernels.scan_mxu import ops as scan_mxu_ops
+
+    mask_i = mask.to(torch.int32)
+    inclusive = scan_mxu_ops.row_scan(mask_i)
+    return inclusive - mask_i, inclusive[:, -1]
 
 
 def _offsets_tile(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

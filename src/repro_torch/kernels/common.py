@@ -47,6 +47,7 @@ KERNELS = (
     "row_scan", "push_back", "compact_blocks", "segmented_gather",
     "paged_gather", "paged_gather_extents", "slab_append",
     "flash_attention", "paged_attend", "paged_attend_extents", "push_back_multi",
+    "row_scan_mxu", "dispatch", "combine", "decode_attention",
 )
 
 _launches = {name: 0 for name in KERNELS}
@@ -206,7 +207,7 @@ def put_drop_(
     item = dst.shape[len(index):]
     valid = valid.expand(lane_shape).reshape(-1)
     idx = [i.expand(lane_shape).reshape(-1).to(torch.int64) for i in index]
-    vals = vals.expand(*lane_shape, *item).reshape(nlanes, *item)
+    vals = vals.expand((*lane_shape, *item)).reshape(nlanes, *item)
     # first valid lane, else 0; taken with index_select, since indexing by
     # a 0-d device tensor reads it on the host
     first = torch.argmax(valid.to(torch.int32)).reshape(1)

@@ -3,8 +3,8 @@
 ``flatten(..., impl="segmented")`` (the default, the freeze path) compacts
 the bucket levels into ``(nblocks, cap)`` rows and orders them block-major
 by the ``block_starts`` prefix table — O(n).  ``impl="dispatch"`` is the
-reference's legacy one-hot dispatch ordering (K5): its plain version runs on
-the CPU, and on a CUDA device it raises until K5 is ported (ROADMAP.md).
+reference's legacy ordering: compaction (K6), then the dispatch scatter (K5a)
+of every live element to its global position.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises.  ``memory_space`` selects a TPU tiling in the reference; it is
@@ -67,19 +67,17 @@ def flatten_dispatch(
     *,
     memory_space: str | None = None,
 ) -> torch.Tensor:
-    """GGArray flatten: compact + one-hot dispatch scatter (legacy, K5)."""
-    if levels[0].device.type != "cpu":
-        raise NotImplementedError(
-            "flatten(impl='dispatch') needs K5 (dispatch_mxu), not ported to "
-            "CUDA yet (ROADMAP.md, Queue 2); use impl='segmented'"
-        )
+    """GGArray flatten: compact (K6) + dispatch scatter (K5a, legacy)."""
+    from repro_torch.kernels.dispatch_mxu import ops as dispatch_ops
+
     compact = compact_blocks(levels, b0, memory_space=memory_space)
     nblocks, cap = compact.shape
+    sizes = sizes.to(torch.int32)
     starts = indexing.block_starts(sizes)
-    posn = torch.arange(cap, dtype=torch.int32)[None, :]
+    posn = torch.arange(cap, dtype=torch.int32, device=compact.device)[None, :]
     live = posn < sizes[:, None]
     pos = torch.where(live, starts[:, None] + posn, -1).reshape(-1)
-    return _ref.dispatch(compact.reshape(-1, 1), pos, nblocks * cap)[:, 0]
+    return dispatch_ops.dispatch(compact.reshape(-1, 1), pos, nblocks * cap)[:, 0]
 
 
 def flatten(

@@ -6,7 +6,7 @@ import torch
 from repro_torch.core import indexing
 from repro_torch.kernels import common
 
-__all__ = ["compact_blocks", "flatten_global", "gather_global", "dispatch"]
+__all__ = ["compact_blocks", "flatten_global", "gather_global"]
 
 
 def compact_blocks(levels: tuple[torch.Tensor, ...], b0: int) -> torch.Tensor:
@@ -41,12 +41,3 @@ def gather_global(
     vals = compact.reshape(-1)[blk * cap + torch.clamp(pos, max=cap - 1)]
     return torch.where(live, vals, torch.zeros_like(vals))
 
-
-def dispatch(vals: torch.Tensor, slots: torch.Tensor, nslots: int) -> torch.Tensor:
-    """Plain version of the reference's dispatch kernel (K5):
-    ``out[slots[t]] += vals[t]`` into ``(nslots, D)`` zeros, dropping slots
-    outside ``[0, nslots)``.  A dropped lane adds zeros to slot 0."""
-    keep = (slots >= 0) & (slots < nslots)
-    out = torch.zeros((nslots, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    src = torch.where(keep.reshape(-1, *(1,) * (vals.ndim - 1)), vals, torch.zeros_like(vals))
-    return out.index_add_(0, torch.where(keep, slots, 0).to(torch.int64), src)

@@ -6,8 +6,9 @@ otherwise.
         --policy ggarray --new-tokens 32 [--device cpu]
 
 Like the reference it serves the reduced model (``configs.reduced(arch,
-cache_b0=16)``) with random weights; only the ``ggarray`` policy is ported
-(the others raise ``NotImplementedError``, ROADMAP.md).
+cache_b0=16)``) with random weights, under any of the engine's policies
+(``static``, ``semistatic``, ``ggarray``, ``two_phase``; the reference lists
+the first three).
 """
 from __future__ import annotations
 
@@ -19,13 +20,13 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve
 from repro_torch.models import transformer
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import ENGINE_POLICIES, Engine
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", choices=configs.ARCH_NAMES)
-    ap.add_argument("--policy", default="ggarray", choices=["static", "semistatic", "ggarray"])
+    ap.add_argument("--policy", default="ggarray", choices=ENGINE_POLICIES)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)

@@ -139,8 +139,8 @@ class TwoPhasePipeline:
     """Owns one GGArray across its grow → frozen → (re-grow) lifecycle.
 
     ``flatten_impl`` selects the freeze path: ``"segmented"`` (kernels K6 and
-    K7, the default), ``"dispatch"`` (the reference's legacy ordering; CPU
-    only until K5 is ported), or ``"core"`` (plain PyTorch scatter in
+    K7, the default), ``"dispatch"`` (the reference's legacy ordering:
+    K6, then the dispatch scatter K5a), or ``"core"`` (plain PyTorch scatter in
     ``core.ggarray`` — also the route whenever ``item_shape`` is non-scalar,
     which the kernels do not take).  ``memory_space`` selects a TPU tiling in
     the reference; it is checked and has no effect on the GPU.  ``device=None``

@@ -1,11 +1,20 @@
 """Batched serving engines with growth-on-demand KV caches — port of
 ``repro/serving/engine.py``.
 
-:class:`Engine` serves the ``ggarray`` policy: prompts are prefilled into a
-cache sized for the prompt only, then decode pushes tokens (K3, k and v in
-one launch) until capacity, where ``grow_ggarray`` appends the next
-geometric bucket — **no copy**.  :class:`BatchEngine` serves the ``paged``
-policy with continuous batching over one shared slab pool: chunked
+:class:`Engine` serves one batch under a cache policy: prompts are
+prefilled into a cache sized for the prompt only, then decode pushes tokens
+until capacity, where the policy's growth event fires:
+
+- ``ggarray``    ``grow_ggarray`` appends the next geometric bucket — **no
+                 copy** (decode appends are K3, k and v in one launch);
+- ``semistatic`` realloc: allocate 2x and copy every K/V byte;
+- ``static``     no growth: the cache is pre-allocated to ``max_len``;
+- ``two_phase``  prefill grows a ggarray cache, which is then frozen into
+                 the contiguous layout; on capacity the engine thaws, adds a
+                 bucket and refreezes (one O(n) copy per growth event).
+
+:class:`BatchEngine` serves the ``paged`` policy with continuous batching
+over one shared slab pool: chunked
 admission (``serving/scheduler``), batched decode, slab reclamation, flat
 pools grown by realloc (``grow_chunk`` 1 or ``"geometric"``) or extent
 pools grown copy-free (``"doubling"``, ``"tz"``).
@@ -17,9 +26,8 @@ loop.  Host data reaches the card with ``non_blocking`` copies
 (``kernels.common.to_device``), so a steady-state decode step makes no
 synchronising call at all.
 
-Not ported yet (ROADMAP.md, Queue 1 items 14–17), each raising
-``NotImplementedError``: the ``static``, ``semistatic`` and ``two_phase``
-policies, int8 caches, monolithic admission, ``prefix_cache=True``,
+Not ported yet (ROADMAP.md, Queue 1), each raising
+``NotImplementedError``: int8 caches, monolithic admission, ``prefix_cache=True``,
 ``instrument=True`` (the device counter plane) and non-attention layouts.
 The flight recorder comes with slice 4: a failed ``check_free_list`` raises
 without a postmortem bundle.
@@ -41,7 +49,7 @@ from repro_torch.obs import ServingTimeline
 from repro_torch.serving import kvcache, scheduler as sched_mod, steps
 from repro_torch.serving.sampler import sample
 
-__all__ = ["Engine", "EngineStats", "BatchEngine", "BatchStats", "Request"]
+__all__ = ["Engine", "EngineStats", "ENGINE_POLICIES", "BatchEngine", "BatchStats", "Request"]
 
 
 def _not_ported(what: str):
@@ -85,15 +93,19 @@ class EngineStats(_StatsView):
     reference's ``compiles`` has no meaning without ``jit`` and is not kept."""
 
     grow_events = property(lambda s: s._ct("engine.grow_events"))
+    freeze_events = property(lambda s: s._ct("engine.freeze_events"))
     copied_bytes = property(lambda s: s._ct("engine.copied_bytes"))
     allocated_bytes = property(lambda s: s._ct("engine.allocated_bytes"))
     decode_steps = property(lambda s: s._ct("engine.decode_steps"))
     host_syncs = property(lambda s: s._ct("serve.host_syncs"))
 
 
+ENGINE_POLICIES = ("static", "semistatic", "ggarray", "two_phase")
+
+
 class Engine:
-    """``Engine(params, cfg, policy="ggarray")``: batched generation over a
-    growable GGArray KV cache, on the parameters' device."""
+    """``Engine(params, cfg, policy=...)``: batched generation over a KV
+    cache of one of :data:`ENGINE_POLICIES`, on the parameters' device."""
 
     def __init__(
         self,
@@ -114,8 +126,8 @@ class Engine:
                 "the paged (slab-arena) policy is served by BatchEngine, "
                 "which owns the pool/page-table lifecycle"
             )
-        if self.policy != "ggarray":
-            raise _not_ported(f"the {self.policy!r} policy")
+        if self.policy not in ENGINE_POLICIES:
+            raise ValueError(f"unknown policy {self.policy!r}; options: {ENGINE_POLICIES}")
         if instrument or cfg.instrument:
             raise _not_ported("instrument=True (the device counter plane, K15)")
         if cfg.cache_quant:
@@ -138,14 +150,38 @@ class Engine:
         return kvcache.capacity_of(caches[0])
 
     def _grow(self, caches) -> list:
-        """Growth event: one more bucket level per layer kind, no copy."""
+        """The policy's growth event; counts allocated and copied bytes."""
         reg = self.obs.registry
         reg.counter("engine.grow_events").inc()
         self.obs.event("grow", policy=self.policy)
+        cfg = self.cfg
         out = []
         for c in caches:
-            grown = kvcache.grow_ggarray(c, self.cfg)
-            reg.counter("engine.allocated_bytes").inc(kvcache.cache_bytes(grown) - kvcache.cache_bytes(c))
+            if self.policy == "ggarray":
+                grown = kvcache.grow_ggarray(c, cfg)
+                reg.counter("engine.allocated_bytes").inc(
+                    kvcache.cache_bytes(grown) - kvcache.cache_bytes(c))
+            elif self.policy == "two_phase":
+                # thaw → add a bucket (copy-free) → refreeze for flat decode
+                thawed = kvcache.grow_ggarray(kvcache.thaw_cache(c, cfg.cache_b0), cfg)
+                grown = kvcache.freeze_cache(thawed)
+                reg.counter("engine.copied_bytes").inc(kvcache.cache_bytes(c))
+                reg.counter("engine.allocated_bytes").inc(
+                    kvcache.cache_bytes(grown) - kvcache.cache_bytes(c))
+                reg.counter("engine.freeze_events").inc()
+            elif self.policy == "semistatic":
+                # the copy of realloc, which GGArray avoids
+                grown = dict(c)
+                for key in ("k", "v"):
+                    old = c[key]
+                    cap = old.shape[-3]
+                    grown[key] = old.new_zeros((*old.shape[:-3], cap * 2, *old.shape[-2:]))
+                    grown[key][..., :cap, :, :] = old
+                reg.counter("engine.allocated_bytes").inc(
+                    kvcache.cache_bytes({"k": grown["k"], "v": grown["v"]}))
+                reg.counter("engine.copied_bytes").inc(kvcache.cache_bytes(c))
+            else:
+                raise RuntimeError("static cache cannot grow: pre-allocate max_len")
             out.append(grown)
         return out
 
@@ -164,11 +200,17 @@ class Engine:
         for i, p in enumerate(prompts):
             toks[i, : len(p)] = p
         lengths = to_device(torch.from_numpy(lens), self.device)
+        hint = Lp if self.policy != "static" else self.max_len
+        # two_phase: the grow phase is a ggarray prefill, frozen below
+        prefill_policy = "ggarray" if self.policy == "two_phase" else self.policy
         with self.obs.span("prefill", batch=B, tokens=int(lens.sum())):
             logits, caches = steps.prefill(
                 self.params, to_device(torch.from_numpy(toks), self.device), cfg,
-                capacity_hint=Lp, policy=self.policy, lengths=lengths,
+                capacity_hint=hint, policy=prefill_policy, lengths=lengths,
             )
+        if self.policy == "two_phase":
+            caches = [kvcache.freeze_cache(c) for c in caches]
+            self.obs.registry.counter("engine.freeze_events").inc()
         self.obs.registry.counter("engine.allocated_bytes").inc(
             sum(kvcache.cache_bytes(c) for c in caches))
         # host mirror of the longest live context: decode appends one slot
@@ -177,7 +219,7 @@ class Engine:
         out = [list(p) for p in prompts]
         sampled = [sample(self.gen, logits, temperature)]
         for _ in range(max_new_tokens - 1):
-            if max_len_host + 1 >= self._capacity(caches):
+            if max_len_host + 1 >= self._capacity(caches) and self.policy != "static":
                 caches = self._grow(caches)
             with self.obs.span("decode_step"):
                 logits, caches = steps.decode_step(self.params, sampled[-1], caches, lengths, cfg)

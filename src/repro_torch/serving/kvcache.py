@@ -1,6 +1,9 @@
-"""KV-cache policies — port of ``repro/serving/kvcache.py``, for the
-``ggarray`` and ``paged`` policies.
+"""KV-cache policies — port of ``repro/serving/kvcache.py``.
 
+``static``   pre-allocate the worst-case length (the paper's static array);
+             appends past the capacity are dropped.
+``semistatic`` a doubling buffer; the engine copies the whole cache on
+             growth (the host-resize baseline).
 ``ggarray``  geometric seq-dim buckets (bucket b holds ``B0·2^b`` steps):
              growth appends a bucket, never copies.  Decode appends through
              the fused push-back (K3), k and v as two payload groups of one
@@ -12,14 +15,21 @@
              the pages in geometric groups (``paged_attend_impl="levels"``)
              or runs K10/K11 (``"pallas"``).
 
+``two_phase`` (served by ``serving/engine.py``) grows a ggarray cache in
+prefill and freezes it (:func:`freeze_cache`) into the static layout for
+decode; on capacity it thaws (:func:`thaw_cache`), grows a level and
+refreezes.  A static or frozen cache is one ``(…, B, cap, KH, Dh)`` tensor
+per K and V; attention over it is one softmax pass in plain PyTorch, as the
+reference's (the contiguous-cache kernel K14 is ``kernels/decode_attention``,
+held against this layout but not called from here).
+
 A cache *slot* (one attention layer kind) is a dict of tensors, exactly the
 reference's keys and shapes.  Where the reference returns a new dict, the
 port writes the tensors **in place** and returns the same dict (growth
 returns a new dict that shares the old levels, so nothing is copied).  Every
 function here is free of host syncs: indices and masks stay on the device,
-host values are Python ints.  ``static``, ``semistatic`` and ``two_phase``
-(``freeze_cache``/``thaw_cache``) and the int8 caches (``cache_quant``) raise
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 14).
+host values are Python ints.  The int8 caches (``cache_quant``) raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -44,6 +54,8 @@ __all__ = [
     "chunk_attend",
     "scatter_chunk",
     "grow_ggarray",
+    "freeze_cache",
+    "thaw_cache",
     "fill_from_prefill",
     "needed_levels",
     "cache_bytes",
@@ -52,17 +64,17 @@ __all__ = [
 ]
 
 Cache = dict[str, Any]
-POLICIES = ("ggarray", "paged")
+POLICIES = ("static", "semistatic", "ggarray", "paged", "two_phase")
 _F32 = torch.float32
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item 14)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 def _check_policy(policy: str) -> None:
     if policy not in POLICIES:
-        raise _not_ported(f"the {policy!r} cache policy")
+        raise ValueError(f"unknown cache policy {policy!r}; options: {POLICIES}")
 
 
 def needed_levels(b0: int, length: int) -> int:
@@ -71,6 +83,13 @@ def needed_levels(b0: int, length: int) -> int:
 
 def cache_capacity(cfg: ModelConfig, policy: str, length_hint: int) -> int:
     _check_policy(policy)
+    if policy == "static":
+        return length_hint
+    if policy == "semistatic":
+        cap = max(cfg.cache_b0, 1)
+        while cap < length_hint:
+            cap *= 2
+        return cap
     if policy == "paged":
         T = cfg.slab_tokens
         return max(-(-length_hint // T), 1) * T
@@ -105,6 +124,9 @@ def init_cache(
     def z(*shape):
         return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
+    if policy in ("static", "semistatic"):
+        cap = cache_capacity(cfg, policy, length_hint)
+        return {"k": z(batch, cap, kh, dh), "v": z(batch, cap, kh, dh)}
     if policy == "paged":
         # standalone slot: sequence b owns slabs [b·maxp, (b+1)·maxp)
         T = cfg.slab_tokens
@@ -225,6 +247,8 @@ def capacity_of(cache: Cache) -> int:
     """Sequence-slot capacity of one cache slot — shapes only, no device read."""
     if _is_paged(cache):
         return cache["pages"].shape[-1] * _pool_first(cache["k_pool"]).shape[-3]
+    if "k" in cache:
+        return cache["k"].shape[-3]
     return indexing.capacity(cache["k0"].shape[-3], _levels(cache))
 
 
@@ -247,6 +271,62 @@ def cache_bytes(cache: Cache) -> int:
         for t in _pool_exts(v):
             total += t.numel() * t.element_size()
     return total
+
+
+# --------------------------------------------------------------------------
+# freeze / thaw — the two-phase handoff at the prefill → decode boundary.
+#
+# Level ``lvl`` of a ggarray cache covers the contiguous positions
+# [start_lvl, start_lvl + size_lvl), so freezing is a concatenation along
+# the sequence axis and thawing the inverse slicing.  Both make new tensors
+# (the once-per-phase O(n) copy the pattern amortises); the source is left
+# untouched.
+# --------------------------------------------------------------------------
+
+_SEQ_AXIS = -3
+
+
+def freeze_cache(cache: Cache) -> Cache:
+    """ggarray cache → contiguous static-layout cache; other keys (and an
+    already static cache) pass through."""
+    if not _is_ggarray(cache):
+        return dict(cache)
+    n = _levels(cache)
+    out = {key: val for key, val in cache.items()
+           if not (key[:1] in ("k", "v") and key[1:].isdigit())}
+    for base in ("k", "v"):
+        out[base] = torch.cat([cache[f"{base}{lvl}"] for lvl in range(n)], dim=_SEQ_AXIS)
+    return out
+
+
+def _slice_level(arr: torch.Tensor, lo: int, size: int, axis: int) -> torch.Tensor:
+    """A new contiguous ``arr[..., lo:lo+size, ...]`` along ``axis``,
+    zero-padded to ``size``."""
+    axis = axis % arr.ndim
+    take = max(min(arr.shape[axis] - lo, size), 0)
+    shape = list(arr.shape)
+    shape[axis] = size
+    out = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
+    if take:
+        out.narrow(axis, 0, take).copy_(arr.narrow(axis, lo, take))
+    return out
+
+
+def thaw_cache(cache: Cache, b0: int) -> Cache:
+    """Contiguous static-layout cache → ggarray cache: the smallest bucket
+    chain covering the frozen buffer, its last level zero-padded past it."""
+    if _is_ggarray(cache):
+        return dict(cache)
+    cap = cache["k"].shape[_SEQ_AXIS]
+    nlev = max(indexing.min_buckets_for(b0, cap), 1)
+    starts = indexing.bucket_starts(b0, nlev)
+    sizes = indexing.bucket_sizes(b0, nlev)
+    out = {key: val for key, val in cache.items() if key not in ("k", "v")}
+    for base in ("k", "v"):
+        for lvl in range(nlev):
+            out[f"{base}{lvl}"] = _slice_level(cache[base], int(starts[lvl]), int(sizes[lvl]),
+                                               _SEQ_AXIS)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -275,8 +355,13 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
         _scatter_pool(cache["k_pool"], slab, slot, k[:, 0])
         _scatter_pool(cache["v_pool"], slab, slot, v[:, 0])
         return cache
-    if not _is_ggarray(cache):
-        raise _not_ported("appending to a static cache")
+    if not _is_ggarray(cache):  # static: writes at or past the capacity drop
+        cap = cache["k"].shape[-3]
+        rows = torch.arange(B, device=dev)
+        ok = (pos >= 0) & (pos < cap)
+        common.put_drop_(cache["k"], (rows, pos), ok, k[:, 0])
+        common.put_drop_(cache["v"], (rows, pos), ok, v[:, 0])
+        return cache
     from repro_torch.kernels.push_back import ops as push_back_ops
 
     n = _levels(cache)
@@ -313,7 +398,7 @@ def _partial_scores(q, k, v, kpos, live_len, state):
 def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Tensor:
     """q: (B, 1, H, Dh); ``length``: live entries per sequence ((B,) or ()).
     → (B, 1, H, Dh) in ``q.dtype``.  ggarray: one partial-softmax pass per
-    bucket level, merged online.  paged: the geometric page-group walk, or
+    bucket level, merged online.  static/frozen: one pass.  paged: the geometric page-group walk, or
     K10/K11 under ``paged_attend_impl="pallas"``."""
     B, _, H, Dh = q.shape
     kh = cfg.n_kv_heads
@@ -329,14 +414,16 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
     if _is_paged(cache):
         out = _attend_paged(cache, qf, length, cfg, state)
         return out.reshape(B, 1, H, Dh).to(q.dtype)
-    if not _is_ggarray(cache):
-        raise _not_ported("attending to a static cache")
-    n = _levels(cache)
-    starts = indexing.bucket_starts(cache["k0"].shape[-3], n)
-    for lvl in range(n):
-        kk = cache[f"k{lvl}"]
-        kpos = int(starts[lvl]) + torch.arange(kk.shape[-3], device=dev)
-        state = _partial_scores(qf, kk, cache[f"v{lvl}"], kpos, length, state)
+    if _is_ggarray(cache):
+        n = _levels(cache)
+        starts = indexing.bucket_starts(cache["k0"].shape[-3], n)
+        for lvl in range(n):
+            kk = cache[f"k{lvl}"]
+            kpos = int(starts[lvl]) + torch.arange(kk.shape[-3], device=dev)
+            state = _partial_scores(qf, kk, cache[f"v{lvl}"], kpos, length, state)
+    else:  # static or frozen: one segment, one softmax pass
+        kpos = torch.arange(cache["k"].shape[-3], device=dev)
+        state = _partial_scores(qf, cache["k"], cache["v"], kpos, length, state)
     m, l, acc = state
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, 1, H, Dh).to(q.dtype)
@@ -478,6 +565,7 @@ def scatter_chunk(
 def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) -> Cache:
     """Load (B, S, KH, Dh) prefill K/V into an (empty) cache slot, in place.
 
+    static: the first min(S, capacity) positions.
     ggarray: bucket b receives the contiguous slice [start_b, start_b+len_b).
     paged: page p takes positions [p·T, (p+1)·T); rows whose page is
     unclaimed drop.
@@ -491,8 +579,11 @@ def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) 
             _scatter_slab(cache["k_pool"], slab, _pad1(k_full[:, p * T:(p + 1) * T], T))
             _scatter_slab(cache["v_pool"], slab, _pad1(v_full[:, p * T:(p + 1) * T], T))
         return cache
-    if not _is_ggarray(cache):
-        raise _not_ported("filling a static cache")
+    if not _is_ggarray(cache):  # static: the first min(S, cap) positions
+        n = min(S, cache["k"].shape[-3])
+        cache["k"][:, :n] = k_full[:, :n]
+        cache["v"][:, :n] = v_full[:, :n]
+        return cache
     nlev = _levels(cache)
     b0 = cache["k0"].shape[-3]
     for lvl, (lo, size) in enumerate(zip(indexing.bucket_starts(b0, nlev),

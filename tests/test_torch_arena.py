@@ -93,6 +93,16 @@ def _pair(n, slab, item=(), dtype="float32", **kw):
             RefArena(n, slab, item_shape=item, dtype=jdt, **kw))
 
 
+def _settle(theirs):
+    """Wait for the reference arena's dispatched work.  Its cached owner
+    table is ``jnp.asarray`` of the host owner array, which on the CPU can
+    share that array's memory, and its slab append runs asynchronously: a
+    ``release`` or claim issued before the append has run rewrites the table
+    under it.  Waiting keeps the reference's state independent of timing."""
+    jax.block_until_ready((theirs.pool.extents, theirs.pool.free, theirs.arr.pages,
+                           theirs.arr.sizes))
+
+
 def _run_both(ours, theirs, rng, steps, item=(), dtype="float32", p_release=0.3):
     """Random releases and waves (widths 3 and 7, to bound the reference's
     compiles) through both arenas; masks alternate between host-known numpy
@@ -177,6 +187,7 @@ def test_release_then_reuse_before_growth():
     ours, theirs = _pair(3, 8)
     for a, x in ((ours, torch.ones((3, 20))), (theirs, jnp.ones((3, 20), jnp.float32))):
         a.append(x)
+    _settle(theirs)
     grown_before = ours.alloc.grown_slabs
     assert ours.release(1) == theirs.release(1) == 3
     assert ours.alloc.free_count == 3
@@ -282,6 +293,7 @@ def test_start_from_reference_state_then_step_both():
         m = (3, 7)[int(rng.integers(0, 2))]
         theirs.append(jnp.asarray(rng.standard_normal((5, m, 2)), jnp.float32),
                       rng.random((5, m)) < 0.8)
+        _settle(theirs)
     theirs.release(2)
     ours = convert.arena_from_numpy(_ref_state(theirs), device="cpu", grow_chunk="doubling",
                                     live_ub=theirs.planner.ub)

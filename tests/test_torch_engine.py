@@ -212,9 +212,8 @@ def test_unported_options_raise_naming_the_roadmap(model):
     for kwargs in (dict(admission="monolithic"), dict(prefix_cache=True), dict(instrument=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchEngine(params, cfg, device="cpu", **kwargs)
-    for policy in ("static", "semistatic", "two_phase"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(params, cfg, policy=policy, device="cpu")
+    for policy in ("static", "semistatic", "two_phase"):  # ported: accepted
+        assert Engine(params, cfg, policy=policy, device="cpu").policy == policy
     with pytest.raises(ValueError, match="BatchEngine"):
         Engine(params, cfg, policy="paged", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -243,3 +242,6 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     serve.main(["--device", "cpu", "--batch", "2", "--new-tokens", "5"])
     out = capsys.readouterr().out
     assert "policy=ggarray" in out and "grow_events=" in out and "seq0:" in out
+    serve.main(["--device", "cpu", "--batch", "2", "--new-tokens", "20", "--policy", "two_phase"])
+    out = capsys.readouterr().out
+    assert "policy=two_phase" in out and "grow_events=1" in out and "host_syncs=1" in out

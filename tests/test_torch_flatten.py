@@ -113,8 +113,10 @@ def test_flatten_rejects_unknown_impl_and_memory_space():
 
 
 def test_dispatch_off_the_cpu_raises_until_k5_is_ported():
+    """K5 is ported: off the CPU ``impl="dispatch"`` goes to the CUDA
+    launchers (K6, then K5a), which refuse a tensor not on a CUDA device."""
     levels = (torch.zeros((2, 2), device="meta"),)
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(ValueError, match="expected cuda"):
         ops.flatten(levels, torch.zeros(2, dtype=torch.int32, device="meta"), 2, impl="dispatch")
 
 

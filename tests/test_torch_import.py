@@ -151,3 +151,34 @@ def test_cpu_arena_path_launches_no_kernel():
         pipe.arena.logical_view()
     assert common.launch_counts() == {k: 0 for k in common.KERNELS}
     assert {"paged_gather", "paged_gather_extents", "slab_append"} <= set(common.KERNELS)
+
+
+def test_baseline_entry_points_need_a_card_unless_asked_for_cpu():
+    from repro_torch.core import LFVector, SemiStaticArray, static_init
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    for make in (lambda: LFVector.create(), lambda: static_init(4),
+                 lambda: SemiStaticArray.create(4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert static_init(4, device="cpu").data.device.type == "cpu"
+
+
+def test_cpu_slice4_paths_launch_no_kernel():
+    from repro_torch.core import LFVector, static_init, static_push_back
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.dispatch_mxu import ops as dm
+    from repro_torch.runtime import TwoPhasePipeline
+
+    common.reset_launch_counts()
+    pipe = TwoPhasePipeline(nblocks=3, b0=2, flatten_impl="dispatch", device="cpu")
+    pipe.append(torch.ones((3, 5)), method="mxu")
+    pipe.freeze()
+    LFVector.create(b0=2, device="cpu").push_back(torch.ones(5), method="mxu")
+    static_push_back(static_init(8, device="cpu"), torch.ones(3), method="mxu")
+    dm.combine(torch.ones((4, 2)), torch.tensor([0, -1, 3], dtype=torch.int32))
+    da.decode_attention(torch.ones((1, 4, 16)), torch.ones((1, 2, 8, 16)), torch.ones((1, 2, 8, 16)),
+                        torch.tensor([5]))
+    assert common.launch_counts() == {k: 0 for k in common.KERNELS}

@@ -70,5 +70,7 @@ def test_rejects_bad_rank_and_method():
 
 
 def test_mxu_off_the_cpu_raises_until_k2_is_ported():
-    with pytest.raises(NotImplementedError, match="K2"):
+    """K2 is ported: off the CPU ``mxu`` goes to its CUDA launcher, which
+    refuses any tensor that is not on a CUDA device (no fallback)."""
+    with pytest.raises(ValueError, match="expected cuda"):
         insertion_offsets(torch.ones((2, 3), dtype=torch.bool, device="meta"), method="mxu")

@@ -75,8 +75,28 @@ Run from the root of the repository.  Phases, one JSON line each:
    K14 (which no path of the reference calls) through its op on layer 0's
    captured contiguous cache, held against its plain version and
    ``kvcache.attend``.
-7. kernels — one line listing every ported kernel.
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. the device counter plane (K15).  ``obs.kernels`` (after the kernel
+   phase): K3 (one group at the main path's last wave, two groups at
+   m = 1, small ragged waves, empty masks), K7 (the freeze's plane, empty
+   blocks, ragged tail tiles), K8/K9 (the freezes' gathers, page -1 and
+   ids past the pool) and K10/K11 (the serving shape, lengths 0 and holes),
+   each launched with and without counters: data outputs bitwise equal,
+   the counter vector bitwise equal to the plain twin's (``ref.py``), both
+   times (plain, counted, counted, plain) and the overhead.  ``obs.arena``
+   (after the arena paths): ``SlabArena(instrument=True)`` at
+   arena.doubling's size, its counters equal to the sum of its waves'
+   oracle vectors; a small arena with a refcount broken on purpose writes
+   exactly one flight-recorder bundle that names the slab and reads back
+   through ``repro_torch.obs.dump``.  ``obs.serve`` (after serve.policies):
+   ``Engine`` on serve.engine's prompts and ``BatchEngine`` on
+   serve.batch.1's requests, 32 new tokens, without and with
+   ``instrument=True``: the same tokens, K3 waves, slab-append waves and
+   ``paged_attend.launches`` equal to the steps times the layers, decode
+   steps under the sync check, median steps of both.
+8. kernels — one line listing every ported kernel and ``counter_plane``
+   (its launches: the instrumented launches of every path; its times: K3's
+   at the main shape with and without counters).
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are zeroed just before each path and read just after it; a
 kernel of a path that never launched fails the run.  Any failed check raises and the script exits non-zero.  Without a CUDA
@@ -138,6 +158,9 @@ KERNELS = {
                 "src/repro/kernels/dispatch_mxu/kernel.py:116"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:64"),
+    # K15: ctr_accum in every instrumented kernel (K3, K7, K8/K9, K10/K11)
+    "counter_plane": ("src/repro_torch/csrc/common.cuh",
+                      "src/repro/kernels/common.py:214"),
 }
 
 SLICE1_KERNELS = ("row_scan", "push_back", "compact_blocks", "segmented_gather")
@@ -169,6 +192,10 @@ POLICY_NEW = 272
 # LFVector: one block, b0 = 2048, pushes of 2048 * 2^w (w = 0..10) and one
 # more of 2048, to 2^22 elements.
 LF_B0, LF_PUSHES = 2048, [2048 << w for w in range(11)] + [2048]
+# obs.serve: the instrumented engines generate this many tokens (the
+# serve.engine prompts, serve.batch.1's requests), with and without counters.
+OBS_NEW = 32
+OBS_ORDER = ("plain", "counted", "counted", "plain")
 DEV = "cuda"
 
 
@@ -390,6 +417,8 @@ def kernel_phase(card: str, gen) -> dict:
     slice4_kernel_cases(card, res, timing)
     torch.cuda.synchronize()
     for name in KERNELS:
+        if name == "counter_plane":  # held in obs.kernels
+            continue
         r, t = res[name], timing[name]
         r.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
                  bound_ms=t["bound"][0], bound_by=t["bound"][1], shape=t["shape"])
@@ -1900,10 +1929,39 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
             "kv_before_growth": kv_before_growth}
 
 
-def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict) -> dict:
+def drive_batch(be) -> tuple:
+    """Step ``be`` until it is idle, every steady step (no prompt pending or
+    prefilling) under ``torch.cuda.set_sync_debug_mode("error")`` between
+    two CUDA events, then drain it → (outputs, step events, wall seconds)."""
+    import torch
+
+    steady_ev = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        quiet = not be.sched.pending and not be.sched.prefilling
+        if quiet:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a.record()
+                more = be.step()
+                b.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            steady_ev.append((a, b))
+        else:
+            more = be.step()
+        if not more:
+            break
+    out = be.run()  # the two drains
+    return out, steady_ev, time.perf_counter() - t0
+
+
+def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict) -> tuple:
     """BatchEngine: 8 slots, ``nreq`` requests of 512-4096 prompt tokens and
     64 new tokens, chunked admission; steady decode steps under the sync
-    check."""
+    check → (launch counts, the prompts)."""
     import torch
 
     from repro_torch.kernels import common
@@ -1917,28 +1975,8 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
     common.reset_launch_counts()
     be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, grow_chunk=grow_chunk, device=DEV)
     rids = [be.submit(p, BATCH_NEW) for p in prompts]
-    steady_ev = []
     with Capture(k_pg, "paged_attend_cuda") as cap:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        while True:
-            quiet = not be.sched.pending and not be.sched.prefilling
-            if quiet:
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    a.record()
-                    more = be.step()
-                    b.record()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                steady_ev.append((a, b))
-            else:
-                more = be.step()
-            if not more:
-                break
-        out = be.run()  # the two drains
-        wall = time.perf_counter() - t0
+        out, steady_ev, wall = drive_batch(be)
     launches = common.launch_counts()
     st = be.stats
     syncs = be.obs.registry.counter("serve.host_syncs")
@@ -1993,7 +2031,7 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
     del be
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches
+    return launches, prompts
 
 
 def serve_cross_check(card: str, cfg, params, engine_run: dict) -> None:
@@ -2279,10 +2317,11 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
     cfg, params = serve_model(seed)
     eng = serve_engine_path(card, cfg, params, rng, res)
     runs = {"engine": eng["launches"],
-            "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res),
-            "batch.flat": serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)}
+            "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res)[0]}
+    runs["batch.flat"], flat_prompts = serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)
     serve_cross_check(card, cfg, params, eng)
     runs["policies"] = serve_policies_path(card, cfg, params, eng, res)
+    runs.update(obs_serve_paths(card, cfg, params, eng["prompts"], flat_prompts))
     r = {k: {n: res[k][n] for n in ("mismatches", "max_abs_err", "cases")}
          for k in ("flash_attention", "push_back_multi", "paged_attend", "paged_attend_extents",
                    "decode_attention")}
@@ -2298,6 +2337,388 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
         for k, v in counts.items():
             total[k] += v
     return total
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the device counter plane (K15) — instrumented kernels, arena and
+# serving.
+# --------------------------------------------------------------------------
+
+def _halves(fn_plain, fn_counted, timer, iters: int) -> tuple[float, float]:
+    """Time the plain and the counted launch in turns (plain, counted,
+    counted, plain) → (plain ms, counted ms), each the mean of its two."""
+    p1 = timer(fn_plain, iters)
+    c1 = timer(fn_counted, iters)
+    c2 = timer(fn_counted, iters)
+    p2 = timer(fn_plain, iters)
+    return (p1 + p2) / 2, (c1 + c2) / 2
+
+
+def obs_kernel_phase(card: str) -> dict:
+    """obs.kernels: K3 (one group at the main path's last wave, two groups at
+    m = 1), K7 at the freeze's shape, K8/K9 (flat, extents) and K10/K11 at
+    the serving shape, plus small ragged cases, each launched with and
+    without counters: data outputs bitwise equal, the counter vector
+    bitwise equal to the plain twin's (``ref.py``) on the same inputs, both
+    times → the ``counter_plane`` entry of the kernels line."""
+    import torch
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.flatten import kernel as k_fl
+    from repro_torch.kernels.flatten import ops as fl_ops
+    from repro_torch.kernels.flatten import ref as r_fl
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+    from repro_torch.obs import device as obs_device
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(15)
+    rec = {}
+
+    def hold(name, pairs, got_vec, want_vec):
+        r = rec.setdefault(name, {"cases": 0, "data_mismatches": 0, "counter_mismatches": 0,
+                                  "max_abs_err": 0.0})
+        for a, b in pairs:
+            r["data_mismatches"] += compare(a, b)[0]
+        mism, err = compare(got_vec, want_vec)
+        r["counter_mismatches"] += mism
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"] += 1
+
+    def timed(name, plain, counted, timer, iters, shape):
+        p, c = _halves(plain, counted, timer, iters)
+        rec[name].update(plain_launch_ms=p, counted_ms=c, overhead=c / p - 1.0, shape=shape)
+
+    def k3(n, b0, nlev, m, sizes, item=(), dtype=torch.float32, groups=1, p_live=0.9):
+        levels = tuple(tuple(torch.randn((n, w, *item), generator=gen, device=dev).to(dtype)
+                             for w in indexing.bucket_sizes(b0, nlev)) for _ in range(groups))
+        elems = tuple(torch.randn((n, m, *item), generator=gen, device=dev).to(dtype)
+                      for _ in range(groups))
+        mask = torch.rand((n, m), generator=gen, device=dev) < p_live
+        a, b = clone_tree(levels), clone_tree(levels)
+        sa, pa = k_pb.push_back_cuda_multi(a, sizes, b0, elems, mask)
+        sb, pb_, blk = k_pb.push_back_cuda_multi(b, sizes, b0, elems, mask, instrument=True)
+        pairs = [(sa, sb), (pa, pb_)] + [(x, y) for ga, gb in zip(a, b) for x, y in zip(ga, gb)]
+        hold("push_back" if groups == 1 else "push_back_multi", pairs, obs_device.from_block(blk),
+             r_pb.counters(mask, sizes, b0, nlev))
+        return a, elems, mask
+
+    def k7(compact, sizes):
+        starts = indexing.block_starts(sizes)
+        ends = starts + sizes
+        plain = fl_ops.segmented_gather(compact, starts, ends)
+        out, vec = fl_ops.segmented_gather(compact, starts, ends, instrument=True)
+        hold("segmented_gather", [(plain, out)], vec, r_fl.gather_counters(starts, ends, *compact.shape))
+        return starts, ends
+
+    def k89(exts, pages):
+        clip = len(exts) == 1
+        plain = k_pg.paged_gather_cuda(exts, pages, clip_high=clip)
+        out, blk = k_pg.paged_gather_cuda(exts, pages, clip_high=clip, instrument=True)
+        hold("paged_gather" if clip else "paged_gather_extents", [(plain, out)],
+             obs_device.from_block(blk), r_pg.gather_counters(pages, sum(e.shape[0] for e in exts), clip))
+
+    def k1011(q, kx, vx, pages, lens):
+        plain = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+        out, blk = k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=True)
+        T, KH = kx[0].shape[1], kx[0].shape[2]
+        want = r_pg.attend_counters(pages, lens, T, KH, sum(e.shape[0] for e in kx), len(kx) == 1)
+        hold("paged_attend" if len(kx) == 1 else "paged_attend_extents", [(plain, out)],
+             obs_device.from_block(blk), want)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    # K3 small ragged: one and nine levels, m = 1, 130 and past one
+    # 1024-lane chunk, waves past the capacity, an empty mask, two groups
+    for n, b0, nlev, m in ((37, 3, 1, 1), (37, 2, 9, 130), (7, 1, 9, 130), (5, 4, 4, 2049)):
+        cap = indexing.capacity(b0, nlev)
+        for groups in (1, 2):
+            for p_live in (0.6, 0.0):
+                k3(n, b0, nlev, m, ints(0, cap + 1, (n,)), (2, 8), torch.bfloat16, groups, p_live)
+    # K3 at the main path's last grow wave (one group, f32)
+    m_last, n_lev = B0 << (NWAVES - 1), NWAVES
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** (NWAVES - 1) - 1)), dtype=torch.int32, device=dev)
+    sizes += ints(-(B0 // 4), B0 // 4, (NBLOCKS,))
+    la, elems, mask = k3(NBLOCKS, B0, n_lev, m_last, sizes)
+    live_lanes = int(mask.sum().item())
+    timed("push_back", lambda: k_pb.push_back_cuda_multi(la, sizes, B0, elems, mask),
+          lambda: k_pb.push_back_cuda_multi(la, sizes, B0, elems, mask, instrument=True), cuda_ms, 10,
+          f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32, wave ({NBLOCKS}, {m_last}), live {live_lanes}")
+    k3_bound = bound_ms(NBLOCKS * m_last * (1 + 4 + 4) + 8 * NBLOCKS + 4 * live_lanes,
+                        NBLOCKS * m_last, card)
+    del la, elems, mask
+    # the two-group K3 at the Engine's decode append (m = 1)
+    KH, D = 2, 128
+    sizes = ints(SERVE_SLAB, 2 * SERVE_SLAB, (SERVE_PROMPTS,))
+    groups, elems, mask = k3(SERVE_PROMPTS, SERVE_SLAB, 2, 1, sizes, (KH, D), torch.bfloat16, 2, 1.0)
+    timed("push_back_multi", lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask),
+          lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask, instrument=True),
+          graph_ms, 50, f"2 groups x 2 levels of ({SERVE_PROMPTS}, {SERVE_SLAB}*2^b, {KH}, {D}) bf16, "
+                        f"wave ({SERVE_PROMPTS}, 1); CUDA-graph times")
+    del groups, elems, mask
+    torch.cuda.empty_cache()
+
+    # K7 small ragged: empty blocks, output lengths that are no multiple of
+    # the 256-wide tile, every block empty; then the freeze's shape
+    for n, b0, nlev in ((7, 3, 5), (40, 4, 4), (1, 1, 1), (64, 2, 2), (3, 128, 2)):
+        cap = indexing.capacity(b0, nlev)
+        compact = torch.randn((n, cap), generator=gen, device=dev)
+        sz = ints(0, cap + 1, (n,))
+        sz[::2] = 0
+        k7(compact, sz)
+        k7(compact, torch.zeros_like(sz))
+    cap = indexing.capacity(B0, n_lev)
+    final_sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** NWAVES - 1)), dtype=torch.int32, device=dev)
+    final_sizes += ints(-(B0 // 2), B0 // 2, (NBLOCKS,))
+    final_sizes[::64] = 0  # a few empty blocks
+    compact = torch.randn((NBLOCKS, cap), generator=gen, device=dev)
+    starts, ends = k7(compact, final_sizes)
+    timed("segmented_gather", lambda: k_fl.segmented_gather_cuda(compact, starts, ends),
+          lambda: k_fl.segmented_gather_cuda(compact, starts, ends, instrument=True), cuda_ms, 10,
+          f"plane ({NBLOCKS}, {cap}) f32, {int(final_sizes.sum().item())} live")
+    del compact
+    torch.cuda.empty_cache()
+
+    # K8/K9 small ragged: page -1 and ids past the pool, three layouts
+    for layout in ("flat", "doubling", "tz"):
+        T, N, P = 5, 7, 6
+        sizes_e = _extent_sizes(13, layout)
+        S = sum(sizes_e)
+        exts = _split(torch.randn((S, T, 8, 128), generator=gen, device=dev).to(torch.bfloat16), sizes_e)
+        pages = ints(-1, S, (N, P))
+        pages[0, 0], pages[1, 2] = S, S + 9
+        k89(exts, pages)
+    # the freezes' gathers: a flat 1/8-size pool (K8), doubling extents (K9)
+    t8 = B0 // 8
+    npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
+    S = 2 * sum(npages)
+    _, _, pages = _arena_tables(npages, S, t8, gen)
+    pool = torch.randn((S, t8), generator=gen, device=dev)
+    k89((pool,), pages)
+    timed("paged_gather", lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True),
+          lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=True), cuda_ms, 20,
+          f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32")
+    npages = [-(-int(0.9 * B0 * (2 ** NWAVES - 1) + j) // B0) for j in range(0, 4 * NBLOCKS, 4)]
+    sizes_e = _extent_sizes(sum(npages), "doubling")
+    S = sum(sizes_e)
+    _, _, pages = _arena_tables(npages, S, B0, gen)
+    exts = _split(torch.randn((S, B0), generator=gen, device=dev), sizes_e)
+    k89(exts, pages)
+    timed("paged_gather_extents", lambda: k_pg.paged_gather_cuda(exts, pages, clip_high=False),
+          lambda: k_pg.paged_gather_cuda(exts, pages, clip_high=False, instrument=True), cuda_ms, 10,
+          f"pages ({NBLOCKS}, {pages.shape[1]}) over {len(exts)} extents of {B0} f32")
+    del pool, exts, pages
+    torch.cuda.empty_cache()
+
+    # K10/K11 small ragged: lengths 0, inside and at a slab's end, a hole
+    for layout in ("flat", "doubling", "tz"):
+        T, P, G, KH, D = 8, 5, 4, 2, 32
+        lengths = [0, 3, 8, 17, 40, 29]
+        S = sum(-(-n // T) for n in lengths) + 3
+        q, pk, pv, pages, lens = attend_inputs(gen, len(lengths), KH, G, D, T, S, P, torch.float32, lengths)
+        pages[4, 1] = -1
+        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
+        if sum(sizes) > S:
+            sizes[-1] -= sum(sizes) - S
+        k1011(q, _split(pk, sizes), _split(pv, sizes), pages, lens)
+    # the serving shape: q (8, 2, 8, 128) f32 over 2048-token bf16 slabs
+    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
+    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
+                                             device=DEV).cpu()]
+    P = max(-(-n // T) for n in lengths) + 1  # one dead page column per row
+    S = sum(-(-n // T) for n in lengths)
+    q, pk, pv, pages, lens = attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    for layout, name in (("flat", "paged_attend"), ("doubling", "paged_attend_extents")):
+        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
+        if sum(sizes) > S:
+            sizes[-1] -= sum(sizes) - S
+        kx, vx = _split(pk, sizes), _split(pv, sizes)
+        k1011(q, kx, vx, pages, lens)
+        timed(name, lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens),
+              lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=True), graph_ms, 20,
+              f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
+              f"pages ({Bq}, {P}), {sum(lengths)} live tokens; CUDA-graph times")
+        del kx, vx
+    del q, pk, pv, pages, lens
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    for name, r in rec.items():
+        emit({"phase": "obs.kernels", "name": name, "card": card, **r})
+        check(r["data_mismatches"] == 0, f"obs.kernels {name}: counting changed the data outputs")
+        check(r["counter_mismatches"] == 0, f"obs.kernels {name}: counters differ from the plain twin's")
+    pb = rec["push_back"]
+    return {"mismatches": sum(r["counter_mismatches"] for r in rec.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+            "cases": sum(r["cases"] for r in rec.values()),
+            "ms": pb["counted_ms"], "plain_ms": pb["plain_launch_ms"], "library_ms": None,
+            "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+            "shape": f"K3 at the main path's last wave: {pb['shape']}; ms counted, plain_ms the "
+                     f"same launch uncounted; bound: the uncounted K3's (the counters add 76 bytes)",
+            "overhead": {name: r["overhead"] for name, r in rec.items() if "overhead" in r}}
+
+
+def obs_arena_path(card: str, seed: int) -> dict:
+    """obs.arena: ``SlabArena(instrument=True)`` at arena.doubling's size,
+    grown by the same eight waves: its ``devctr.counters()`` must equal the
+    sum of the waves' oracle vectors.  Then a small arena with a refcount
+    broken on purpose: ``check_invariants`` raises and writes exactly one
+    bundle naming the slab, which ``repro_torch.obs.dump`` reads back."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.obs import device as obs_device
+    from repro_torch.obs import dump as obs_dump
+    from repro_torch.obs import flightrec
+    from repro_torch.pool import SlabArena
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 400)
+    common.reset_launch_counts()
+    arena = SlabArena(NBLOCKS, B0, dtype=torch.float32, grow_chunk="doubling", instrument=True,
+                      device=DEV)
+    oracle, active, t_grow = [], 0, 0.0
+    for w in range(NWAVES):
+        m = B0 << w
+        vals = torch.randn((NBLOCKS, m), generator=gen, device=DEV)
+        mask = torch.rand((NBLOCKS, m), generator=gen, device=DEV) < 0.9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arena.append(vals, mask)
+        torch.cuda.synchronize()
+        t_grow += time.perf_counter() - t0
+        oracle.append(r_pg.append_counters(mask))
+        active += int(mask.sum().item())
+        del vals, mask
+    launches = common.launch_counts()
+    got = arena.devctr.counters()
+    want = obs_device.as_dict(torch.stack(oracle).sum(0))
+    check(got == want, f"obs.arena: plane {got} != the waves' oracle sum {want}")
+    lanes = NBLOCKS * B0 * (2 ** NWAVES - 1)
+    check(got["slab_append.waves"] == NWAVES and got["slab_append.lanes"] == lanes,
+          "obs.arena: waves or lanes miscounted")
+    arena.check_invariants()
+    check(arena.flight.last_bundle is None, "obs.arena: a clean arena dumped a bundle")
+    del arena
+    torch.cuda.empty_cache()
+
+    small = SlabArena(3, 4, initial_slabs=2, instrument=True, device=DEV)
+    small.append(torch.arange(6, dtype=torch.float32, device=DEV).reshape(3, 2), np.ones((3, 2), bool))
+    small.check_invariants()
+    small.alloc.refcount[0] += 1  # engineered corruption
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        old = os.environ.get(flightrec.DIR_ENV)
+        os.environ[flightrec.DIR_ENV] = tmp
+        try:
+            small.check_invariants()
+            raised = False
+        except AssertionError:
+            raised = True
+        finally:
+            if old is None:
+                os.environ.pop(flightrec.DIR_ENV)
+            else:
+                os.environ[flightrec.DIR_ENV] = old
+        bundles = sorted(Path(tmp).glob("flightrec_*.json"))
+        check(raised, "obs.arena: check_invariants missed a broken refcount")
+        check(len(bundles) == 1, f"obs.arena: {len(bundles)} bundles for one violation")
+        b = obs_dump.load_bundle(str(bundles[0]))
+        text = obs_dump.summarize(b)
+    check(b["reason"] == "refcount_mismatch" and b["state"]["invariant"]["offending_slabs"] == [0],
+          f"obs.arena: the bundle does not name slab 0: {b['state'].get('invariant')}")
+    check("offending_slabs: [0]" in text, "obs.arena: dump.summarize does not name slab 0")
+    emit({"phase": "obs.arena", "card": card, "narrays": NBLOCKS, "slab_size": B0, "waves": NWAVES,
+          "grow_s": t_grow, "counters": got, "exact": {"slab_append.waves": NWAVES,
+                                                        "slab_append.lanes": lanes,
+                                                        "slab_append.active_lanes": active},
+          "bundle": {"reason": b["reason"], "offending_slabs": b["state"]["invariant"]["offending_slabs"],
+                     "events": len(b["events"]), "summary_lines": len(text.splitlines())},
+          "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+    return launches
+
+
+def obs_serve_paths(card: str, cfg, params, engine_prompts, batch_prompts) -> dict:
+    """obs.serve: ``Engine`` on serve.engine's prompts and ``BatchEngine`` on
+    serve.batch.1's requests (the flat pool, K10), ``OBS_NEW`` new tokens,
+    each run without and with ``instrument=True`` in turns (plain, counted,
+    counted, plain): the same greedy tokens, K3, slab-append and
+    paged-attend counts that match the steps, every decode step (Engine) and
+    steady step (BatchEngine) under the sync check → the runs' launch
+    counts."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.serving import steps
+    from repro_torch.serving.engine import BatchEngine, Engine
+
+    L, runs = cfg.n_layers, {}
+    line = {"phase": "obs.serve", "card": card, "arch": SERVE_ARCH, "new_tokens": OBS_NEW,
+            "order": list(OBS_ORDER)}
+    outs, medians, ctr = [], {"plain": [], "counted": []}, {}
+    for n, key in enumerate(OBS_ORDER):
+        common.reset_launch_counts()
+        eng = Engine(params, cfg, device=DEV, instrument=key == "counted")
+        with StepTimer(steps, "decode_step") as timer:  # each step under the sync check
+            outs.append(eng.generate(engine_prompts, OBS_NEW))
+        runs[f"obs.engine.{n}.{key}"] = launched = common.launch_counts()
+        medians[key].append(timer.step_ms()[len(timer.events) // 2])
+        if key == "counted":
+            ctr = eng.drain_device_counters()
+            steps_e = len(timer.events)
+            check(ctr["push_back.waves"] == steps_e * L,
+                  f"obs.serve engine: K3 waves {ctr['push_back.waves']} != {steps_e} steps x {L} layers")
+            check(ctr["push_back.lanes"] == ctr["push_back.active_lanes"] == steps_e * L * len(engine_prompts)
+                  and ctr["push_back.padded_lanes"] == 0, "obs.serve engine: K3 lanes miscounted")
+            check(launched["push_back_multi"] == launched["counter_plane"] == steps_e * L,
+                  f"obs.serve engine: {launched['push_back_multi']} K3 launches, "
+                  f"{launched['counter_plane']} counted, expected {steps_e * L} of each")
+        del eng
+    check(all(o == outs[0] for o in outs), "obs.serve engine: counters changed the tokens")
+    line.update(engine_step_ms_median=medians, engine_counters=ctr)
+    torch.cuda.empty_cache()
+
+    outs, medians, walls = [], {"plain": [], "counted": []}, {"plain": [], "counted": []}
+    for n, key in enumerate(OBS_ORDER):
+        common.reset_launch_counts()
+        be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, grow_chunk=1, device=DEV,
+                         instrument=key == "counted")
+        rids = [be.submit(p, OBS_NEW) for p in batch_prompts]
+        out, steady_ev, wall = drive_batch(be)
+        runs[f"obs.batch.{n}.{key}"] = launched = common.launch_counts()
+        outs.append([out[r] for r in rids])
+        torch.cuda.synchronize()
+        step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
+        check(len(step_ms) >= 1, "obs.serve batch: no steady decode step")
+        medians[key].append(step_ms[len(step_ms) // 2])
+        walls[key].append(wall)
+        if key == "counted":
+            ctr = be.drain_device_counters()
+            decode_steps, chunks = be.stats.decode_steps, be.stats.prefill_chunks
+            check(ctr["paged_attend.launches"] == decode_steps * L,
+                  f"obs.serve batch: paged_attend.launches {ctr['paged_attend.launches']} != "
+                  f"{decode_steps} steps x {L} layers")
+            check(launched["paged_attend"] == launched["counter_plane"] == decode_steps * L,
+                  f"obs.serve batch: {launched['paged_attend']} K10 launches, "
+                  f"{launched['counter_plane']} counted, expected {decode_steps * L} of each")
+            check(ctr["slab_append.waves"] == (decode_steps + chunks) * L,
+                  "obs.serve batch: slab-append waves do not match the steps and chunks")
+        del be
+    check(all(o == outs[0] for o in outs), "obs.serve batch: counters changed the tokens")
+    line.update(batch_steady_step_ms_median=medians, batch_run_s=walls, batch_counters=ctr,
+                batch_decode_steps=decode_steps, batch_prefill_chunks=chunks, ok=True)
+    emit(line)
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main() -> int:
@@ -2341,6 +2762,9 @@ def main() -> int:
     gen.manual_seed(args.seed)
     res = kernel_phase(card, gen)
     torch.cuda.empty_cache()
+    # 3b. each instrumented kernel with and without counters (K15)
+    res["counter_plane"].update(obs_kernel_phase(card))
+    torch.cuda.empty_cache()
 
     # 4. main path
     launches = main_path(card, args.seed)
@@ -2350,14 +2774,17 @@ def main() -> int:
     core_launches = slice4_core_paths(card, args.seed)
     torch.cuda.empty_cache()
 
-    # 5. the arena's paths
+    # 5. the arena's paths, then the instrumented arena and its flight recorder
     arena_launches = arena_paths(card, args.seed)
+    torch.cuda.empty_cache()
+    obs_arena_launches = obs_arena_path(card, args.seed)
     torch.cuda.empty_cache()
 
     # 6. the serving paths
     serve_launches = serve_paths(card, args.seed, res)
-    launches = {k: launches[k] + core_launches[k] + arena_launches[k] + serve_launches[k]
-                for k in KERNELS}
+    launches = {k: launches[k] + core_launches[k] + arena_launches[k] + obs_arena_launches[k]
+                + serve_launches[k] for k in KERNELS}
+    check(launches["counter_plane"] >= 1, "kernel counter_plane never launched on the obs paths")
 
     # 7. the kernels line
     emit({"kernels": [

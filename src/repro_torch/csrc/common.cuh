@@ -1,7 +1,7 @@
 // Shared by every kernel library of the port: the C-side error string, the
 // block-wide exclusive scan that the row scan (K1) and the fused push-back
-// (K3) both use, and the extent-table lookup of the paged kernels (K8, K9,
-// K10, K11, K12).
+// (K3) both use, the extent-table lookup of the paged kernels (K8, K9,
+// K10, K11, K12), and the device counter plane (K15, ctr_accum).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,4 +58,65 @@ __device__ __forceinline__ char* slab_address(const int64_t* __restrict__ tbl, i
     if (start[mid] <= s) lo = mid; else hi = mid - 1;
   }
   return reinterpret_cast<char*>(tbl[lo]) + (s - start[lo]) * slab_bytes;
+}
+
+// K15 — the device counter plane.
+//
+// Replaces: src/repro/kernels/common.py::GridPlan.pallas_call with
+// instrument=True (_with_counters) and src/repro/obs/device.py::ctr_accum.
+// On the TPU the counters are one extra (8, 128) int32 output that grid
+// step 0 overwrites and later steps add to, in order.  Here thread blocks
+// run in no order, so each instrumented kernel takes a pointer to a
+// (kCtrSlots,) int32 block that the wrapper zeroed on the stream
+// (obs/device.py::new_block); a null pointer means off.  Each kernel is a
+// template <bool kCount>: the kCount = false instantiation, the one
+// launched with counters off, holds none of this code.
+//
+// Bound: none of its own — 76 bytes a launch, one atomic per slot per
+// thread block.  ctr_accum reduces every thread's contributions to one
+// value per slot (__reduce_add_sync within each warp, then the warps'
+// sums through shared memory) and thread k of the block adds slot k's sum
+// with one atomicAdd, so the atomics grow with the grid, never with the
+// threads.  A kernel whose blocks loop (a grid-stride loop) keeps its
+// contributions in registers and calls ctr_accum once, after the loop.
+
+// Slot order of obs/device.py::SLOTS.
+enum CtrSlot : int {
+  kPushBackWaves = 0, kPushBackLanes, kPushBackActiveLanes, kPushBackPaddedLanes,
+  kPushBackLevelWrites,
+  kGatherLaunches, kGatherTiles, kGatherMaskedTiles,
+  kAttendLaunches, kAttendTiles, kAttendTilesSkipped, kAttendLanes, kAttendMaskedLanes,
+  kFlattenLaunches, kFlattenRowsTouched, kFlattenSpanRows,
+  kAppendWaves, kAppendLanes, kAppendActiveLanes,
+  kCtrSlots
+};
+
+// Add this block's contributions to the counter block `ctr`: thread t
+// contributes val[k] to slot slot[k], k < N.  Every thread of the block
+// (NT threads, blockDim.x == NT) must call it, once, with the same `slot`.
+template <int NT, int N>
+__device__ __forceinline__ void ctr_accum(int* __restrict__ ctr, const int (&slot)[N],
+                                          const int (&val)[N]) {
+  static_assert(NT % 32 == 0 && NT <= 1024, "NT must be a multiple of 32, <= 1024");
+  static_assert(N >= 1 && N <= 32, "one warp adds the slots");
+  constexpr int kWarps = NT / 32;
+  __shared__ int part[kWarps][N];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int sum = __reduce_add_sync(0xffffffffu, val[k]);
+    if (lane == 0) part[warp][k] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += part[w][threadIdx.x];
+    int target = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k == static_cast<int>(threadIdx.x)) target = slot[k];
+    if (sum != 0) atomicAdd(ctr + target, sum);
+  }
 }

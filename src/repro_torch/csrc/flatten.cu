@@ -24,6 +24,15 @@
 // search — owner = (the number of starts <= i) - 1, so an empty block,
 // whose start equals the next block's, never owns an element.  Reads of the
 // plane are contiguous within a block's segment, so they coalesce too.
+//
+// K7 counters (K15, kCount = true): one iteration of a thread block is one
+// 256-element tile of the output, the reference's DEFAULT_SEG_TILE, and its
+// thread 0 holds the tile's first index t0.  Thread 0 sums the tiles' block
+// spans hi - lo, with lo = max(#{starts <= t0} - 1, 0) (t0's owner) and
+// hi = #{starts <= t0 + 255}, as _seg_ctr_oracle (flatten/ops.py:36)
+// defines them — empty blocks and the ragged tail tile included — in a
+// register across the grid-stride loop; block 0 adds the launch; one
+// ctr_accum after the loop.  flatten.span_rows is added by the wrapper.
 #include "common.cuh"
 
 namespace {
@@ -54,11 +63,23 @@ compact_kernel(LevelPtrs lv, U* __restrict__ out, int64_t cap_units, int64_t b0_
   }
 }
 
-template <typename T>
+static_assert(kGatherThreads == 256, "K7's counters take one block iteration as one 256-wide tile");
+
+// The number of k < nblocks with tables[k] <= i (tables sorted ascending).
+__device__ __forceinline__ int count_le(const int* tables, int nblocks, int64_t i) {
+  int lo = 0, hi = nblocks;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(tables[mid]) <= i) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <typename T, bool kCount>
 __global__ void __launch_bounds__(kGatherThreads)
 segmented_gather_kernel(const T* __restrict__ compact, const int* __restrict__ starts,
                         const int* __restrict__ ends, T* __restrict__ out,
-                        int nblocks, int64_t cap, int64_t n_out) {
+                        int nblocks, int64_t cap, int64_t n_out, int* __restrict__ ctr) {
   extern __shared__ int tables[];  // starts[0, nblocks) then ends[0, nblocks)
   for (int k = threadIdx.x; k < nblocks; k += kGatherThreads) {
     tables[k] = starts[k];
@@ -66,14 +87,15 @@ segmented_gather_kernel(const T* __restrict__ compact, const int* __restrict__ s
   }
   __syncthreads();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kGatherThreads;
+  int64_t rows_touched = 0;  // kCount: thread 0's sum over this block's tiles
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kGatherThreads + threadIdx.x;
        i < n_out; i += stride) {
-    int lo = 0, hi = nblocks;  // first k with starts[k] > i
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (static_cast<int64_t>(tables[mid]) <= i) lo = mid + 1; else hi = mid;
-    }
+    const int lo = count_le(tables, nblocks, i);  // first k with starts[k] > i
     const int owner = lo > 0 ? lo - 1 : 0;
+    if constexpr (kCount) {
+      if (threadIdx.x == 0)
+        rows_touched += count_le(tables, nblocks, i + kGatherThreads - 1) - owner;
+    }
     T v = T(0);
     if (i < static_cast<int64_t>(tables[nblocks + owner])) {
       const int64_t off = i - static_cast<int64_t>(tables[owner]);
@@ -81,6 +103,12 @@ segmented_gather_kernel(const T* __restrict__ compact, const int* __restrict__ s
       v = compact[static_cast<int64_t>(owner) * cap + pos];
     }
     out[i] = v;
+  }
+  if constexpr (kCount) {
+    const int v[2] = {threadIdx.x == 0 && blockIdx.x == 0 ? 1 : 0,
+                      static_cast<int>(rows_touched)};
+    constexpr int slots[2] = {kFlattenLaunches, kFlattenRowsTouched};
+    ctr_accum<kGatherThreads>(ctr, slots, v);
   }
 }
 
@@ -100,21 +128,21 @@ int launch_compact(const LevelPtrs& lv, void* out, int64_t nblocks, int64_t b0_b
 
 template <typename T>
 int launch_gather(const void* compact, const void* starts, const void* ends, void* out,
-                  int64_t nblocks, int64_t cap, cudaStream_t stream) {
+                  int64_t nblocks, int64_t cap, int* ctr, cudaStream_t stream) {
   const size_t smem = 2 * sizeof(int) * static_cast<size_t>(nblocks);
+  auto kernel = ctr != nullptr ? segmented_gather_kernel<T, true> : segmented_gather_kernel<T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        segmented_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int64_t n_out = nblocks * cap;
   const int64_t want = (n_out + kGatherThreads - 1) / kGatherThreads;
   const unsigned grid = static_cast<unsigned>(want < kGatherMaxGrid ? want : kGatherMaxGrid);
-  segmented_gather_kernel<T><<<grid, kGatherThreads, smem, stream>>>(
+  kernel<<<grid, kGatherThreads, smem, stream>>>(
       static_cast<const T*>(compact), static_cast<const int*>(starts),
       static_cast<const int*>(ends), static_cast<T*>(out), static_cast<int>(nblocks), cap,
-      n_out);
+      n_out, ctr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,12 +171,14 @@ extern "C" int rt_compact_blocks(void* const* level_ptrs, int nlevels, void* out
 }
 
 // compact: (nblocks, cap); starts, ends: (nblocks,) int32; out: (nblocks * cap,).
+// ctr: a zeroed (kCtrSlots,) int32 counter block, or null for no counters.
 extern "C" int rt_segmented_gather(const void* compact, const void* starts, const void* ends,
                                    void* out, int64_t nblocks, int64_t cap, int esize,
-                                   void* stream) {
+                                   void* ctr, void* stream) {
   if (nblocks <= 0 || cap <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (esize == 4) return launch_gather<uint32_t>(compact, starts, ends, out, nblocks, cap, s);
-  if (esize == 2) return launch_gather<uint16_t>(compact, starts, ends, out, nblocks, cap, s);
+  auto* c = static_cast<int*>(ctr);
+  if (esize == 4) return launch_gather<uint32_t>(compact, starts, ends, out, nblocks, cap, c, s);
+  if (esize == 2) return launch_gather<uint16_t>(compact, starts, ends, out, nblocks, cap, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,7 +20,12 @@
 // page's slab once, then the block copies its chunk in 16-byte units where
 // the slab size and every pointer allow it (else 4, 2 or 1 bytes).  Loads
 // and stores are both contiguous.  Items are copied as bits, so f32, int32
-// and bf16 come out exact.  All addressing is 64-bit.
+// and bf16 come out exact.  All addressing is 64-bit.  Counters (K15,
+// kCount = true): thread 0 of a page's first chunk adds the page to
+// paged_gather.tiles if it resolved to a slab, else to masked_tiles; block
+// 0 adds the launch.  That is the reference's count for K8 (pages >= 0,
+// ids past one flat pool clipped) and its oracle's for K9 (_gather_ctr
+// over the resolved extent table), without its vmem row padding.
 //
 // K12 replaces src/repro/kernels/paged/kernel.py::slab_append_pallas: a
 // wave (N, m, item) with its mask lands at positions sizes[n] + exclusive
@@ -54,11 +59,11 @@ constexpr int64_t kGatherUnitsPerBlock = kGatherThreads * 16;
 constexpr int kCompactThreads = 1024;
 constexpr int kScatterThreads = 512;
 
-template <typename U>
+template <typename U, bool kCount>
 __global__ void __launch_bounds__(kGatherThreads)
 paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, int clip_high,
                     const int* __restrict__ pages, U* __restrict__ out, int64_t slab_units,
-                    int64_t chunks) {
+                    int64_t chunks, int* __restrict__ ctr) {
   __shared__ const U* src_shared;
   const int64_t page = blockIdx.x / chunks;
   const int64_t chunk = blockIdx.x % chunks;
@@ -80,6 +85,18 @@ paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, 
   } else {
     const U z{};
     for (int64_t u = u0 + threadIdx.x; u < u1; u += kGatherThreads) dst[u] = z;
+  }
+  if constexpr (kCount) {
+    int v[3] = {0, 0, 0};
+    if (threadIdx.x == 0) {
+      v[0] = blockIdx.x == 0 ? 1 : 0;
+      if (chunk == 0) {
+        v[1] = src != nullptr ? 1 : 0;
+        v[2] = 1 - v[1];
+      }
+    }
+    constexpr int slots[3] = {kGatherLaunches, kGatherTiles, kGatherMaskedTiles};
+    ctr_accum<kGatherThreads>(ctr, slots, v);
   }
 }
 
@@ -145,13 +162,14 @@ slab_scatter_kernel(const int64_t* __restrict__ tbl, int next, const int* __rest
 template <typename U>
 int launch_gather(const int64_t* tbl, int next, int64_t n_slabs, int clip_high,
                   const int* pages, void* out, int64_t npages, int64_t slab_bytes,
-                  cudaStream_t stream) {
+                  int* ctr, cudaStream_t stream) {
   const int64_t slab_units = slab_bytes / static_cast<int64_t>(sizeof(U));
   const int64_t chunks = (slab_units + kGatherUnitsPerBlock - 1) / kGatherUnitsPerBlock;
   const int64_t grid = npages * chunks;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  paged_gather_kernel<U><<<static_cast<unsigned>(grid), kGatherThreads, 0, stream>>>(
-      tbl, next, n_slabs, clip_high, pages, static_cast<U*>(out), slab_units, chunks);
+  auto kernel = ctr != nullptr ? paged_gather_kernel<U, true> : paged_gather_kernel<U, false>;
+  kernel<<<static_cast<unsigned>(grid), kGatherThreads, 0, stream>>>(
+      tbl, next, n_slabs, clip_high, pages, static_cast<U*>(out), slab_units, chunks, ctr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,21 +198,22 @@ int launch_append(const int64_t* tbl, int next, int64_t n_slabs, const int* owne
 // table: the device extent table of next extents (see above); n_slabs =
 // start_E.  pages: (npages,) int32.  out: (npages, slab_bytes).  unit: the
 // copy width in bytes (16, 4, 2 or 1), dividing slab_bytes and every
-// pointer.
+// pointer.  ctr: a zeroed (kCtrSlots,) int32 counter block, or null.
 extern "C" int rt_paged_gather(const void* table, int next, int64_t n_slabs, int clip_high,
                                const void* pages, void* out, int64_t npages,
-                               int64_t slab_bytes, int unit, void* stream) {
+                               int64_t slab_bytes, int unit, void* ctr, void* stream) {
   if (next < 1 || slab_bytes < 1 || n_slabs < 1 || slab_bytes % unit != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (npages <= 0) return 0;
   const auto* tbl = static_cast<const int64_t*>(table);
   const auto* pg = static_cast<const int*>(pages);
   auto s = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<int*>(ctr);
   switch (unit) {
-    case 16: return launch_gather<uint4>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
-    case 4: return launch_gather<uint32_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
-    case 2: return launch_gather<uint16_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
-    case 1: return launch_gather<unsigned char>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, s);
+    case 16: return launch_gather<uint4>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 4: return launch_gather<uint32_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 2: return launch_gather<uint16_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 1: return launch_gather<unsigned char>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

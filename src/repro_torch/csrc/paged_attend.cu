@@ -33,6 +33,14 @@
 // Pass 2 runs one block per (sequence, head) and merges the segments in
 // page order with the usual rescaling.  All offsets are 64-bit: a full-width
 // pool passes 2^31 elements.
+//
+// Counters (K15, kCount = true, pass 1 only): they count the reference's
+// walk over (sequence, head, page), whatever the segments.  Thread 0 of a
+// page's first segment block adds the page as a visited tile (a live slab
+// id and page * T < length, the reference's compute gate) with its T score
+// lanes and the lanes past the length, or else as a skipped tile; block 0
+// adds the launch (_attend_ctr, paged/kernel.py:63).  The count is taken
+// before a dead block returns, so every block reaches ctr_accum.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math_constants.h>
@@ -90,12 +98,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Pass 1: grid (B * KH * P * nseg); block (seq b, head h, page p, segment).
-template <typename T, int D>
+template <typename T, int D, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 attend_segments_kernel(const float* __restrict__ q, const int64_t* __restrict__ vtbl,
                        AttendParams a,
                        float* __restrict__ part_m, float* __restrict__ part_l,
-                       float* __restrict__ part_acc) {
+                       float* __restrict__ part_acc, int* __restrict__ ctr) {
   __shared__ float qs[kMaxG * D];
   __shared__ float sc[kMaxG * kMaxSeg];
   __shared__ float red[kThreads / D > 0 ? (kThreads / D) * kMaxG * D : kMaxG * D];
@@ -116,6 +124,24 @@ attend_segments_kernel(const float* __restrict__ q, const int64_t* __restrict__ 
   if (a.clip_high && slab >= a.n_slabs) slab = a.n_slabs - 1;
   const int64_t t0 = page * a.T + seg * a.seg;  // first key position of the segment
   const bool live = slab >= 0 && slab < a.n_slabs && page * a.T < len && t0 < len;
+  if constexpr (kCount) {
+    int v[5] = {0, 0, 0, 0, 0};
+    if (tid == 0) {
+      v[0] = blockIdx.x == 0 ? 1 : 0;
+      if (seg == 0) {
+        const int visit = slab >= 0 && slab < a.n_slabs && page * a.T < len ? 1 : 0;
+        const int64_t in_page = len - page * a.T;
+        const int64_t kept = in_page < 0 ? 0 : (in_page > a.T ? a.T : in_page);
+        v[1] = visit;
+        v[2] = 1 - visit;
+        v[3] = visit * static_cast<int>(a.T);
+        v[4] = visit * static_cast<int>(a.T - kept);
+      }
+    }
+    constexpr int slots[5] = {kAttendLaunches, kAttendTiles, kAttendTilesSkipped, kAttendLanes,
+                              kAttendMaskedLanes};
+    ctr_accum<kThreads>(ctr, slots, v);
+  }
   if (!live) {
     for (int g = tid; g < G; g += kThreads) {
       out_m[g] = -CUDART_INF_F;
@@ -235,13 +261,15 @@ attend_combine_kernel(const float* __restrict__ part_m, const float* __restrict_
 
 template <typename T, int D>
 int launch(const float* q, const AttendParams& a, const int64_t* vtbl, float* part_m,
-           float* part_l, float* part_acc, float* out, int64_t B, cudaStream_t s) {
+           float* part_l, float* part_acc, float* out, int64_t B, int* ctr, cudaStream_t s) {
   const int64_t nparts = a.P * a.nseg;
   const int64_t grid = B * a.KH * nparts;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (grid > 0) {
-    attend_segments_kernel<T, D><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        q, vtbl, a, part_m, part_l, part_acc);
+    auto kernel = ctr != nullptr ? attend_segments_kernel<T, D, true>
+                                 : attend_segments_kernel<T, D, false>;
+    kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(q, vtbl, a, part_m, part_l,
+                                                            part_acc, ctr);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -252,12 +280,12 @@ int launch(const float* q, const AttendParams& a, const int64_t* vtbl, float* pa
 
 template <typename T>
 int launch_d(int64_t D, const float* q, const AttendParams& a, const int64_t* vtbl,
-             float* pm, float* pl, float* pa, float* out, int64_t B, cudaStream_t s) {
+             float* pm, float* pl, float* pa, float* out, int64_t B, int* ctr, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, a, vtbl, pm, pl, pa, out, B, s);
-    case 32: return launch<T, 32>(q, a, vtbl, pm, pl, pa, out, B, s);
-    case 64: return launch<T, 64>(q, a, vtbl, pm, pl, pa, out, B, s);
-    case 128: return launch<T, 128>(q, a, vtbl, pm, pl, pa, out, B, s);
+    case 16: return launch<T, 16>(q, a, vtbl, pm, pl, pa, out, B, ctr, s);
+    case 32: return launch<T, 32>(q, a, vtbl, pm, pl, pa, out, B, ctr, s);
+    case 64: return launch<T, 64>(q, a, vtbl, pm, pl, pa, out, B, ctr, s);
+    case 128: return launch<T, 128>(q, a, vtbl, pm, pl, pa, out, B, ctr, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -268,12 +296,14 @@ int launch_d(int64_t D, const float* q, const AttendParams& a, const int64_t* vt
 // next extents, n_slabs slabs of T tokens).  q, out: (B, KH, G, D) f32.
 // pages: (B, P) int32; lengths: (B,) int32.  part_m, part_l: (B*KH*P*nseg*G)
 // f32 scratch; part_acc: that times D.  seg: tokens per segment (<= 256).
-// dtype: 0 = f32, 1 = bf16, 2 = f16 (the pools).  G <= 16.
+// dtype: 0 = f32, 1 = bf16, 2 = f16 (the pools).  G <= 16.  ctr: a zeroed
+// (kCtrSlots,) int32 counter block, or null for no counters.
 extern "C" int rt_paged_attend(const void* ktable, const void* vtable, int next,
                                int64_t n_slabs, int clip_high, const void* q, const void* pages,
                                const void* lengths, void* part_m, void* part_l, void* part_acc,
                                void* out, int dtype, int64_t B, int64_t KH, int64_t G,
-                               int64_t D, int64_t P, int64_t T, int64_t seg, void* stream) {
+                               int64_t D, int64_t P, int64_t T, int64_t seg, void* ctr,
+                               void* stream) {
   if (next < 1 || n_slabs < 1 || B < 0 || KH < 1 || G < 1 || G > kMaxG || P < 0 || T < 1 ||
       seg < 1 || seg > kMaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -296,10 +326,11 @@ extern "C" int rt_paged_attend(const void* ktable, const void* vtable, int next,
   auto* pl = static_cast<float*>(part_l);
   auto* pa = static_cast<float*>(part_acc);
   auto* o = static_cast<float*>(out);
+  auto* c = static_cast<int*>(ctr);
   switch (dtype) {
-    case 0: return launch_d<float>(D, qf, a, vt, pm, pl, pa, o, B, s);
-    case 1: return launch_d<__nv_bfloat16>(D, qf, a, vt, pm, pl, pa, o, B, s);
-    case 2: return launch_d<__half>(D, qf, a, vt, pm, pl, pa, o, B, s);
+    case 0: return launch_d<float>(D, qf, a, vt, pm, pl, pa, o, B, c, s);
+    case 1: return launch_d<__nv_bfloat16>(D, qf, a, vt, pm, pl, pa, o, B, c, s);
+    case 2: return launch_d<__half>(D, qf, a, vt, pm, pl, pa, o, B, c, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,6 +27,13 @@
 // payload group sharing the mask (the KV cache's k/v/scales) is one more
 // row of it.  Consecutive live lanes of a row write consecutive slots, so
 // the stores coalesce except where a row crosses into its next level.
+//
+// Counters (K15, kCount = true): thread 0 of each block adds its row's
+// lanes (m), active lanes (the row's count) and level writes — the write
+// interval [size, size + count) clipped to each level, as the reference's
+// _ctr_pairs (push_back/kernel.py:63) — and block 0 the wave; ctr_accum
+// adds them with one atomic per slot per block.  No lane is padded here,
+// so push_back.padded_lanes stays 0 (obs/device.py).
 #include "common.cuh"
 
 namespace {
@@ -53,10 +60,11 @@ __device__ __forceinline__ void copy_item(char* dst, const char* src, int64_t nb
   }
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
                  const int* __restrict__ sizes, int* __restrict__ pos_out,
-                 int* __restrict__ new_sizes, int64_t m, int64_t b0) {
+                 int* __restrict__ new_sizes, int64_t m, int64_t b0, int* __restrict__ ctr) {
   __shared__ int scratch[32];
   const int64_t row = blockIdx.x;
   const int size = sizes[row];
@@ -86,6 +94,26 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
     carry += total;
   }
   if (threadIdx.x == 0) new_sizes[row] = size + carry;
+  if constexpr (kCount) {
+    int v[4] = {0, 0, 0, 0};
+    if (threadIdx.x == 0) {
+      const int64_t hi = static_cast<int64_t>(size) + carry;
+      int64_t writes = 0;
+      for (int l = 0; l < t.nlevels; ++l) {
+        const int64_t start = b0 * ((int64_t{1} << l) - 1);
+        const int64_t end = start + (b0 << l);
+        const int64_t w = (hi < end ? hi : end) - (size > start ? size : start);
+        if (w > 0) writes += w;
+      }
+      v[0] = row == 0 ? 1 : 0;
+      v[1] = static_cast<int>(m);
+      v[2] = carry;
+      v[3] = static_cast<int>(writes);
+    }
+    constexpr int slots[4] = {kPushBackWaves, kPushBackLanes, kPushBackActiveLanes,
+                              kPushBackLevelWrites};
+    ctr_accum<kThreads>(ctr, slots, v);
+  }
 }
 
 }  // namespace
@@ -93,11 +121,12 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
 // level_ptrs: ngroups x nlevels device pointers, group-major.
 // elem_ptrs, item_bytes: one per group.  Every pointer is device memory;
 // the tables themselves are host arrays copied into the kernel parameter.
+// ctr: a zeroed (kCtrSlots,) int32 counter block, or null for no counters.
 extern "C" int rt_push_back(void* const* level_ptrs, void* const* elem_ptrs,
                             const int64_t* item_bytes, int ngroups, int nlevels,
                             const void* mask, const void* sizes, void* pos_out,
                             void* new_sizes, int64_t nblocks, int64_t m, int64_t b0,
-                            void* stream) {
+                            void* ctr, void* stream) {
   if (ngroups < 1 || ngroups > kMaxGroups || nlevels < 1 || nlevels > kMaxLevels ||
       b0 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -111,9 +140,9 @@ extern "C" int rt_push_back(void* const* level_ptrs, void* const* elem_ptrs,
     t.item_bytes[g] = item_bytes[g];
     if (item_bytes[g] <= 0 || (item_bytes[g] & 1)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  push_back_kernel<<<static_cast<unsigned>(nblocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = ctr != nullptr ? push_back_kernel<true> : push_back_kernel<false>;
+  kernel<<<static_cast<unsigned>(nblocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<const unsigned char*>(mask), static_cast<const int*>(sizes),
-      static_cast<int*>(pos_out), static_cast<int*>(new_sizes), m, b0);
+      static_cast<int*>(pos_out), static_cast<int*>(new_sizes), m, b0, static_cast<int*>(ctr));
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,8 @@ KERNELS = (
     "paged_gather", "paged_gather_extents", "slab_append",
     "flash_attention", "paged_attend", "paged_attend_extents", "push_back_multi",
     "row_scan_mxu", "dispatch", "combine", "decode_attention",
+    # K15: every launch with the device counter plane on, whichever kernel
+    "counter_plane",
 )
 
 _launches = {name: 0 for name in KERNELS}

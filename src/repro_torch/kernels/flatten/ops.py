@@ -8,7 +8,12 @@ of every live element to its global position.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises.  ``memory_space`` selects a TPU tiling in the reference; it is
-checked and has no effect here.
+checked and has no effect here.  ``instrument=True`` (the device counter
+plane, K15) adds a float32 counter vector to the output: K7's in-kernel
+counts (launch, rows touched) plus ``flatten.span_rows`` = Σ sizes, or
+their plain twin (``ref.gather_counters``) on the CPU.  The legacy
+``"dispatch"`` ordering has no in-kernel count and reports the launch and
+the span, as the reference does.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from repro_torch.core import indexing
 from repro_torch.kernels import common
 from repro_torch.kernels.flatten import kernel as _kernel
 from repro_torch.kernels.flatten import ref as _ref
+from repro_torch.obs import device as obs_device
 
 __all__ = ["compact_blocks", "segmented_gather", "flatten", "flatten_segmented", "flatten_dispatch"]
 
@@ -32,13 +38,21 @@ def compact_blocks(
 
 
 def segmented_gather(
-    compact: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
-) -> torch.Tensor:
+    compact: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor, *, instrument: bool = False
+):
     """``(nblocks, cap)`` rows of scalar items + int32 starts/ends → block-major
-    ``(nblocks·cap,)`` order (K7); the arena's flatten calls it directly."""
+    ``(nblocks·cap,)`` order (K7); the arena's flatten calls it directly.
+    ``instrument=True`` → (out, counter vector)."""
     if compact.device.type == "cpu":
-        return _ref.gather_global(compact, starts, ends)
-    return _kernel.segmented_gather_cuda(compact, starts, ends)
+        out = _ref.gather_global(compact, starts, ends)
+        if instrument:
+            return out, _ref.gather_counters(starts, ends, *compact.shape)
+        return out
+    if not instrument:
+        return _kernel.segmented_gather_cuda(compact, starts, ends)
+    out, block = _kernel.segmented_gather_cuda(compact, starts, ends, instrument=True)
+    span = (ends.to(torch.int64) - starts.to(torch.int64)).sum()
+    return out, obs_device.from_block(block) + obs_device.pack(**{"flatten.span_rows": span})
 
 
 def _prefix_tables(sizes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -53,11 +67,13 @@ def flatten_segmented(
     b0: int,
     *,
     memory_space: str | None = None,
-) -> torch.Tensor:
-    """GGArray flatten: compact + linear-time segmented gather → ``(nblocks·cap,)``."""
+    instrument: bool = False,
+):
+    """GGArray flatten: compact + linear-time segmented gather → ``(nblocks·cap,)``
+    (and the counter vector with ``instrument``)."""
     compact = compact_blocks(levels, b0, memory_space=memory_space)
     starts, ends = _prefix_tables(sizes)
-    return segmented_gather(compact, starts, ends)
+    return segmented_gather(compact, starts, ends, instrument=instrument)
 
 
 def flatten_dispatch(
@@ -87,10 +103,19 @@ def flatten(
     *,
     impl: str = "segmented",
     memory_space: str | None = None,
-) -> torch.Tensor:
-    """Full GGArray flatten on kernels → ``(nblocks·cap,)`` block-major order."""
+    instrument: bool = False,
+):
+    """Full GGArray flatten on kernels → ``(nblocks·cap,)`` block-major order
+    (and the counter vector with ``instrument``)."""
     if impl == "segmented":
-        return flatten_segmented(levels, sizes, b0, memory_space=memory_space)
+        return flatten_segmented(levels, sizes, b0, memory_space=memory_space,
+                                 instrument=instrument)
     if impl == "dispatch":
-        return flatten_dispatch(levels, sizes, b0, memory_space=memory_space)
+        out = flatten_dispatch(levels, sizes, b0, memory_space=memory_space)
+        if not instrument:
+            return out
+        return out, obs_device.pack(out.device, **{
+            "flatten.launches": 1,
+            "flatten.span_rows": sizes.to(torch.int64).sum(),
+        })
     raise ValueError(f"unknown flatten impl {impl!r} (want 'segmented'|'dispatch')")

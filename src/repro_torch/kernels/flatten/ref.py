@@ -5,8 +5,11 @@ import torch
 
 from repro_torch.core import indexing
 from repro_torch.kernels import common
+from repro_torch.obs import device as obs_device
 
-__all__ = ["compact_blocks", "flatten_global", "gather_global"]
+__all__ = ["compact_blocks", "flatten_global", "gather_global", "gather_counters"]
+
+SEG_TILE = 256  # the reference's DEFAULT_SEG_TILE; K7's threads per block
 
 
 def compact_blocks(levels: tuple[torch.Tensor, ...], b0: int) -> torch.Tensor:
@@ -41,3 +44,22 @@ def gather_global(
     vals = compact.reshape(-1)[blk * cap + torch.clamp(pos, max=cap - 1)]
     return torch.where(live, vals, torch.zeros_like(vals))
 
+
+
+def gather_counters(starts: torch.Tensor, ends: torch.Tensor, nblocks: int, cap: int) -> torch.Tensor:
+    """The plain twin of K7's counters, as a float32 vector — port of
+    ``_seg_ctr_oracle`` (``flatten/ops.py:36``): over the 256-element tiles
+    of the ``nblocks·cap`` output (the tail tile too), Σ (hi − lo) with
+    lo = max(#{starts ≤ t0} − 1, 0), hi = #{starts ≤ t0 + 255}; plus the
+    launch and ``span_rows`` = Σ (ends − starts)."""
+    dev = starts.device
+    ntiles = -(-(nblocks * cap) // SEG_TILE)
+    t0 = torch.arange(ntiles, dtype=torch.int64, device=dev) * SEG_TILE
+    st = starts.to(torch.int64)
+    lo = (torch.searchsorted(st, t0, right=True) - 1).clamp(min=0)
+    hi = torch.searchsorted(st, t0 + SEG_TILE - 1, right=True)
+    return obs_device.pack(dev, **{
+        "flatten.launches": 1,
+        "flatten.rows_touched": (hi - lo).sum(),
+        "flatten.span_rows": (ends.to(torch.int64) - st).sum(),
+    })

@@ -9,7 +9,9 @@ kernel addresses the pool through
 extent.  Items of any shape are carried as raw
 bytes (16-byte units where sizes and addresses allow).  The slab append
 writes the extents in place — the counterpart of the reference's donated,
-aliased pool.
+aliased pool.  The gather and the attention take ``instrument=True``: they
+launch their counting instantiations (K15) and also return the ``(NSLOTS,)``
+int32 counter block (``obs/device.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, common
+from repro_torch.obs import device as obs_device
 
 __all__ = ["paged_gather_cuda", "slab_append_cuda", "paged_attend_cuda", "ATTEND_SEGMENT"]
 
@@ -28,7 +31,7 @@ _int = ctypes.c_int
 
 def _lib():
     lib = _build.library("paged")
-    lib.rt_paged_gather.argtypes = [_c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _c]
+    lib.rt_paged_gather.argtypes = [_c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _c, _c]
     lib.rt_paged_gather.restype = _int
     lib.rt_slab_append.argtypes = [
         _c, _int, _i64, _c, _c, _c, _c, _c, _c, _c, _c,  # table .. new_sizes
@@ -43,7 +46,7 @@ def _attend_lib():
     lib.rt_paged_attend.argtypes = [
         _c, _c, _int, _i64, _int, _c, _c, _c,  # ktable .. lengths
         _c, _c, _c, _c, _int,  # part_m, part_l, part_acc, out, dtype
-        _i64, _i64, _i64, _i64, _i64, _i64, _i64, _c,  # B, KH, G, D, P, T, seg, stream
+        _i64, _i64, _i64, _i64, _i64, _i64, _i64, _c, _c,  # B, KH, G, D, P, T, seg, ctr, stream
     ]
     lib.rt_paged_attend.restype = _int
     return lib
@@ -79,9 +82,11 @@ def _item_bytes(t: torch.Tensor, item: tuple) -> int:
 
 
 def paged_gather_cuda(
-    extents: tuple[torch.Tensor, ...], pages: torch.Tensor, *, clip_high: bool
-) -> torch.Tensor:
-    """Launch K8 (one extent) or K9 (several) → ``(N, P·T, *item)``.
+    extents: tuple[torch.Tensor, ...], pages: torch.Tensor, *, clip_high: bool,
+    instrument: bool = False,
+):
+    """Launch K8 (one extent) or K9 (several) → ``(N, P·T, *item)``, and with
+    ``instrument`` the counter block (launch, live and masked page tiles).
 
     ``extents``: each ``(S_e, T, *item)``, in global slab-id order, none
     empty; ``pages``: ``(N, P)`` int32 global slab ids.  Page −1 reads
@@ -96,8 +101,9 @@ def paged_gather_cuda(
         raise ValueError("paged_gather: empty extents must be dropped first")
     N, P = pages.shape
     out = torch.empty((N, P * T, *item), dtype=extents[0].dtype, device=dev)
+    block = obs_device.new_block(dev) if instrument else None
     if out.numel() == 0:
-        return out
+        return out if block is None else (out, block)
     n_slabs = sum(e.shape[0] for e in extents)
     slab_bytes = T * _item_bytes(extents[0], item)
     unit = common.copy_unit(slab_bytes, out, *extents)
@@ -106,12 +112,16 @@ def paged_gather_cuda(
     with torch.cuda.device(dev):
         rc = lib.rt_paged_gather(
             table.data_ptr(), len(extents), n_slabs, int(clip_high), pages.data_ptr(),
-            out.data_ptr(), N * P, slab_bytes, unit, common.stream_of(dev),
+            out.data_ptr(), N * P, slab_bytes, unit,
+            block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
     name = "paged_gather" if len(extents) == 1 else "paged_gather_extents"
     common.check_status(rc, lib, name)
     common.count_launch(name)
-    return out
+    if block is None:
+        return out
+    common.count_launch("counter_plane")
+    return out, block
 
 
 def slab_append_cuda(
@@ -170,8 +180,12 @@ def paged_attend_cuda(
     v_extents: tuple[torch.Tensor, ...],
     pages: torch.Tensor,
     lengths: torch.Tensor,
-) -> torch.Tensor:
-    """Launch K10 (one extent) or K11 (several) → ``(B, KH, G, D)`` f32.
+    *,
+    instrument: bool = False,
+):
+    """Launch K10 (one extent) or K11 (several) → ``(B, KH, G, D)`` f32, and
+    with ``instrument`` the counter block (pass 1 counts the reference's walk
+    over (B, KH, P): launch, visited and skipped tiles, score and masked lanes).
 
     ``q``: ``(B, KH, G, D)`` f32, pre-scaled; ``k_extents``/``v_extents``:
     each ``(S_e, T, KH, D)``, the token-major slabs the cache holds, in global
@@ -210,8 +224,9 @@ def paged_attend_cuda(
         raise ValueError("paged_attend: empty extents must be dropped first")
     P = pages.shape[1]
     out = torch.empty((B, KH, G, D), dtype=torch.float32, device=dev)
+    block = obs_device.new_block(dev) if instrument else None
     if B == 0:
-        return out
+        return out if block is None else (out, block)
     seg = min(T, ATTEND_SEGMENT)
     nparts = P * (-(-T // seg))
     part_m = torch.empty((B * KH * nparts * G,), dtype=torch.float32, device=dev)
@@ -226,9 +241,13 @@ def paged_attend_cuda(
             ktable.data_ptr(), vtable.data_ptr(), len(k_extents), n_slabs,
             int(len(k_extents) == 1), q.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), dtype,
-            B, KH, G, D, P, T, seg, common.stream_of(dev),
+            B, KH, G, D, P, T, seg, block.data_ptr() if block is not None else None,
+            common.stream_of(dev),
         )
     name = "paged_attend" if len(k_extents) == 1 else "paged_attend_extents"
     common.check_status(rc, lib, name)
     common.count_launch(name)
-    return out
+    if block is None:
+        return out
+    common.count_launch("counter_plane")
+    return out, block

@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_pages", "gather_pages_extents", "attend_paged", "slab_append", "MASK_VALUE"]
+from repro_torch.obs import device as obs_device
+
+__all__ = ["gather_pages", "gather_pages_extents", "attend_paged", "slab_append",
+           "gather_counters", "attend_counters", "append_counters", "MASK_VALUE"]
 
 MASK_VALUE = -1e30  # the serving softmax mask of the reference
 
@@ -121,3 +124,59 @@ def slab_append(
     vals = gathered.reshape(N * m, D)[flat_idx]  # (S, T, D)
     new_pool = torch.where(valid[:, :, None], vals, pool)
     return new_pool, sizes + counts, torch.where(mask, pos, -1)
+
+
+# --------------------------------------------------------------------------
+# device counters (K15): the plain twins of the in-kernel counts, float32
+# vectors in obs/device.py's layout.
+# --------------------------------------------------------------------------
+
+def _live_pages(pages: torch.Tensor, n_slabs: int, clip_high: bool) -> torch.Tensor:
+    """Page entries that resolve to a slab: ids ≥ 0, and below the slab
+    count unless ids past one flat pool clip to its last slab."""
+    live = pages >= 0
+    return live if clip_high else live & (pages < n_slabs)
+
+
+def gather_counters(pages: torch.Tensor, n_slabs: int, clip_high: bool) -> torch.Tensor:
+    """K8/K9's counters: one launch, live page tiles, and ``masked_tiles`` =
+    N·P − live — the reference's count (``paged/ops.py:30``) without its
+    vmem tiling's padded rows."""
+    live = _live_pages(pages, n_slabs, clip_high).to(torch.int64).sum()
+    return obs_device.pack(pages.device, **{
+        "paged_gather.launches": 1,
+        "paged_gather.tiles": live,
+        "paged_gather.masked_tiles": pages.numel() - live,
+    })
+
+
+def attend_counters(pages: torch.Tensor, lengths: torch.Tensor, T: int, KH: int,
+                    n_slabs: int, clip_high: bool) -> torch.Tensor:
+    """K10/K11's counters over the reference's (B, KH, P) walk
+    (``paged/ops.py:44``): a page is visited when its id resolves and its
+    first token lies inside the length; visited tiles carry T score lanes,
+    of which those at or past the length are masked."""
+    B, P = pages.shape
+    p_idx = torch.arange(P, dtype=torch.int64, device=pages.device)[None, :]
+    kv = lengths.to(torch.int64)[:, None]
+    visit = (_live_pages(pages, n_slabs, clip_high) & (p_idx * T < kv)).to(torch.int64)
+    masked = visit * (T - torch.clamp(kv - p_idx * T, 0, T))
+    tiles = visit.sum()
+    return obs_device.pack(pages.device, **{
+        "paged_attend.launches": 1,
+        "paged_attend.tiles": KH * tiles,
+        "paged_attend.tiles_skipped": KH * (B * P - tiles),
+        "paged_attend.lanes": KH * T * tiles,
+        "paged_attend.masked_lanes": KH * masked.sum(),
+    })
+
+
+def append_counters(mask: torch.Tensor) -> torch.Tensor:
+    """K12's wave accounting (the reference counts it at the ops level too,
+    ``paged/ops.py:225``): one wave of N·m lanes, unpadded."""
+    N, m = mask.shape
+    return obs_device.pack(mask.device, **{
+        "slab_append.waves": 1,
+        "slab_append.lanes": N * m,
+        "slab_append.active_lanes": mask.to(torch.int64).sum(),
+    })

@@ -6,6 +6,9 @@ tensors are written in place — the counterpart of the reference's
 ``item_bytes`` of raw bits per lane.  The C side takes a [group][level]
 pointer table: one launch writes up to four payload groups that share the
 mask (the KV cache's k and v), each with its own item size.
+
+``instrument=True`` launches the counting instantiation (K15) and returns
+its ``(NSLOTS,)`` int32 counter block (``obs/device.py``) as a third output.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.core import indexing
 from repro_torch.kernels import _build, common
+from repro_torch.obs import device as obs_device
 
 __all__ = ["push_back_cuda", "push_back_cuda_multi", "PAYLOAD_DTYPES"]
 
@@ -32,7 +36,7 @@ def _lib():
     lib.rt_push_back.argtypes = [
         _c, _c, _c, ctypes.c_int, ctypes.c_int,  # tables, ngroups, nlevels
         _c, _c, _c, _c,  # mask, sizes, pos_out, new_sizes
-        _i64, _i64, _i64, _c,  # nblocks, m, b0, stream
+        _i64, _i64, _i64, _c, _c,  # nblocks, m, b0, ctr, stream
     ]
     lib.rt_push_back.restype = ctypes.c_int
     return lib
@@ -44,14 +48,16 @@ def push_back_cuda(
     b0: int,
     elems: torch.Tensor,
     mask: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on one payload group → (new sizes, positions).
+    *,
+    instrument: bool = False,
+) -> tuple:
+    """Launch K3 on one payload group → (new sizes, positions[, counter block]).
 
     ``levels``: level b ``(nblocks, B0·2^b, *item)``, written in place;
     ``sizes``: ``(nblocks,)`` int32; ``elems``: ``(nblocks, m, *item)``;
     ``mask``: ``(nblocks, m)`` bool.  All contiguous, on one CUDA device.
     """
-    return push_back_cuda_multi((levels,), sizes, b0, (elems,), mask)
+    return push_back_cuda_multi((levels,), sizes, b0, (elems,), mask, instrument=instrument)
 
 
 def push_back_cuda_multi(
@@ -60,9 +66,11 @@ def push_back_cuda_multi(
     b0: int,
     elem_groups: tuple[torch.Tensor, ...],
     mask: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    *,
+    instrument: bool = False,
+) -> tuple:
     """Launch K3 once over ``len(level_groups)`` payload groups → (new sizes,
-    positions).
+    positions), and with ``instrument`` the counter block.
 
     Every group shares the one offset scan and the one mask: group g's wave
     ``elem_groups[g]`` ``(nblocks, m, *item_g)`` lands in its own levels
@@ -105,9 +113,10 @@ def push_back_cuda_multi(
         item_bytes.append(nbytes)
     pos = torch.empty((nblocks, m), dtype=torch.int32, device=dev)
     new_sizes = torch.empty_like(sizes)
+    block = obs_device.new_block(dev) if instrument else None
     if nblocks == 0 or m == 0:
         new_sizes.copy_(sizes)
-        return new_sizes, pos
+        return (new_sizes, pos) if block is None else (new_sizes, pos, block)
     lib = _lib()
     ngroups = len(level_groups)
     level_ptrs = (ctypes.c_void_p * (ngroups * nlevels))(
@@ -119,11 +128,15 @@ def push_back_cuda_multi(
             ctypes.cast(level_ptrs, _c), ctypes.cast(elem_ptrs, _c),
             ctypes.cast(nbytes, _c), ngroups, nlevels,
             mask.data_ptr(), sizes.data_ptr(), pos.data_ptr(), new_sizes.data_ptr(),
-            nblocks, m, b0, common.stream_of(dev),
+            nblocks, m, b0, block.data_ptr() if block is not None else None,
+            common.stream_of(dev),
         )
     # one launch either way; the multi-group launch (the KV cache's k and v)
     # is counted apart so a run shows which of the two it went through
     name = "push_back" if ngroups == 1 else "push_back_multi"
     common.check_status(rc, lib, name)
     common.count_launch(name)
-    return new_sizes, pos
+    if block is None:
+        return new_sizes, pos
+    common.count_launch("counter_plane")
+    return new_sizes, pos, block

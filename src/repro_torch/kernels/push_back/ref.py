@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import indexing
 from repro_torch.kernels import common
+from repro_torch.obs import device as obs_device
 
-__all__ = ["push_back"]
+__all__ = ["push_back", "counters"]
 
 
 def push_back(
@@ -30,3 +32,23 @@ def push_back(
     pos = sizes.to(torch.int32)[:, None] + offsets
     common.scatter_levels_(levels, b0, pos, mask, elems)
     return levels, sizes + counts, torch.where(mask, pos, -1)
+
+
+def counters(mask: torch.Tensor, sizes: torch.Tensor, b0: int, nlevels: int) -> torch.Tensor:
+    """The plain twin of K3's counter block, as a float32 vector — port of
+    ``_oracle_counters`` (``push_back/ops.py:42``) over the card's own lanes:
+    ``lanes`` = nblocks·m, no padded lanes, and ``level_writes`` the write
+    interval ``[size, size + count)`` clipped to each level."""
+    nblocks, m = mask.shape
+    dev = mask.device
+    starts = torch.tensor(indexing.bucket_starts(b0, nlevels), dtype=torch.int64)
+    ends = starts + torch.tensor(indexing.bucket_sizes(b0, nlevels), dtype=torch.int64)
+    count = mask.to(torch.int64).sum(1)
+    lo = torch.maximum(sizes.to(torch.int64)[:, None], starts.to(dev)[None, :])
+    hi = torch.minimum((sizes.to(torch.int64) + count)[:, None], ends.to(dev)[None, :])
+    return obs_device.pack(dev, **{
+        "push_back.waves": 1,
+        "push_back.lanes": nblocks * m,
+        "push_back.active_lanes": count.sum(),
+        "push_back.level_writes": torch.clamp(hi - lo, min=0).sum(),
+    })

@@ -1,6 +1,9 @@
-"""Telemetry of the port (``repro.obs``): the metrics registry, span tracing
-and the serving timeline.  The flight recorder and the device counter plane
-(K15) come with slice 4 (ROADMAP.md)."""
+"""Telemetry of the port (``repro.obs``): the metrics registry, span tracing,
+the serving timeline, the flight recorder and the device counter plane
+(K15, ``obs.device``)."""
+from repro_torch.obs import device
+from repro_torch.obs.device import DeviceCounterPlane
+from repro_torch.obs.flightrec import FlightRecorder
 from repro_torch.obs.registry import (
     Counter,
     Gauge,
@@ -14,6 +17,8 @@ from repro_torch.obs.trace import Span, Tracer
 
 __all__ = [
     "Counter",
+    "DeviceCounterPlane",
+    "FlightRecorder",
     "Gauge",
     "GaugeFn",
     "Histogram",
@@ -22,4 +27,5 @@ __all__ = [
     "Span",
     "Tracer",
     "default_registry",
+    "device",
 ]

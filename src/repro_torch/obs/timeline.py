@@ -16,14 +16,15 @@ against the legacy stats view exactly (DESIGN.md §9).
 Everything here is host state; the zero-sync contract of ``obs`` holds:
 no method issues a device→host transfer except ``snapshot()``/
 ``export_json()``, which are explicit drain points (lazy device counters
-materialize there).  The reference also feeds every event into its flight
-recorder's ring; the flight recorder is not ported yet (ROADMAP.md, slice 4),
-so a failed invariant check raises without a postmortem bundle.
+materialize there).  Every event also lands in the flight recorder's
+bounded ring (``flight``), so a postmortem bundle has the recent timeline
+with no extra call sites at the recording surfaces (DESIGN.md §9.y).
 """
 from __future__ import annotations
 
 import json
 
+from repro_torch.obs.flightrec import FlightRecorder
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 
@@ -36,9 +37,11 @@ class ServingTimeline:
         registry: MetricsRegistry | None = None,
         *,
         profiler_annotations: bool = False,
+        flight_capacity: int = 256,
     ):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.tracer = Tracer(profiler_annotations=profiler_annotations)
+        self.flight = FlightRecorder(capacity=flight_capacity)
 
     # ---- recording -------------------------------------------------------
     def span(self, name: str, **attrs):
@@ -46,6 +49,7 @@ class ServingTimeline:
 
     def event(self, name: str, **attrs) -> None:
         self.tracer.event(name, **attrs)
+        self.flight.note(name, **attrs)
 
     def gauge_sample(self, name: str, value: float) -> None:
         """Set the registry gauge and log a timeline sample (one value)."""

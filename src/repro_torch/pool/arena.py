@@ -16,11 +16,13 @@ several) and, for scalar items, the segmented gather K7.  Steady-state
 appends read nothing from the device; a read happens only when pessimistic
 bounds would otherwise claim a slab and the mask is not host-known.
 
+``instrument=True`` hands each append's counter vector to the device
+counter plane (``devctr``, K15) without reading it; ``check_invariants``
+dumps a flight-recorder bundle (``flight``) naming the offending slabs
+before its ``AssertionError`` propagates.
+
 Differences from the reference: the pool is written in place (the reference
-donates it); ``memory_space``/``dispatch`` are checked and have no effect;
-``instrument=True`` raises until the device counter plane (K15) is ported,
-and ``check_invariants`` raises its ``AssertionError`` without writing a
-flight-recorder bundle (the recorder comes with the observability slice).
+donates it); ``memory_space``/``dispatch`` are checked and have no effect.
 ``device=None`` means the card; pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.core import indexing
 from repro_torch.kernels import common
 from repro_torch.kernels.flatten import ops as flatten_ops
 from repro_torch.kernels.paged import ops as paged_ops
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import DeviceCounterPlane, FlightRecorder, MetricsRegistry
 from repro_torch.pool import extents as extents_mod
 from repro_torch.pool.extents import ExtentPool
 from repro_torch.pool.planner import PageBook, TenantPlanner, growth_amount
@@ -175,11 +177,6 @@ class SlabArena:
             raise ValueError("slab_size must be >= 1")
         common.check_memory_space(memory_space)
         common.check_dispatch(dispatch)
-        if instrument:
-            raise NotImplementedError(
-                "instrument=True needs the device counter plane (K15), not "
-                "ported yet (ROADMAP.md, Queue 2)"
-            )
         dev = _device.resolve(device)
         self.device = dev
         self.pool = extents_mod.init_extent_pool(
@@ -197,6 +194,7 @@ class SlabArena:
         self.memory_space = memory_space
         self.dispatch = dispatch
         self.grow_chunk = grow_chunk
+        self.instrument = instrument
         # device mirrors of owners/bases, refreshed only when claims change
         self._tables_dev: tuple[torch.Tensor, torch.Tensor] | None = None
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -215,6 +213,11 @@ class SlabArena:
         reg.gauge_fn("pool.free_slabs", lambda: self.alloc.free_count)
         reg.gauge_fn("pool.reserved_slabs", lambda: self.alloc.reserved_total)
         reg.gauge_fn("pool.utilization", self.utilization)
+        # device counter plane + flight recorder (DESIGN.md §9.x/§9.y):
+        # instrumented appends hand their counter vector to the plane;
+        # invariant violations dump a postmortem bundle before raising
+        self.devctr = DeviceCounterPlane(reg)
+        self.flight = FlightRecorder()
 
     @property
     def alloc(self):
@@ -385,10 +388,13 @@ class SlabArena:
             mask_dev = common.to_device(mask, dev)
             if mask_dev.dtype != torch.bool:
                 mask_dev = mask_dev != 0
-        _, sizes, pos = paged_ops.slab_append(
+        _, sizes, pos, *vec = paged_ops.slab_append(
             self._pool_arg(), owners, bases, self.arr.sizes, elems.to(self.pool.dtype),
             mask_dev, memory_space=self.memory_space, dispatch=self.dispatch,
+            instrument=self.instrument,
         )
+        if vec:
+            self.devctr.add(vec[0])  # a list append — no transfer
         self.arr = dataclasses.replace(self.arr, sizes=sizes)
         self.planner.advance(counts)
         self.registry.counter("arena.appends").inc()
@@ -446,9 +452,50 @@ class SlabArena:
         return flat, total, starts
 
     # ---- verification (tests and debugging only: reads the device) -------
+    def _flight_dump(self, reason: str, error: BaseException | None = None,
+                     invariant: dict | None = None) -> None:
+        """Postmortem bundle on invariant failure; never raises or re-dumps."""
+        if error is not None and getattr(error, "_flightrec_dumped", False):
+            return
+        try:
+            state = {
+                "narrays": self.narrays,
+                "slab_size": self.slab_size,
+                "extent_sizes": list(self.pool.extent_sizes),
+                "n_slabs": self.pool.n_slabs,
+                "free_ids": np.flatnonzero(self.alloc.free).tolist(),
+                "refcounts": np.asarray(self.alloc.refcount).tolist(),
+                "npages": np.asarray(self.book.npages).tolist(),
+                "live_ub": np.asarray(self.planner.ub).tolist(),
+                "page_tables": [[int(s) for s in self.book.pages_of[i]]
+                                for i in range(self.narrays)],
+            }
+            if invariant:
+                state["invariant"] = dict(invariant)
+            self.flight.dump(
+                reason=reason, error=error, state=state,
+                metrics=self.registry.snapshot(),
+                device_counters=self.devctr.counters(),
+            )
+        except Exception:
+            return
+        if error is not None:
+            try:
+                error._flightrec_dumped = True
+            except Exception:
+                pass
+
     def check_invariants(self) -> dict:
         """Cross-check the device state against the host mirrors; raises
-        ``AssertionError`` on drift."""
+        ``AssertionError`` on drift, after dumping a flight-recorder bundle
+        (offending slab ids, page tables, refcounts) — DESIGN.md §9.y."""
+        try:
+            return self._check_invariants_inner()
+        except AssertionError as e:
+            self._flight_dump("arena_invariant", e)
+            raise
+
+    def _check_invariants_inner(self) -> dict:
         free_dev = self.pool.free.cpu().numpy()
         pages_dev = self.arr.pages.cpu().numpy()
         sizes_dev = self.arr.sizes.cpu().numpy()
@@ -477,7 +524,17 @@ class SlabArena:
             refs[vals] = counts
         bad = np.flatnonzero(refs != self.alloc.refcount)
         if len(bad):
-            raise AssertionError(f"refcounts drift from page tables: {bad}")
+            err = AssertionError(f"refcounts drift from page tables: {bad}")
+            self._flight_dump(
+                "refcount_mismatch", err,
+                invariant={
+                    "check": "refcount_conservation",
+                    "offending_slabs": bad.tolist(),
+                    "expected_refcount": refs[bad].tolist(),
+                    "actual_refcount": np.asarray(self.alloc.refcount)[bad].tolist(),
+                },
+            )
+            raise err
         for i in range(self.narrays):
             npg = int(self.book.npages[i])
             assert (pages_dev[i, :npg] >= 0).all(), f"array {i}: hole in table"

@@ -26,11 +26,16 @@ loop.  Host data reaches the card with ``non_blocking`` copies
 (``kernels.common.to_device``), so a steady-state decode step makes no
 synchronising call at all.
 
+``instrument=True`` turns on the device counter plane (K15): each step
+hands its counter vector to ``devctr`` (a list append, no transfer) and
+``drain_device_counters()`` reads the totals.  ``BatchEngine`` also keeps
+a flight recorder (``obs.flight``): a quota failure, a failed step (dumped
+once) and a failed ``check_free_list`` write a postmortem bundle of the
+engine's host state before the exception propagates.
+
 Not ported yet (ROADMAP.md, Queue 1), each raising
-``NotImplementedError``: int8 caches, monolithic admission, ``prefix_cache=True``,
-``instrument=True`` (the device counter plane) and non-attention layouts.
-The flight recorder comes with slice 4: a failed ``check_free_list`` raises
-without a postmortem bundle.
+``NotImplementedError``: int8 caches, monolithic admission, ``prefix_cache=True``
+and non-attention layouts.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.common import to_device
 from repro_torch.models.transformer import DTYPES, check_supported
-from repro_torch.obs import ServingTimeline
+from repro_torch.obs import DeviceCounterPlane, ServingTimeline
 from repro_torch.serving import kvcache, scheduler as sched_mod, steps
 from repro_torch.serving.sampler import sample
 
@@ -128,8 +133,8 @@ class Engine:
             )
         if self.policy not in ENGINE_POLICIES:
             raise ValueError(f"unknown policy {self.policy!r}; options: {ENGINE_POLICIES}")
-        if instrument or cfg.instrument:
-            raise _not_ported("instrument=True (the device counter plane, K15)")
+        if instrument:
+            cfg = dataclasses.replace(cfg, instrument=True)
         if cfg.cache_quant:
             raise _not_ported("the int8 KV cache (cache_quant)")
         self.params = params
@@ -140,6 +145,13 @@ class Engine:
         self.gen.manual_seed(seed)
         self.obs = obs if obs is not None else ServingTimeline()
         self.stats = EngineStats(self.obs.registry)
+        self.devctr = DeviceCounterPlane(self.obs.registry)
+
+    def drain_device_counters(self) -> dict[str, float]:
+        """Flush + read the device counter plane → {slot: total}.  A drain
+        point (one read per slot with pending adds): call it at the end of a
+        run, never per step."""
+        return self.devctr.counters()
 
     def _host_read(self, x: torch.Tensor, site: str) -> np.ndarray:
         """The audited device→host read: every transfer lands in one metric."""
@@ -204,10 +216,12 @@ class Engine:
         # two_phase: the grow phase is a ggarray prefill, frozen below
         prefill_policy = "ggarray" if self.policy == "two_phase" else self.policy
         with self.obs.span("prefill", batch=B, tokens=int(lens.sum())):
-            logits, caches = steps.prefill(
+            logits, caches, *ctr = steps.prefill(
                 self.params, to_device(torch.from_numpy(toks), self.device), cfg,
                 capacity_hint=hint, policy=prefill_policy, lengths=lengths,
             )
+            if ctr:
+                self.devctr.add(ctr[0])
         if self.policy == "two_phase":
             caches = [kvcache.freeze_cache(c) for c in caches]
             self.obs.registry.counter("engine.freeze_events").inc()
@@ -222,7 +236,10 @@ class Engine:
             if max_len_host + 1 >= self._capacity(caches) and self.policy != "static":
                 caches = self._grow(caches)
             with self.obs.span("decode_step"):
-                logits, caches = steps.decode_step(self.params, sampled[-1], caches, lengths, cfg)
+                logits, caches, *ctr = steps.decode_step(self.params, sampled[-1], caches,
+                                                         lengths, cfg)
+                if ctr:
+                    self.devctr.add(ctr[0])  # a list append — no transfer
             lengths = lengths + 1
             max_len_host += 1
             self.obs.registry.counter("engine.decode_steps").inc()
@@ -322,8 +339,8 @@ class BatchEngine:
             raise _not_ported("monolithic admission")
         if prefix_cache:
             raise _not_ported("prefix_cache=True (serving/prefix.py)")
-        if instrument or cfg.instrument:
-            raise _not_ported("instrument=True (the device counter plane, K15)")
+        if instrument:
+            cfg = dataclasses.replace(cfg, instrument=True)
         if cfg.cache_quant:
             raise _not_ported("the int8 KV cache (cache_quant)")
         self.params = params
@@ -337,6 +354,9 @@ class BatchEngine:
         self.stop_token = stop_token
         self.obs = obs if obs is not None else ServingTimeline()
         self.stats = BatchStats(self.obs.registry)
+        # device counter plane (DESIGN.md §9.x): the steps hand their
+        # counter vectors here; draining stays lazy (Counter.add_lazy)
+        self.devctr = DeviceCounterPlane(self.obs.registry)
         self.book = PageBook(max_batch, quota_slabs=quota_slabs)
         dev = self.device
         self.free_dev = torch.ones((0,), dtype=torch.bool, device=dev)
@@ -381,6 +401,69 @@ class BatchEngine:
         self.obs.gauge_sample("pool.live_tokens", live)
         self.obs.gauge_sample("pool.capacity_tokens", cap)
         self.obs.gauge_sample("pool.utilization", live / cap if cap else 0.0)
+
+    def drain_device_counters(self) -> dict[str, float]:
+        """Flush + read the device counter plane → {slot: total}.  A drain
+        point (one read per slot with pending adds): call it at the end of a
+        run, never per step."""
+        return self.devctr.counters()
+
+    def _flightrec_state(self) -> dict:
+        """The engine's host bookkeeping for a postmortem bundle (allocator,
+        page tables, scheduler, slots); building it reads no device value."""
+        alloc = self.alloc
+        return {
+            "n_slots": self.B,
+            "slab_tokens": self.T,
+            "admission": "chunked",
+            "extent_sizes": list(self._extent_sizes),
+            "len_host": self._len_host.tolist(),
+            "slots": [
+                None if r is None else {"rid": r.rid, "generated": r.generated,
+                                        "max_new_tokens": r.max_new_tokens, "done": r.done}
+                for r in self._slots
+            ],
+            "allocator": {
+                "n_slabs": alloc.n_slabs,
+                "free_slabs": int(np.sum(alloc.free)),
+                "free_ids": np.flatnonzero(alloc.free).tolist(),
+                "refcounts": np.asarray(alloc.refcount).tolist(),
+                "refcount_sum": int(np.sum(alloc.refcount)),
+            },
+            "page_tables": [[int(s) for s in self.book.pages_of[slot]] for slot in range(self.B)],
+            "reserved_total": int(self.book.reserved_total),
+            "scheduler": self.sched.describe(),
+            "prefix": None,
+            "pinned": {},
+        }
+
+    def _flight_dump(self, reason: str, error: BaseException | None = None,
+                     invariant: dict | None = None) -> None:
+        """Dump a postmortem bundle; never raises, never dumps twice for the
+        same exception (nested failure paths re-raise through step())."""
+        if error is not None and getattr(error, "_flightrec_dumped", False):
+            return
+        try:
+            state = self._flightrec_state()
+            if invariant:
+                state["invariant"] = dict(invariant)
+            try:
+                metrics = self.obs.snapshot()  # lazy-counter drain point
+            except Exception:
+                metrics = None
+            try:
+                device_counters = self.devctr.counters()
+            except Exception:
+                device_counters = None
+            self.obs.flight.dump(reason=reason, error=error, state=state,
+                                 metrics=metrics, device_counters=device_counters)
+        except Exception:
+            return  # the recorder must not mask the original failure
+        if error is not None:
+            try:
+                error._flightrec_dumped = True
+            except Exception:
+                pass
 
     def _note_admitted(self, req: Request, slot: int) -> None:
         req.queue_wait = time.time() - req.submit_t
@@ -582,11 +665,13 @@ class BatchEngine:
             self.obs.registry.gauge("serve.prefill_widths", "distinct padded chunk widths").set(
                 len(self._widths))
         with self.obs.span("prefill_chunk", rid=task.rid, t0=task.t0, width=task.width):
-            logits, self.caches = steps.prefill_chunk(
+            logits, self.caches, *ctr = steps.prefill_chunk(
                 self.params, to_device(torch.from_numpy(toks), self.device), self.caches, slot,
                 task.t0, task.live, to_device(torch.from_numpy(row), self.device), self.cfg,
                 first=first,
             )
+            if ctr:
+                self.devctr.add(ctr[0])
         self.obs.registry.counter("serve.prefill_chunks").inc()
         self.sched.chunk_done(task)
         self._sample_live()
@@ -612,7 +697,14 @@ class BatchEngine:
 
     # ---- the decode loop -------------------------------------------------
     def _admit_pending(self) -> None:
-        for rid, slot, need in self.sched.admit(self._ensure_free_slabs):
+        from repro_torch.pool import QuotaExceeded
+
+        try:
+            admits = self.sched.admit(self._ensure_free_slabs)
+        except QuotaExceeded as e:
+            self._flight_dump("quota_exceeded", e)
+            raise
+        for rid, slot, need in admits:
             req = self._requests[rid]
             req.slot = slot
             self._slots[slot] = req
@@ -621,7 +713,16 @@ class BatchEngine:
 
     def step(self) -> bool:
         """Admit, run prefill chunks, one batched decode step (interleaved).
-        → False when nothing is active."""
+        → False when nothing is active.  Any failure inside the step dumps a
+        flight-recorder bundle (event ring + engine state + drained
+        counters) before the exception propagates — DESIGN.md §9.y."""
+        try:
+            return self._step_inner()
+        except BaseException as e:
+            self._flight_dump("step_failure", e)
+            raise
+
+    def _step_inner(self) -> bool:
         self._admit_pending()
         tasks = self.sched.next_chunks()
         for task in tasks:
@@ -640,8 +741,10 @@ class BatchEngine:
                 self._claim(slot, 1)
         step_t0 = time.perf_counter()
         with self.obs.span("decode_step", step=len(self._stream), active=len(active)):
-            logits, self.caches = steps.decode_step(
+            logits, self.caches, *ctr = steps.decode_step(
                 self.params, self.cur_tok, self.caches, self.lengths, self.cfg)
+            if ctr:
+                self.devctr.add(ctr[0])  # a list append — no transfer
             sampled = sample(None, logits, 0.0)
         step_dt = time.perf_counter() - step_t0
         self._stream.append(sampled)
@@ -697,10 +800,25 @@ class BatchEngine:
     # ---- verification (test/debug only: reads the device) ----------------
     def check_free_list(self) -> None:
         """Device bitmap ⇔ host allocator ⇔ page tables ⇔ refcounts; raises
-        ``AssertionError`` on drift (no flight-recorder bundle yet)."""
+        ``AssertionError`` on drift, after a flight-recorder bundle that names
+        the offending slab ids."""
+        try:
+            self._check_free_list_inner()
+        except AssertionError as e:
+            self._flight_dump("engine_invariant", e)  # no-op if already dumped
+            raise
+
+    def _violation(self, reason: str, message: str, invariant: dict) -> AssertionError:
+        err = AssertionError(message)
+        self._flight_dump(reason, err, invariant=invariant)
+        return err
+
+    def _check_free_list_inner(self) -> None:
         free = self._host_read(self.free_dev, "free_list_debug")
         if not (free == self.alloc.free).all():
-            raise AssertionError(f"device free bitmap drifted: slabs {np.flatnonzero(free != self.alloc.free)}")
+            bad = np.flatnonzero(free != self.alloc.free)
+            raise self._violation("free_bitmap_drift", f"device free bitmap drifted: slabs {bad}",
+                                  {"check": "free_bitmap", "offending_slabs": bad.tolist()})
         self.alloc.check()
         refs = np.zeros((self.alloc.n_slabs,), np.int64)
         for slot in range(self.B):
@@ -708,10 +826,16 @@ class BatchEngine:
                 refs[s] += 1
         bad = np.flatnonzero(refs != self.alloc.refcount)
         if len(bad):
-            raise AssertionError(f"refcounts drift from page tables: {bad}")
+            raise self._violation(
+                "refcount_mismatch", f"refcounts drift from page tables: {bad}",
+                {"check": "refcount_conservation", "offending_slabs": bad.tolist(),
+                 "expected_refcount": refs[bad].tolist(),
+                 "actual_refcount": np.asarray(self.alloc.refcount)[bad].tolist()})
         bad = np.flatnonzero((refs > 0) == self.alloc.free)
         if len(bad):
-            raise AssertionError(f"slab freed while referenced (or live without references): {bad}")
+            raise self._violation(
+                "liveness_drift", f"slab freed while referenced (or live without references): {bad}",
+                {"check": "liveness", "offending_slabs": bad.tolist()})
         for c in self.caches:
             pages = self._host_read(c["pages"], "free_list_debug")[0]
             claimed = pages[pages >= 0]

@@ -30,6 +30,14 @@ returns a new dict that shares the old levels, so nothing is copied).  Every
 function here is free of host syncs: indices and masks stay on the device,
 host values are Python ints.  The int8 caches (``cache_quant``) raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1).
+
+With ``cfg.instrument`` the ops record device counter vectors (K15,
+``obs/device.py``) on the serving step's tape at the reference's sites:
+the paged decode append and the chunk append (slab-append wave
+accounting), the ggarray append (K3's counters), the paged walk (K10/K11's
+counters, or ``_levels_walk_ctr`` for the group walk) and the prefix
+gather of chunked prefill.  The numbers describe the reference's walks,
+whatever shortcut the port takes, so the two packages' totals agree.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import indexing
 from repro_torch.kernels import common
 from repro_torch.models.attention import MASK_VALUE, SoftmaxState, softmax_update
+from repro_torch.obs import device as obs_device
 from repro_torch.pool.arena import geometric_page_groups
 
 __all__ = [
@@ -352,6 +361,13 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
         slab = cache["pages"][rows, pidx.long()]
         slab = torch.where((slab >= 0) & (pos < maxp * T), slab, -1)  # ⇒ drop
         slot = pos % T
+        if cfg is not None and cfg.instrument:
+            # one decode token per lane; a −1 slab is a dropped (wasted) lane
+            obs_device.record(obs_device.pack(dev, **{
+                "slab_append.waves": 1,
+                "slab_append.lanes": B,
+                "slab_append.active_lanes": (slab >= 0).sum(),
+            }))
         _scatter_pool(cache["k_pool"], slab, slot, k[:, 0])
         _scatter_pool(cache["v_pool"], slab, slot, v[:, 0])
         return cache
@@ -366,11 +382,15 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
 
     n = _levels(cache)
     groups = tuple(tuple(cache[f"{base}{lvl}"] for lvl in range(n)) for base in ("k", "v"))
-    push_back_ops.push_back_fused_multi(
+    inst = cfg is not None and cfg.instrument
+    outs = push_back_ops.push_back_fused_multi(
         groups, pos, cache["k0"].shape[-3], (k, v),
         torch.ones((B, 1), dtype=torch.bool, device=dev),
         memory_space=cfg.kernel_memory_space if cfg is not None else None,
+        instrument=inst,
     )
+    if inst:
+        obs_device.record(outs[3])
     return cache
 
 
@@ -429,6 +449,35 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def _levels_walk_ctr(pages: torch.Tensor, length: torch.Tensor, T: int) -> torch.Tensor:
+    """Device counters of the geometric page-group walk — port of the
+    reference's ``_levels_walk_ctr`` (``serving/kvcache.py:579``): every
+    group is gathered at its padded power-of-two width (−1 pages included:
+    the walk masks them, it does not skip them), so ``masked_lanes`` is the
+    over-read this path pays against the gated K10/K11.  Two pools are
+    gathered, k and v (the int8 caches' scale pools are not ported)."""
+    npools = 2
+    B = pages.shape[0]
+    tiles = lanes = 0
+    live_pages = masked = torch.zeros((), dtype=torch.int64, device=pages.device)
+    kv = length.to(torch.int64)
+    for lo, hi in geometric_page_groups(pages.shape[-1]):
+        full = 1 << max(hi - lo - 1, 0).bit_length()
+        tiles += B * full
+        lanes += B * full * T
+        live_pages = live_pages + (pages[:, lo:hi] >= 0).sum()
+        masked = masked + (full * T - torch.clamp(kv - lo * T, 0, full * T)).sum()
+    return obs_device.pack(pages.device, **{
+        "paged_gather.launches": npools,
+        "paged_gather.tiles": npools * live_pages,
+        "paged_gather.masked_tiles": npools * (tiles - live_pages),
+        "paged_attend.launches": 1,
+        "paged_attend.tiles": tiles,
+        "paged_attend.lanes": lanes,
+        "paged_attend.masked_lanes": masked,
+    })
+
+
 def _attend_paged(cache, qf, length, cfg, state):
     """The paged walk: geometric page groups, or the flash-decode kernel."""
     pages = cache["pages"]
@@ -436,10 +485,16 @@ def _attend_paged(cache, qf, length, cfg, state):
     if cfg.paged_attend_impl == "pallas":
         from repro_torch.kernels.paged import ops as paged_ops
 
-        return paged_ops.paged_attend(
+        out = paged_ops.paged_attend(
             qf, cache["k_pool"], cache["v_pool"], pages, length,
-            memory_space=cfg.kernel_memory_space,
+            memory_space=cfg.kernel_memory_space, instrument=cfg.instrument,
         )
+        if cfg.instrument:
+            out, vec = out
+            obs_device.record(vec)
+        return out
+    if cfg.instrument:
+        obs_device.record(_levels_walk_ctr(pages, length, T))
     for lo, hi in geometric_page_groups(pages.shape[-1]):
         width = hi - lo
         full = 1 << max(width - 1, 0).bit_length()
@@ -505,6 +560,15 @@ def chunk_attend(
     )
     T = _pool_first(cache["k_pool"]).shape[-3]
     Skv = pages_row.shape[0] * T
+    if Skv and not first and cfg.instrument:
+        # the reference's fixed-width prefix gather: every page slot of k
+        # and v walked, −1 = waste (counted as the reference walks it)
+        live_p = (pages_row >= 0).sum()
+        obs_device.record(obs_device.pack(dev, **{
+            "paged_gather.launches": 2,
+            "paged_gather.tiles": 2 * live_p,
+            "paged_gather.masked_tiles": 2 * (pages_row.shape[0] - live_p),
+        }))
     if Skv and not first and t0 > 0:
         cc = min(c, Skv)
         nch = math.ceil(min(t0, Skv) / cc)  # prefix chunks with a live lane
@@ -553,6 +617,12 @@ def scatter_chunk(
     ok = (lane < live) & (slab >= 0) & (pos < maxp * T)
     slab = torch.where(ok, slab, -1)
     slot = pos % T
+    if cfg.instrument:
+        obs_device.record(obs_device.pack(dev, **{
+            "slab_append.waves": 1,
+            "slab_append.lanes": Cb,
+            "slab_append.active_lanes": ok.sum(),
+        }))
     _scatter_pool(cache["k_pool"], slab, slot, k_chunk[0])
     _scatter_pool(cache["v_pool"], slab, slot, v_chunk[0])
     return cache

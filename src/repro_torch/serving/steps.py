@@ -8,8 +8,15 @@ and writes each period's cache views in place (``kvcache.period_view``).
 ``constrain`` (the reference's sharding annotation) is the identity on one
 card and is dropped.  Attention-only layouts; others raise
 ``NotImplementedError`` (``models.transformer.check_supported``).
+
+With ``cfg.instrument`` each step opens one ``obs.device.tape()`` (the
+reference opens one per scan iteration; PyTorch traces nothing) and returns
+the sum of the counter vectors the cache ops recorded as an extra output —
+device data, no transfer.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,6 +25,7 @@ from repro_torch.models.attention import inner_attention, project_out, project_q
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.modules import embed, rms_norm, unembed
 from repro_torch.models.transformer import DTYPES, check_supported, layer_params
+from repro_torch.obs import device as obs_device
 from repro_torch.serving import kvcache
 
 __all__ = [
@@ -43,6 +51,16 @@ def _mlp(sp, x, cfg):
     return x + mlp_block(sp["mlp"], rms_norm(x, sp["norm2"], cfg.norm_eps), cfg.activation)
 
 
+def _scope(cfg: ModelConfig):
+    """One counter tape per step when ``cfg.instrument``, else nothing."""
+    return obs_device.tape() if cfg.instrument else contextlib.nullcontext()
+
+
+def _with_counters(cfg: ModelConfig, out: tuple, t, device) -> tuple:
+    """Append the tape's total to a step's outputs when ``cfg.instrument``."""
+    return (*out, t.total(device)) if cfg.instrument else out
+
+
 def _check_stack(cfg: ModelConfig, prefix_embeds=None, memory=None) -> None:
     check_supported(cfg)
     if prefix_embeds is not None or memory is not None:
@@ -62,7 +80,9 @@ def prefill(
     memory: torch.Tensor | None = None,
     lengths: torch.Tensor | None = None,  # (B,) per-seq prompt lengths (right-pad)
 ) -> tuple[torch.Tensor, list]:
-    """→ (last-position logits (B, V), caches list[slot], period-stacked)."""
+    """→ (last-position logits (B, V), caches list[slot], period-stacked) — and
+    the step's counter vector when ``cfg.instrument`` (zeros: the monolithic
+    prefill has no counted kernel, as in the reference)."""
     _check_stack(cfg, prefix_embeds, memory)
     policy = cfg.cache_policy if policy is None else policy
     x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
@@ -72,20 +92,21 @@ def prefill(
     positions = torch.arange(S, device=dev)[None, :]
     caches = [kvcache.init_cache(cfg, B, cap, policy, stack=cfg.n_periods, device=dev)
               for _ in cfg.layout]
-    for i in range(cfg.n_periods):
-        for slot in range(len(cfg.layout)):
-            sp = layer_params(params["layers"][slot], i)
-            h = rms_norm(x, sp["norm1"], cfg.norm_eps)
-            q, k, v = project_qkv(sp["attn"], h, cfg, positions)
-            x = x + project_out(sp["attn"], inner_attention(q, k, v, cfg, causal=True))
-            kvcache.fill_from_prefill(kvcache.period_view(caches[slot], i), k, v)
-            x = _mlp(sp, x, cfg)
+    with _scope(cfg) as t:
+        for i in range(cfg.n_periods):
+            for slot in range(len(cfg.layout)):
+                sp = layer_params(params["layers"][slot], i)
+                h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+                q, k, v = project_qkv(sp["attn"], h, cfg, positions)
+                x = x + project_out(sp["attn"], inner_attention(q, k, v, cfg, causal=True))
+                kvcache.fill_from_prefill(kvcache.period_view(caches[slot], i), k, v)
+                x = _mlp(sp, x, cfg)
     if lengths is None:
         last = x[:, -1]
     else:
         idx = torch.as_tensor(lengths, device=dev).long() - 1
         last = x[torch.arange(B, device=dev), idx]
-    return logits_from_hidden(params, last, cfg), caches
+    return _with_counters(cfg, (logits_from_hidden(params, last, cfg), caches), t, dev)
 
 
 def prefill_chunk(
@@ -99,23 +120,26 @@ def prefill_chunk(
     cfg: ModelConfig,
     first: bool = True,  # t0 == 0: no prefix to attend
 ) -> tuple[torch.Tensor, list]:
-    """→ (last-live-position logits (1, V), caches).  ``t0`` and ``live`` are
-    the scheduler's host ints."""
+    """→ (last-live-position logits (1, V), caches) — and the summed counter
+    vector when ``cfg.instrument``.  ``t0`` and ``live`` are the scheduler's
+    host ints."""
     _check_stack(cfg)
     x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
     Cb = tokens.shape[1]
     positions = (t0 + torch.arange(Cb, device=x.device))[None, :]
-    for i in range(cfg.n_periods):
-        for lslot in range(len(cfg.layout)):
-            sp = layer_params(params["layers"][lslot], i)
-            c = kvcache.period_view(caches[lslot], i)
-            h = rms_norm(x, sp["norm1"], cfg.norm_eps)
-            q, k, v = project_qkv(sp["attn"], h, cfg, positions)
-            att = kvcache.chunk_attend(c, pages_row, q, k, v, t0, live, cfg, first=first)
-            x = x + project_out(sp["attn"], att)
-            kvcache.scatter_chunk(c, pages_row, k, v, t0, live, cfg)
-            x = _mlp(sp, x, cfg)
-    return logits_from_hidden(params, x[0, live - 1][None], cfg), caches
+    with _scope(cfg) as t:
+        for i in range(cfg.n_periods):
+            for lslot in range(len(cfg.layout)):
+                sp = layer_params(params["layers"][lslot], i)
+                c = kvcache.period_view(caches[lslot], i)
+                h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+                q, k, v = project_qkv(sp["attn"], h, cfg, positions)
+                att = kvcache.chunk_attend(c, pages_row, q, k, v, t0, live, cfg, first=first)
+                x = x + project_out(sp["attn"], att)
+                kvcache.scatter_chunk(c, pages_row, k, v, t0, live, cfg)
+                x = _mlp(sp, x, cfg)
+    out = (logits_from_hidden(params, x[0, live - 1][None], cfg), caches)
+    return _with_counters(cfg, out, t, x.device)
 
 
 def init_decode_caches(
@@ -140,7 +164,8 @@ def decode_step(
     cfg: ModelConfig,
     active: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list]:
-    """One serve step → (logits (B, V), caches written in place).
+    """One serve step → (logits (B, V), caches written in place) — and the
+    summed counter vector when ``cfg.instrument``.
 
     ``active`` gates SSM state rows in the reference; attention-only stacks
     do not need it (inactive rows' appends drop through their −1 pages).
@@ -151,13 +176,14 @@ def decode_step(
     B = x.shape[0]
     pos = torch.as_tensor(length, dtype=torch.int32, device=x.device).expand(B)
     positions = pos[:, None]
-    for i in range(cfg.n_periods):
-        for slot in range(len(cfg.layout)):
-            sp = layer_params(params["layers"][slot], i)
-            c = kvcache.period_view(caches[slot], i)
-            h = rms_norm(x, sp["norm1"], cfg.norm_eps)
-            q, k, v = project_qkv(sp["attn"], h, cfg, positions)
-            kvcache.append(c, k, v, pos, cfg)
-            x = x + project_out(sp["attn"], kvcache.attend(c, q, pos + 1, cfg))
-            x = _mlp(sp, x, cfg)
-    return logits_from_hidden(params, x[:, 0], cfg), caches
+    with _scope(cfg) as t:
+        for i in range(cfg.n_periods):
+            for slot in range(len(cfg.layout)):
+                sp = layer_params(params["layers"][slot], i)
+                c = kvcache.period_view(caches[slot], i)
+                h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+                q, k, v = project_qkv(sp["attn"], h, cfg, positions)
+                kvcache.append(c, k, v, pos, cfg)
+                x = x + project_out(sp["attn"], kvcache.attend(c, q, pos + 1, cfg))
+                x = _mlp(sp, x, cfg)
+    return _with_counters(cfg, (logits_from_hidden(params, x[:, 0], cfg), caches), t, x.device)

@@ -343,8 +343,12 @@ def test_page_groups_and_containers():
 
 
 def test_constructor_knobs():
-    with pytest.raises(NotImplementedError):
-        SlabArena(2, 4, instrument=True, device="cpu")
+    # instrument=True: each append hands its counter vector to the plane
+    inst = SlabArena(2, 4, instrument=True, device="cpu")
+    inst.append(torch.ones((2, 3)), np.asarray([[1, 1, 0], [1, 0, 0]], bool))
+    got = inst.devctr.counters()
+    assert (got["slab_append.waves"], got["slab_append.lanes"], got["slab_append.active_lanes"]) == (
+        1.0, 6.0, 3.0)
     with pytest.raises(ValueError):
         SlabArena(2, 0, device="cpu")
     with pytest.raises(ValueError):
@@ -362,7 +366,7 @@ def test_constructor_knobs():
 ])
 def test_check_invariants_raises_on_drift(corrupt, match):
     """A device state that drifts from the host mirrors raises the
-    reference's ``AssertionError``s (no flight-recorder bundle yet)."""
+    reference's ``AssertionError``s, after a flight-recorder bundle."""
     arena = SlabArena(3, 4, dtype=torch.float32, device="cpu")
     arena.append(torch.ones((3, 5)))
     arena.release(2)
@@ -374,3 +378,4 @@ def test_check_invariants_raises_on_drift(corrupt, match):
         arena.arr.sizes[0] = 99
     with pytest.raises(AssertionError, match=match):
         arena.check_invariants()
+    assert arena.flight.last_bundle["reason"] == "arena_invariant"

@@ -209,9 +209,13 @@ def test_free_list_check_catches_drift(model):
 
 def test_unported_options_raise_naming_the_roadmap(model):
     _, cfg, _, params = model
-    for kwargs in (dict(admission="monolithic"), dict(prefix_cache=True), dict(instrument=True)):
+    for kwargs in (dict(admission="monolithic"), dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchEngine(params, cfg, device="cpu", **kwargs)
+    # instrument=True (the device counter plane, K15) is ported: accepted
+    for make in (Engine, BatchEngine):
+        eng = make(params, cfg, device="cpu", instrument=True)
+        assert eng.cfg.instrument and eng.drain_device_counters()["paged_attend.lanes"] == 0.0
     for policy in ("static", "semistatic", "two_phase"):  # ported: accepted
         assert Engine(params, cfg, policy=policy, device="cpu").policy == policy
     with pytest.raises(ValueError, match="BatchEngine"):

@@ -310,16 +310,18 @@ def test_knobs_are_checked_and_instrument_raises():
         ops.paged_gather(pool, pages, memory_space=space)
     with pytest.raises(ValueError):
         ops.paged_gather(pool, pages, memory_space="smem")
-    with pytest.raises(NotImplementedError):
-        ops.paged_gather(pool, pages, instrument=True)
+    # instrument=True (K15) adds the counter vector and leaves the data alone
+    out, vec = ops.paged_gather(pool, pages, instrument=True)
+    assert torch.equal(out, ops.paged_gather(pool, pages))
+    assert vec.tolist()[5:8] == [1.0, 1.0, 0.0]  # launches, tiles, masked tiles
     args = (pool, torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.ones((1, 1)), torch.ones((1, 1), dtype=torch.bool))
     for disp in ("auto", "onehot", "mxu"):
         ops.slab_append(*args, dispatch=disp)
     with pytest.raises(ValueError):
         ops.slab_append(*args, dispatch="gather")
-    with pytest.raises(NotImplementedError):
-        ops.slab_append(*args, instrument=True)
+    *_, vec = ops.slab_append(*args, instrument=True)
+    assert vec.tolist()[16:] == [1.0, 1.0, 1.0]  # waves, lanes, active lanes
 
 
 @pytest.mark.parametrize("kind", ["gather", "gather_extents", "append"])

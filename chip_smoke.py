@@ -687,7 +687,8 @@ def close(res: dict, name: str, got, want, tol: float, rtol: float | None = None
 
 def flash_case(res, gen, B, H, KH, Sq, Skv, D, dtype, causal, layout="bhsd"):
     """K13 on (B, H, S, D) views — contiguous, or strided out of the model's
-    (B, S, H, D) layout — against ``ref.attention``."""
+    (B, S, H, D) layout — against ``ref.attention``.  f16 (which the
+    reference's tests do not take) is held to the bf16 tolerance."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as k_fa
@@ -703,7 +704,8 @@ def flash_case(res, gen, B, H, KH, Sq, Skv, D, dtype, causal, layout="bhsd"):
     got = k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=causal, sm_scale=D ** -0.5)
     want = r_fa.attention(q.reshape(B * H, Sq, D), k.reshape(B * KH, Skv, D), v.reshape(B * KH, Skv, D),
                           group=H // KH, causal=causal)
-    close(res, "flash_attention", got.reshape(B * H, Sq, D), want, ATTN_TOL[str(dtype).split(".")[-1]])
+    tol = ATTN_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    close(res, "flash_attention", got.reshape(B * H, Sq, D), want, tol)
     return q, k, v, out
 
 
@@ -803,23 +805,61 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
             for causal in (True, False):
                 flash_case(res, gen, B, H, KH, Sq, Skv, D, dtype, causal,
                            "bshd" if (B + D) % 2 else "bhsd")
+    # the edges of the tensor-core kernel's tiles (64 query rows, 64 keys)
+    # and of the reference's (128): lengths 63, 65, 127, 129 and 1000, causal
+    # and not, bf16 and f32, both layouts; f16 at two of them; Sq < Skv
+    # (not causal)
+    for S, D in ((63, 16), (65, 32), (127, 64), (129, 128), (1000, 128)):
+        for dtype in (torch.float32, torch.bfloat16) + ((torch.float16,) if S in (65, 1000) else ()):
+            for causal in (True, False):
+                for layout in ("bhsd", "bshd"):
+                    flash_case(res, gen, 1, 4, 2, S, S, D, dtype, causal, layout)
+    for Sq, Skv, D in ((1, 200, 64), (65, 129, 128), (100, 1000, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_case(res, gen, 2, 4, 1, Sq, Skv, D, dtype, False, "bshd")
     # the slice's shape: 4 prompts x 16 heads over 2 kv heads, 1792 tokens
     B, H, KH, S, D = SERVE_PROMPTS, 16, 2, SERVE_LEN, 128
     for causal in (False, True):
         q, k, v, out = flash_case(res, gen, B, H, KH, S, S, D, torch.bfloat16, causal, "bshd")
+
+    def k13():
+        return k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=True, sm_scale=D ** -0.5)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    # a bf16 view off the 16-byte grid is refused, not run
+    flat = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=DEV)
+    odd = flat[1:].view(1, 2, 64, 64)
+    try:
+        k_fa.flash_attention_cuda(odd, odd, odd, torch.empty_like(odd), group=1, causal=True,
+                                  sm_scale=1.0)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "flash_attention: a bf16 view off the 16-byte grid was launched")
+    del flat, odd
+
+    # deterministic: no atomics, no split over keys (serve.policies relies
+    # on it for its bitwise first-step logits)
+    first = out.clone()
+    repeat = compare(k13(), first)[0]
+    res["flash_attention"]["repeat_mismatches"] = repeat
+    check(repeat == 0, f"flash_attention: two launches on the same inputs differ in {repeat} elements")
     qh, kh, vh = (x.reshape(-1, S, D) for x in (q, k, v))
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
+    # device time from CUDA-graph replays (cuda_ms of the wrapper and the
+    # library call's graph time are in the shape string)
     timing["flash_attention"] = dict(
-        ms=cuda_ms(lambda: k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=True,
-                                                     sm_scale=D ** -0.5), 10),
+        ms=graph_ms(k13, 10),
         plain_ms=cuda_ms(lambda: r_fa.attention(qh, kh, vh, group=H // KH, causal=True), 3),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                  enable_gqa=True), 10),
+        library_ms=cuda_ms(sdpa, 10),
         bound=bound_ms(2 * (2 * B * H * S * D + 2 * B * KH * S * D), 4 * B * H * pairs * D, card,
                        PEAK_BF16_FLOPS),
-        shape=f"q ({B}, {S}, {H}, {D}) bf16 strided, kv heads {KH}, causal",
+        shape=f"q ({B}, {S}, {H}, {D}) bf16 strided, kv heads {KH}, causal; CUDA-graph time; "
+              f"one call from Python {cuda_ms(k13, 10)} ms; SDPA in a CUDA graph {graph_ms(sdpa, 10)} ms",
     )
-    del q, k, v, out, qh, kh, vh
+    del q, k, v, out, qh, kh, vh, first
 
     # K10/K11: small ragged cases — page -1, lengths 0, inside a slab and at
     # a slab's end, flat / doubling / tz extents, f32 and bf16 pools.
@@ -1058,6 +1098,47 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     k[:, :, 40:], v[:, :, 40:] = 1e6, -1e6
     note("decode_attention", [(k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), clean)])
 
+    # the split by the live length: lengths 0, 1, nsplit - 1, nsplit and
+    # nsplit + 1 keys, where nsplit comes from B * KH and the SM count (S
+    # 2048) or from a short S (100: fewer splits than the card's two blocks
+    # a SM would give); then B * KH = 80, past the ticket buffer's first
+    # size, so it grows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, KH, G, S, D in ((5, 2, 8, 2048, 128), (5, 1, 4, 100, 64), (40, 2, 8, 256, 128)):
+        ns = k_da.num_splits(S, B * KH, sms)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(dtype)
+            k, v = kv_pair(B, KH, S, D, dtype, "bshd")
+            lens = torch.tensor(([0, 1, ns - 1, ns, ns + 1] * B)[:B], dtype=torch.int32, device=dev)
+            got = k_da.decode_attention_cuda(q, k, v, lens.clamp(max=S), sm_scale=D ** -0.5)
+            want = r_da.decode_attention(q, k, v, lens.clamp(max=S))
+            close(res, "decode_attention", got, want, k14_tol(want), rtol=0.0)
+        res["decode_attention"][f"nsplit_S{S}_BKH{B * KH}"] = ns
+    tix = k_da.tickets(q.device, 0)
+    check(tix.numel() >= 80, f"decode_attention: the ticket buffer did not grow ({tix.numel()})")
+    check(int(tix.count_nonzero().item()) == 0, "decode_attention: a ticket was left non-zero")
+    # 20 CUDA-graph replays, then an eager launch: bitwise equal to the
+    # eager launch before them (each launch leaves its tickets at 0)
+    B, KH, G, S, D = 4, 2, 8, 1024, 128
+    q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = kv_pair(B, KH, S, D, torch.bfloat16, "bshd")
+    lens = torch.tensor([1000, 17, 512, 1024], dtype=torch.int32, device=dev)
+    fresh = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+    for _ in range(20):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+    note("decode_attention", [(replayed, fresh), (after, fresh)])
+    del graph, replayed, after, fresh
+
     res["decode_attention"]["tolerance_rule"] = (
         f"{K14_ULPS['bfloat16']} bf16 / {K14_ULPS['float32']} f32 ulps of max|want| per case, no rtol")
 
@@ -1083,7 +1164,8 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
                                                                    enable_gqa=True), 20),
         bound=bound_ms(2 * live * KH * D * 2 + 2 * q.numel() * 2 + 4 * B, 0, card),
         shape=f"q ({B}, {KH}, {G}, {D}) bf16 over a token-major ({B}, {S}, {KH}, {D}) bf16 cache, "
-              f"{live} live tokens; CUDA-graph times; one call from Python "
+              f"{live} live tokens, nsplit {k_da.num_splits(S, B * KH, sms)}; CUDA-graph times; "
+              f"one call from Python "
               f"{cuda_ms(lambda: k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), 20)} ms",
     )
     del q, k, v, qs, kvmask
@@ -2339,6 +2421,98 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
     return total
 
 
+PREFILL_AB_REPS = 5
+PREFILL_AB_ORDER = ("parent", "change", "change", "parent")
+
+
+def prefill_ab(card: str, seed: int, parent: str) -> dict:
+    """``--prefill-ab PARENT``: K13 of another checkout (``PARENT``'s
+    ``src/repro_torch/csrc/flash_attention.cu``, built beside this one's)
+    against this checkout's, in turns on one card (parent, change, change,
+    parent): serve.engine's prefill (the median of ``PREFILL_AB_REPS`` after
+    a warm-up) and K13 at the serving shape; then one prefill of this
+    checkout under ``torch.profiler``, device time by kernel.  Reports only:
+    no gate."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.serving import steps
+
+    csrc = Path(parent).resolve() / "src" / "repro_torch" / "csrc"
+    check((csrc / "flash_attention.cu").is_file(), f"--prefill-ab: no {csrc / 'flash_attention.cu'}")
+    so = _build.build_dir() / "parent" / "libflash_attention.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+                            str(csrc / "flash_attention.cu")], capture_output=True, text=True, timeout=600)
+    check(built.returncode == 0, f"--prefill-ab: the parent's K13 did not build:\n{built.stdout}{built.stderr}")
+    libs = {"parent": ctypes.CDLL(str(so)), "change": _build.library("flash_attention")}
+    libs["parent"].rt_error_string.argtypes = [ctypes.c_int]
+    libs["parent"].rt_error_string.restype = ctypes.c_char_p
+
+    rng = np.random.default_rng(seed + 200)
+    cfg, params = serve_model(seed)
+    lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
+    lens[-1] = SERVE_LEN
+    toks = np.zeros((SERVE_PROMPTS, SERVE_LEN), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, int(n))
+    toks_d, lens_d = torch.from_numpy(toks).to(DEV), torch.from_numpy(lens.astype(np.int32)).to(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 13)
+    B, H, KH, S, D = SERVE_PROMPTS, 16, 2, SERVE_LEN, 128
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=DEV).to(torch.bfloat16).transpose(1, 2)
+               for n in (H, KH, KH))
+    out = torch.empty_like(q)
+
+    def k13():
+        return k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=True, sm_scale=D ** -0.5)
+
+    def prefill():
+        return steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
+                             lengths=lens_d)
+
+    turns, logits = [], {}
+    for turn in PREFILL_AB_ORDER:
+        _build._loaded["flash_attention"] = libs[turn]
+        prefill()
+        times = []
+        for _ in range(PREFILL_AB_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = prefill()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del caches
+        logits.setdefault(turn, lg.float())
+        turns.append({"kernel": turn, "prefill_s": sorted(times)[len(times) // 2], "prefill_s_all": times,
+                      "k13_graph_ms": graph_ms(k13, 10), "k13_cuda_ms": cuda_ms(k13, 10)})
+        emit({"phase": "prefill_ab", "card": card, **turns[-1]})
+    _build._loaded["flash_attention"] = libs["change"]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])  # kernels only
+    total = sum(t for _, t, _ in kern)
+    line = {"phase": "prefill_ab.profile", "card": card, "wall_ms": wall_ms, "kernel_ms_total": total,
+            "device_idle_share": 1 - total / wall_ms,
+            "k13_device_ms": sum(t for n, t, _ in kern if "flash_fwd" in n),
+            "top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]],
+            "logits_rel_l2_change_vs_parent": rel_l2(logits["change"], logits["parent"], cfg.vocab_size)}
+    emit(line)
+    return {"turns": turns, **line}
+
+
 # --------------------------------------------------------------------------
 # Phase 7: the device counter plane (K15) — instrumented kernels, arena and
 # serving.
@@ -2724,6 +2898,8 @@ def obs_serve_paths(card: str, cfg, params, engine_prompts, batch_prompts) -> di
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-ab", metavar="PARENT", default=None,
+                    help="only time the prefill with PARENT's K13 against this checkout's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -2756,6 +2932,10 @@ def main() -> int:
     info = _build.build_all()
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln] for k, v in info["log"].items()}
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"], "ptxas": regs})
+
+    if args.prefill_ab:
+        prefill_ab(card, args.seed, args.prefill_ab)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=DEV)

@@ -1,7 +1,8 @@
 // Shared by every kernel library of the port: the C-side error string, the
 // block-wide exclusive scan that the row scan (K1) and the fused push-back
 // (K3) both use, the extent-table lookup of the paged kernels (K8, K9,
-// K10, K11, K12), and the device counter plane (K15, ctr_accum).
+// K10, K11, K12), the 16-byte asynchronous copies of the attention kernels
+// (K13, K14), and the device counter plane (K15, ctr_accum).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,6 +44,24 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total
   *total = smem[kWarps - 1];
   __syncthreads();
   return warp_prefix + x - v;
+}
+
+// 16-byte asynchronous copy global → shared (cp.async.cg: through L2 only).
+// With full = false nothing is read and the 16 bytes are zero-filled, so a
+// ragged edge needs no second path.  Both addresses must be 16-byte aligned.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Base address of slab s (0 <= s < start_E) through the extent table

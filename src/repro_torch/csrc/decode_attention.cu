@@ -13,23 +13,41 @@
 // (B, KH, S, D) and the static cache's token-major (B, S, KH, D) both go
 // in without a transpose; lengths (B,) int32.  q, k, v share one dtype (f32
 // or bf16); the output (B, KH, G, D) has it too.  Scores are
-// (q . k) * scale in f32, as the reference.
+// (q . k) * scale in f32 on the CUDA cores, as the reference; the output
+// is held to a few ulps of its scale, which a bf16 P would not meet.
 //
 // Bound on the card: bytes — every live K and V row is read once.
 //
-// Design (split-K, the flash-decoding scheme of K10 in paged_attend.cu over
-// a contiguous cache).  B * KH is 8 at the serving shape, so one block per
-// (sequence, head) would fill 8 of 132 SMs.  Pass 1 runs one block of 256
-// threads per (sequence, head, segment of 256 keys); a segment wholly at or
-// past the length writes m = -inf and returns (the reference's skipped
-// blocks).  Each thread scores one live key against the G rows held in
-// shared memory (its K row read in 16-byte loads), the block takes each
-// row's max and sum, and threads split (dimension, key parity) to
-// accumulate P V with coalesced V reads.  Keys past the length inside a
-// segment are not visited: their masked weights are exactly 0 in the
-// reference.  Pass 2 runs one block per (sequence, head), merges the
-// segment states in order and writes acc / max(l, 1e-30) in the output
-// dtype.  Offsets are 64-bit.
+// Design (flash-decoding split by the live length, one launch).  B * KH is
+// 8 at the serving shape, so one block per (sequence, head) would fill 8
+// of 132 SMs.  The host picks nsplit from S, B * KH and the SM count alone
+// (kernels/decode_attention/kernel.py::num_splits, about two blocks a SM)
+// and never reads the lengths; block i of (b, h) takes keys
+// [len * i / nsplit, len * (i + 1) / nsplit), so every split of a long
+// sequence has live work and no block walks a dead tail.  A block of 4
+// warps streams its keys in chunks of at most 8 KB of K and 8 KB of V
+// through a two-stage ring in shared memory (16-byte cp.async, consecutive
+// threads on consecutive 16 bytes of a row; both stages are filled at the
+// start).  Lane (j, s) of a warp holds dims [s * D/L, (s + 1) * D/L) of
+// query rows j and j + G/2 in registers (G rounded up to 8 or 16; one row
+// j when G <= 4, rounded up to 4; L lanes a row group); each warp scores
+// its share of a chunk's keys one row of K at a time (each K element it
+// converts feeds both rows' fmas, then log2(L) shuffles a row), keeps an
+// online softmax per row and accumulates P V on the same dims, reading V
+// rows the same way (bank-conflict free: the lanes of a group read
+// distinct 16-byte pieces of a row, the groups broadcast).  The four warps
+// merge in shared memory, in warp order, into the block's (m, l, acc),
+// written to scratch; the block then takes a ticket from an int32 counter
+// per (b, h), and the last block merges the nsplit states in split order
+// (so the result does not depend on which block finished last), writes
+// acc / max(l, 1e-30) in the output dtype and resets the counter to 0.  The
+// wrapper keeps the counters per device (zeroed once, grown with B * KH),
+// so launches on one device run in stream order.  In the merge a warp
+// takes each row's max and denominator over the splits by shuffles, and
+// each thread sums 4 consecutive elements, eight splits' loads in flight.
+// Keys past the length are never read; a split with no keys writes
+// m = -inf and a zero acc, which weigh nothing in the merge.  Offsets are
+// 64-bit.
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
@@ -37,13 +55,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSeg = 256;  // keys per pass-1 block
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;
+constexpr int kStageBytes = 8192;  // one chunk of K (or V) rows
+constexpr int kMaxSplits = 128;
+constexpr int kBufBytes = 4 * kStageBytes;  // K and V, two stages each
 
 struct DecodeParams {
   const int* lengths;
-  int64_t S, KH, G, nseg;
+  int* tickets;
+  int64_t S, KH, G, nsplit;
   int64_t kb, kh, ks;  // K strides in elements: batch, head, token
   int64_t vb, vh, vs;  // V strides
   float scale;
@@ -54,220 +76,360 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-template <typename H>
-__device__ __forceinline__ void load8(const H* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const H* h = reinterpret_cast<const H*>(&u);
+// N elements at p (N * sizeof(T) a multiple of 8, p aligned to it) as f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int E = 16 / sizeof(T);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) out[j] = to_f32(h[j]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
+    for (int i = 0; i < N / E; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, d));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+      for (int j = 0; j < E; ++j) out[i * E + j] = to_f32(e[j]);
+    }
+  } else {
+    static_assert(kBytes % 8 == 0, "8-byte pieces");
+    constexpr int E = 8 / sizeof(T);
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
-  return x;
+    for (int i = 0; i < N / E; ++i) {
+      const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < E; ++j) out[i * E + j] = to_f32(e[j]);
+    }
+  }
 }
 
-__device__ __forceinline__ int64_t live_length(const DecodeParams& a, int64_t b) {
-  const int64_t len = a.lengths[b];
-  return len < 0 ? 0 : (len > a.S ? a.S : len);
-}
-
-// Pass 1: grid (B * KH * nseg); block (sequence b, head h, segment).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_segments_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, DecodeParams a, float* __restrict__ part_m,
-                       float* __restrict__ part_l, float* __restrict__ part_acc) {
-  __shared__ float qs[kMaxG * D];
-  __shared__ float sc[kMaxG * kSeg];
-  __shared__ float red[kThreads / D > 0 ? (kThreads / D) * kMaxG * D : kMaxG * D];
-  __shared__ float row_m[kMaxG], row_l[kMaxG];
+struct Chunk {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kKeys = kStageBytes / kRowBytes < 64 ? kStageBytes / kRowBytes : 64;
+  static constexpr int kPerWarp = kKeys / kWarps;
+  static constexpr int kCopies = kKeys * kRowBytes / 16;  // 16-byte copies per chunk
+};
 
-  const int64_t seg = blockIdx.x % a.nseg;
-  const int64_t bh = blockIdx.x / a.nseg;
+// Keys [first, first + kKeys) of one (b, h) into a stage; rows at or past
+// `n` keys from `first` are zero-filled, not read.
+template <typename T, int D>
+__device__ __forceinline__ void load_chunk(uint32_t dst, const T* __restrict__ base, int64_t stride,
+                                           int64_t first, int64_t n, int tid) {
+  constexpr int C = Chunk<T, D>::kRowBytes / 16;
+  for (int idx = tid; idx < Chunk<T, D>::kCopies; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    const bool in = r < n;
+    const T* row = base + (first + (in ? r : 0)) * stride;
+    cp_async16(dst + idx * 16, reinterpret_cast<const char*>(row) + c * 16, in);
+  }
+}
+
+// grid (B * KH * nsplit); block (b, h, split).  GP: G rounded up to 4, 8 or
+// 16.  A lane holds R query rows (R = 2 from GP = 8: each K or V element it
+// converts feeds two rows' fmas).
+template <typename T, int D, int GP>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    DecodeParams a, float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, T* __restrict__ out) {
+  using Ch = Chunk<T, D>;
+  constexpr int R = GP >= 8 ? 2 : 1;  // query rows a lane
+  constexpr int RG = GP / R;          // row groups a warp: lane group j holds rows j + r * RG
+  constexpr int LPR = 32 / RG;        // lanes a row group
+  constexpr int DPL = D / LPR;        // dims a lane
+  constexpr int kVec = (DPL * sizeof(T)) % 16 == 0 ? 16 / sizeof(T) : 8 / sizeof(T);
+  static_assert(DPL % kVec == 0 && GP * D * kWarps * 4 <= kBufBytes, "shapes");
+  static_assert(2 * kMaxSplits * GP * 4 <= kBufBytes, "the merge's m and l fit the buffer");
+  __shared__ __align__(16) unsigned char buf[kBufBytes];
+  __shared__ float red_m[kWarps][GP], red_l[kWarps][GP], red_w[kWarps][GP], row_l[GP];
+  __shared__ int s_last;
+
+  const int64_t split = blockIdx.x % a.nsplit;
+  const int64_t bh = blockIdx.x / a.nsplit;
   const int64_t b = bh / a.KH, h = bh % a.KH;
-  const int tid = threadIdx.x;
   const int G = static_cast<int>(a.G);
-  float* out_m = part_m + (bh * a.nseg + seg) * a.G;
-  float* out_l = part_l + (bh * a.nseg + seg) * a.G;
-  float* out_acc = part_acc + (bh * a.nseg + seg) * a.G * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane / LPR, sl = lane % LPR;
 
-  const int64_t len = live_length(a, b);
-  const int64_t t0 = seg * kSeg;
-  if (t0 >= len) {
-    for (int g = tid; g < G; g += kThreads) {
-      out_m[g] = -CUDART_INF_F;
-      out_l[g] = 0.f;
-    }
-    return;
+  int64_t len = a.lengths[b];
+  len = len < 0 ? 0 : (len > a.S ? a.S : len);
+  const int64_t lo = len * split / a.nsplit, hi = len * (split + 1) / a.nsplit;
+  const T* kbase = k + b * a.kb + h * a.kh + lo * a.ks;
+  const T* vbase = v + b * a.vb + h * a.vh + lo * a.vs;
+  const uint32_t s_buf = smem_u32(buf);
+
+  const int64_t n_keys = hi - lo;
+  const int64_t n_chunks = (n_keys + Ch::kKeys - 1) / Ch::kKeys;
+  // chunk c goes to stage c & 1; both stages are in flight from the start
+  for (int c = 0; c < 2 && c < n_chunks; ++c) {
+    const int64_t first = c * Ch::kKeys;
+    load_chunk<T, D>(s_buf + c * kStageBytes, kbase, a.ks, first, n_keys - first, tid);
+    load_chunk<T, D>(s_buf + (2 + c) * kStageBytes, vbase, a.vs, first, n_keys - first, tid);
+    cp_async_commit();
   }
-  const int64_t n_tok = len - t0 < kSeg ? len - t0 : kSeg;
-  const T* kbase = k + b * a.kb + h * a.kh + t0 * a.ks;
-  const T* vbase = v + b * a.vb + h * a.vh + t0 * a.vs;
 
-  for (int idx = tid; idx < G * D; idx += kThreads) qs[idx] = to_f32(q[bh * a.G * D + idx]);
-  __syncthreads();
+  float qr[R][DPL], acc[R][DPL], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int g = rg + r * RG;
+    if (g < G) {
+      load_vec<T, DPL>(q + (bh * a.G + g) * D + sl * DPL, qr[r]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < DPL; ++x) qr[r][x] = 0.f;
+    }
+#pragma unroll
+    for (int x = 0; x < DPL; ++x) acc[r][x] = 0.f;
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.f;
+  }
 
-  for (int t = tid; t < n_tok; t += kThreads) {
-    const T* krow = kbase + t * a.ks;
-    float s[kMaxG];
+  for (int64_t c = 0; c < n_chunks; ++c) {
+    const int st = static_cast<int>(c & 1);
+    if (c + 1 < n_chunks) cp_async_wait_one(); else cp_async_wait_all();  // chunk c has landed ...
+    __syncthreads();  // ... for every thread
+    const T* ks = reinterpret_cast<const T*>(buf + st * kStageBytes);
+    const T* vs = reinterpret_cast<const T*>(buf + (2 + st) * kStageBytes);
+    const int64_t left = n_keys - c * Ch::kKeys - warp * Ch::kPerWarp;  // this warp's keys
+    const int nk = left <= 0 ? 0 : (left < Ch::kPerWarp ? static_cast<int>(left) : Ch::kPerWarp);
+    const int j0 = warp * Ch::kPerWarp;
+
+    float sc[R][Ch::kPerWarp], mx[R];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float kd[8];
-      load8(krow + d0, kd);
+    for (int r = 0; r < R; ++r) mx[r] = m[r];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < Ch::kPerWarp; ++i) {
+      if (i < nk) {
+        const T* krow = ks + (j0 + i) * D + sl * DPL;
+        float d[R];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) s[g] = fmaf(qs[g * D + d0 + j], kd[j], s[g]);
+        for (int r = 0; r < R; ++r) d[r] = 0.f;
+#pragma unroll
+        for (int x0 = 0; x0 < DPL; x0 += kVec) {
+          float kv[kVec];
+          load_vec<T, kVec>(krow + x0, kv);
+#pragma unroll
+          for (int x = 0; x < kVec; ++x)
+#pragma unroll
+            for (int r = 0; r < R; ++r) d[r] = fmaf(qr[r][x0 + x], kv[x], d[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int o = LPR / 2; o >= 1; o >>= 1) d[r] += __shfl_xor_sync(0xffffffffu, d[r], o);
+          sc[r][i] = d[r] * a.scale;
+          mx[r] = fmaxf(mx[r], sc[r][i]);
+        }
       }
     }
+    if (nk > 0) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) sc[g * kSeg + t] = s[g] * a.scale;
+      for (int r = 0; r < R; ++r) {
+        const float alpha = expf(m[r] - mx[r]);  // m = -inf before the first key: 0
+        l[r] *= alpha;
+#pragma unroll
+        for (int x = 0; x < DPL; ++x) acc[r][x] *= alpha;
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < Ch::kPerWarp; ++i) {
+        if (i < nk) {
+          float p[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            p[r] = expf(sc[r][i] - m[r]);
+            l[r] += p[r];
+          }
+          const T* vrow = vs + (j0 + i) * D + sl * DPL;
+#pragma unroll
+          for (int x0 = 0; x0 < DPL; x0 += kVec) {
+            float vv[kVec];
+            load_vec<T, kVec>(vrow + x0, vv);
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+#pragma unroll
+              for (int r = 0; r < R; ++r) acc[r][x0 + x] = fmaf(p[r], vv[x], acc[r][x0 + x]);
+          }
+        }
+      }
+    }
+    if (c + 2 < n_chunks) {  // refill this stage with chunk c + 2
+      __syncthreads();
+      const int64_t first = (c + 2) * Ch::kKeys;
+      load_chunk<T, D>(s_buf + st * kStageBytes, kbase, a.ks, first, n_keys - first, tid);
+      load_chunk<T, D>(s_buf + (2 + st) * kStageBytes, vbase, a.vs, first, n_keys - first, tid);
+      cp_async_commit();
+    }
+  }
+
+  // the four warps' states → the block's, in warp order
+  __syncthreads();  // every warp is done with the ring: reuse it
+  float* wacc = reinterpret_cast<float*>(buf);  // [kWarps][GP][D]
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int g = rg + r * RG;
+    if (g < G) {
+#pragma unroll
+      for (int x = 0; x < DPL; ++x) wacc[(warp * GP + g) * D + sl * DPL + x] = acc[r][x];
+      if (sl == 0) {
+        red_m[warp][g] = m[r];
+        red_l[warp][g] = l[r];
+      }
+    }
   }
   __syncthreads();
-
-  // per-row max and sum over the segment: warp w takes rows w, w + 8, ...
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int g = warp; g < G; g += kThreads / 32) {
-    float mx = -CUDART_INF_F;
-    for (int t = lane; t < n_tok; t += 32) mx = fmaxf(mx, sc[g * kSeg + t]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int t = lane; t < n_tok; t += 32) {
-      const float pw = expf(sc[g * kSeg + t] - mx);
-      sc[g * kSeg + t] = pw;
-      sum += pw;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      row_m[g] = mx;
-      row_l[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // P V: thread (d, part r) sums keys r, r + R, ... for every row
-  constexpr int R = kThreads / D > 0 ? kThreads / D : 1;
-  const int d = tid % D, r = tid / D;
-  if (r < R) {
-    float acc[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-    for (int64_t t = r; t < n_tok; t += R) {
-      const float vd = to_f32(vbase[t * a.vs + d]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] = fmaf(sc[g * kSeg + t], vd, acc[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) red[(r * kMaxG + g) * D + d] = acc[g];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const int g = idx / D, dd = idx - g * D;
-    float sum = 0.f;
-    for (int rr = 0; rr < R; ++rr) sum += red[(rr * kMaxG + g) * D + dd];
-    out_acc[idx] = sum;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    out_m[g] = row_m[g];
-    out_l[g] = row_l[g];
-  }
-}
-
-// Pass 2: grid (B * KH); merge the nseg segment states in order.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                      const float* __restrict__ part_acc, T* __restrict__ out, int64_t G,
-                      int64_t nseg) {
-  const int64_t bh = blockIdx.x;
-  const float* pm = part_m + bh * nseg * G;
-  const float* pl = part_l + bh * nseg * G;
-  const float* pa = part_acc + bh * nseg * G * D;
-  for (int64_t idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int64_t g = idx / D;
+  const int64_t slot = bh * a.nsplit + split;
+  if (tid < G) {
     float M = -CUDART_INF_F;
-    for (int64_t i = 0; i < nseg; ++i) M = fmaxf(M, pm[i * G + g]);
-    float L = 0.f, A = 0.f;
-    if (M != -CUDART_INF_F) {
-      for (int64_t i = 0; i < nseg; ++i) {
-        const float mi = pm[i * G + g];
-        if (mi == -CUDART_INF_F) continue;
-        const float w = expf(mi - M);
-        L = fmaf(pl[i * G + g], w, L);
-        A = fmaf(pa[i * G * D + idx], w, A);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_m[w][tid]);
+    float Lb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = red_m[w][tid];
+      const float wt = mw == -CUDART_INF_F ? 0.f : expf(mw - M);
+      red_w[w][tid] = wt;
+      Lb = fmaf(red_l[w][tid], wt, Lb);
+    }
+    part_m[slot * a.G + tid] = M;  // -inf: no key in this split
+    part_l[slot * a.G + tid] = Lb;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += kThreads) {  // an empty split writes zeros
+    const int gg = e / D;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) A = fmaf(red_w[w][gg], wacc[w * GP * D + e], A);
+    part_acc[slot * a.G * D + e] = A;
+  }
+
+  // ticket: the last block of (b, h) merges the splits in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.tickets + bh, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* pm = part_m + bh * a.nsplit * a.G;
+  const float* pl = part_l + bh * a.nsplit * a.G;
+  const float* pa = part_acc + bh * a.nsplit * a.G * D;
+  float* wts = reinterpret_cast<float*>(buf);  // [GP][nsplit] states' m, then weights
+  float* ls = wts + kMaxSplits * GP;           // [GP][nsplit] states' l
+  const int ns = static_cast<int>(a.nsplit);
+  for (int e = tid; e < ns * G; e += kThreads) {
+    const int i = e / G, gg = e % G;
+    wts[gg * ns + i] = __ldcg(pm + e);
+    ls[gg * ns + i] = __ldcg(pl + e);
+  }
+  __syncthreads();
+  // warp w takes rows w, w + 4, ...; lane j the splits j, j + 32, ... (a
+  // fixed tree: the sums do not depend on timing)
+  for (int gg = warp; gg < G; gg += kWarps) {
+    float M = -CUDART_INF_F;
+    for (int i = lane; i < ns; i += 32) M = fmaxf(M, wts[gg * ns + i]);
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float Lt = 0.f;
+    for (int i = lane; i < ns; i += 32) {
+      const float mi = wts[gg * ns + i];
+      const float wt = mi == -CUDART_INF_F ? 0.f : expf(mi - M);  // 0: no key, or all -inf
+      wts[gg * ns + i] = wt;
+      Lt = fmaf(ls[gg * ns + i], wt, Lt);
+    }
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) Lt += __shfl_xor_sync(0xffffffffu, Lt, o);
+    if (lane == 0) row_l[gg] = fmaxf(Lt, 1e-30f);
+  }
+  __syncthreads();
+  // each thread sums 4 consecutive elements over the splits, in split order
+  constexpr int kE4 = (GP * D / 4 + kThreads - 1) / kThreads;
+  const int n4 = G * D / 4;
+  float4 A[kE4];
+#pragma unroll
+  for (int j = 0; j < kE4; ++j) A[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int i = 0; i < ns; ++i) {
+    const float4* pai = reinterpret_cast<const float4*>(pa + i * a.G * D);
+#pragma unroll
+    for (int j = 0; j < kE4; ++j) {
+      const int e4 = tid + j * kThreads;
+      if (e4 < n4) {
+        const float wt = wts[(e4 * 4 / D) * ns + i];
+        const float4 x = __ldcg(pai + e4);
+        A[j].x = fmaf(x.x, wt, A[j].x);
+        A[j].y = fmaf(x.y, wt, A[j].y);
+        A[j].z = fmaf(x.z, wt, A[j].z);
+        A[j].w = fmaf(x.w, wt, A[j].w);
       }
     }
-    from_f32(A / fmaxf(L, 1e-30f), out + bh * G * D + idx);
   }
+  T* ob = out + bh * a.G * D;
+#pragma unroll
+  for (int j = 0; j < kE4; ++j) {
+    const int e4 = tid + j * kThreads;
+    if (e4 < n4) {
+      const float den = row_l[e4 * 4 / D];
+      from_f32(A[j].x / den, ob + 4 * e4);
+      from_f32(A[j].y / den, ob + 4 * e4 + 1);
+      from_f32(A[j].z / den, ob + 4 * e4 + 2);
+      from_f32(A[j].w / den, ob + 4 * e4 + 3);
+    }
+  }
+  if (tid == 0) a.tickets[bh] = 0;
 }
 
-template <typename T, int D>
+template <typename T, int D, int GP>
 int launch(const void* q, const void* k, const void* v, const DecodeParams& a, float* pm,
            float* pl, float* pa, void* out, int64_t B, cudaStream_t s) {
-  const int64_t grid = B * a.KH * a.nseg;
+  const int64_t grid = B * a.KH * a.nsplit;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (grid > 0) {
-    decode_segments_kernel<T, D><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), a, pm, pl,
-        pa);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  decode_combine_kernel<T, D><<<static_cast<unsigned>(B * a.KH), kThreads, 0, s>>>(
-      pm, pl, pa, static_cast<T*>(out), a.G, a.nseg);
+  decode_split_kernel<T, D, GP><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), a, pm, pl, pa,
+      static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_g(const void* q, const void* k, const void* v, const DecodeParams& a, float* pm,
+             float* pl, float* pa, void* out, int64_t B, cudaStream_t s) {
+  if (a.G <= 4) return launch<T, D, 4>(q, k, v, a, pm, pl, pa, out, B, s);
+  if (a.G <= 8) return launch<T, D, 8>(q, k, v, a, pm, pl, pa, out, B, s);
+  return launch<T, D, 16>(q, k, v, a, pm, pl, pa, out, B, s);
 }
 
 template <typename T>
 int launch_d(int64_t D, const void* q, const void* k, const void* v, const DecodeParams& a,
              float* pm, float* pl, float* pa, void* out, int64_t B, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, a, pm, pl, pa, out, B, s);
-    case 64: return launch<T, 64>(q, k, v, a, pm, pl, pa, out, B, s);
-    case 128: return launch<T, 128>(q, k, v, a, pm, pl, pa, out, B, s);
+    case 32: return launch_g<T, 32>(q, k, v, a, pm, pl, pa, out, B, s);
+    case 64: return launch_g<T, 64>(q, k, v, a, pm, pl, pa, out, B, s);
+    case 128: return launch_g<T, 128>(q, k, v, a, pm, pl, pa, out, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" int64_t rt_decode_segments(int64_t S) { return S > 0 ? (S + kSeg - 1) / kSeg : 1; }
+extern "C" int rt_decode_max_splits() { return kMaxSplits; }
 
-// q, out: (B, KH, G, D) contiguous; k, v: strided (see above), 16-byte
-// aligned rows; lengths: (B,) int32.  part_m, part_l: B*KH*nseg*G f32
-// scratch, part_acc that times D, nseg = rt_decode_segments(S).  dtype:
-// 0 = f32, 1 = bf16.  G <= 16, D in {32, 64, 128}.
+// q, out: (B, KH, G, D) contiguous, 16-byte aligned; k, v: strided (see
+// above), 16-byte aligned rows; lengths: (B,) int32.  part_m, part_l:
+// B*KH*nsplit*G f32 scratch, part_acc that times D.  tickets: at least
+// B*KH int32, all 0 (the kernel leaves them 0).  dtype: 0 = f32, 1 = bf16.
+// G <= 16, D in {32, 64, 128}, 1 <= nsplit <= rt_decode_max_splits().
 extern "C" int rt_decode_attention(const void* q, const void* k, const void* v,
                                    const void* lengths, void* part_m, void* part_l,
-                                   void* part_acc, void* out, int dtype, int64_t B, int64_t KH,
-                                   int64_t G, int64_t D, int64_t S, int64_t kb, int64_t kh,
-                                   int64_t ks, int64_t vb, int64_t vh, int64_t vs, float scale,
-                                   void* stream) {
-  if (B < 0 || KH < 1 || G < 1 || G > kMaxG || S < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                   void* part_acc, void* tickets, void* out, int dtype, int64_t B,
+                                   int64_t KH, int64_t G, int64_t D, int64_t S, int64_t nsplit,
+                                   int64_t kb, int64_t kh, int64_t ks, int64_t vb, int64_t vh,
+                                   int64_t vs, float scale, void* stream) {
+  if (B < 0 || KH < 1 || G < 1 || G > kMaxG || S < 0 || nsplit < 1 || nsplit > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   DecodeParams a{};
   a.lengths = static_cast<const int*>(lengths);
-  a.S = S; a.KH = KH; a.G = G;
-  a.nseg = rt_decode_segments(S);
+  a.tickets = static_cast<int*>(tickets);
+  a.S = S; a.KH = KH; a.G = G; a.nsplit = nsplit;
   a.kb = kb; a.kh = kh; a.ks = ks;
   a.vb = vb; a.vh = vh; a.vs = vs;
   a.scale = scale;

@@ -13,27 +13,52 @@
 // contiguous.  The reference transposes the model's (B, S, H, D) tensors into
 // (B*H, S, D) copies; here the wrapper hands over strided views, so nothing
 // is copied on either side of the kernel.  Query head h of batch b reads KV
-// head h / group of batch b directly (no repeated K/V in memory).
+// head h / group of batch b directly (no repeated K/V in memory).  Causal
+// masks key > query row (absolute indices), as the reference.
 //
 // Bound on the card: operations for long sequences (4*S^2*D flops per head,
-// halved when causal, against S*D bytes per head).  This first version
-// computes in f32 on the CUDA cores — the reference computes in f32, and a
-// bf16 tensor-core product would round the probabilities — so it runs far
-// from the bf16 tensor-core peak; the tensor-core version is later work.
+// halved when causal, against S*D bytes per head), at the bf16 tensor-core
+// peak.
 //
-// Design: one block of 128 threads (4 warps) per (b, h, tile of 64 query
-// rows); each warp owns 16 rows.  KV tiles of 32 keys are staged in shared
-// memory as f32 (K rows padded to D+1 floats, so lane j reading key j is
+// bf16 and f16 inputs: the tensor-core kernel (flash_fwd_mma_kernel), the
+// FlashAttention-2 scheme on mma.sync.  One block of 4 warps takes 64 query
+// rows of one (b, h); each warp owns 16 rows and holds their Q fragments in
+// registers for the whole walk.  K and V stream in tiles of 64 keys through
+// a two-stage ring in shared memory, filled by 16-byte cp.async (a row past
+// Sq or Skv is zero-filled), laid out with an XOR swizzle of the 16-byte
+// chunks so that every ldmatrix phase hits eight distinct bank groups.
+// S = Q K^T is mma.m16n8k16 with f32 accumulators, B fragments by ldmatrix
+// from K; the online softmax runs on the accumulator fragment's own layout
+// (row max and row sum by two quad shuffles), in base 2 with the scale and
+// log2(e) folded into the scores; P is rounded to the input type in
+// registers (the C fragment of S is the A fragment of P V, no shared-memory
+// pass) and O += P V is mma.m16n8k16 with V's B fragments by ldmatrix.trans.
+// The denominator l sums the f32 probabilities before that rounding.  One
+// barrier per KV tile: after it, the next tile's copies are issued into the
+// stage the previous tile used, and overlap this tile's products.  Causal:
+// tiles wholly above the diagonal are never loaded, only tiles that cross
+// it (or the ragged end of Skv) are masked, and the block index is reversed
+// over query tiles so that the longest walks start first.  No atomics and
+// no split over keys: two launches on the same inputs are bitwise equal.
+// Needs 16-byte-aligned base pointers and position strides (the wrapper
+// checks and raises).  Shared memory (64 + 4 x 64) * D * 2 bytes, 80 KB at
+// D = 128.
+//
+// f32 inputs: the CUDA-core kernel (flash_fwd_kernel), exact f32 products.
+// One block of 128 threads (4 warps) per (b, h, tile of 64 query rows);
+// each warp owns 16 rows.  KV tiles of 32 keys are staged in shared memory
+// as f32 (K rows padded to D+1 floats, so lane j reading key j is
 // conflict-free); lane j scores key j against the warp's 16 rows, a warp
 // reduction gives each row's tile max and sum, and for the product with V
 // lane l accumulates dimensions l, l+32, ... of all 16 rows, taking each
 // probability from its owner lane by shuffle.  Causal blocks stop at the
-// diagonal (tiles fully above it are never loaded), masked scores are
-// -1e30 as in the reference, keys past Skv (a ragged last tile) are -inf,
-// and the output is acc / max(l, 1e-30).  Shared memory: the 64-row Q tile
-// plus one K and one V tile, 64.5 KB at D = 128 — above the 48 KB static
-// limit, so it is dynamic shared memory, raised once per instantiation with
-// cudaFuncSetAttribute.  All offsets are 64-bit.
+// diagonal, masked scores are -1e30 as in the reference, keys past Skv (a
+// ragged last tile) are -inf.  Shared memory: the 64-row Q tile plus one K
+// and one V tile, 64.5 KB at D = 128.
+//
+// Both write acc / max(l, 1e-30) in the input type; dynamic shared memory
+// above 48 KB is raised once per instantiation with cudaFuncSetAttribute.
+// All offsets are 64-bit.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math_constants.h>
@@ -54,7 +79,7 @@ struct FlashParams {
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
-  int64_t H, group, Sq, Skv, n_qtiles;
+  int64_t H, group, Sq, Skv, n_qtiles, BH;
   float scale;
   int causal;
 };
@@ -213,6 +238,280 @@ int launch(const void* q, const void* k, const void* v, void* o, const FlashPara
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16: the tensor-core kernel.
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 a warp
+constexpr int kBK = 64;           // keys per K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A tile of rows of D 2-byte elements in shared memory: row r's 16-byte
+// chunk c sits at chunk c ^ f(r), f(r) = (r >> kShift) & kMask, so the
+// eight rows an ldmatrix phase reads (eight consecutive rows from a
+// multiple of 8, one chunk each) land on eight distinct bank groups.
+template <int D>
+struct Tile {
+  static constexpr int kChunks = D / 8;
+  static constexpr int kShift = kChunks >= 8 ? 0 : (kChunks == 4 ? 1 : 2);
+  static constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  static constexpr uint32_t kQBytes = kBQ * D * 2;
+  static constexpr uint32_t kKVBytes = kBK * D * 2;
+  static constexpr size_t kSmem = kQBytes + 4 * static_cast<size_t>(kKVBytes);  // Q, K x2, V x2
+  __device__ static __forceinline__ uint32_t off(int row, int chunk) {
+    return static_cast<uint32_t>(row * (D * 2) + ((chunk ^ ((row >> kShift) & kMask)) << 4));
+  }
+};
+
+// Rows [row0, row0 + kRows) of a strided (rows, D) matrix into a swizzled
+// tile by cp.async, consecutive threads on consecutive 16 bytes of a row;
+// rows at or past `limit` are zero-filled.
+template <int D, int kRows, typename T>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* __restrict__ src, int64_t stride,
+                                          int64_t row0, int64_t limit, int tid) {
+  constexpr int C = D / 8;
+  static_assert(kRows * C % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int i = 0; i < kRows * C / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / C, c = idx % C;
+    const int64_t row = row0 + r;
+    const bool in = row < limit;
+    cp_async16(dst + Tile<D>::off(r, c), src + (in ? row * stride : 0) + c * 8, in);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), f32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                   uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma<__half>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to the input type, `lo` in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ o, FlashParams p) {
+  using L = Tile<D>;
+  constexpr int KS = D / 16;  // k-steps of Q K^T
+  constexpr int NT = D / 8;   // n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t s_q = smem_u32(smem_raw);
+  const uint32_t s_k = s_q + L::kQBytes;       // stage st at + st * kKVBytes
+  const uint32_t s_v = s_k + 2 * L::kKVBytes;
+
+  // the longest causal walks first: query tiles in reverse over blockIdx
+  const int64_t bh = blockIdx.x % p.BH;
+  const int64_t q0 = (p.n_qtiles - 1 - blockIdx.x / p.BH) * kBQ;
+  const int64_t b = bh / p.H, h = bh % p.H, kvh = h / p.group;
+  const T* qb = q + b * p.q_sb + h * p.q_sh;
+  const T* kb = k + b * p.k_sb + kvh * p.k_sh;
+  const T* vb = v + b * p.v_sb + kvh * p.v_sh;
+  T* ob = o + b * p.o_sb + h * p.o_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;  // fragment row group, column pair
+  const int64_t wrow = q0 + warp * 16;      // this warp's first row
+  const int64_t kv_end = (p.causal && q0 + kBQ < p.Skv) ? q0 + kBQ : p.Skv;
+  const int ntiles = static_cast<int>((kv_end + kBK - 1) / kBK);
+  const float sl = p.scale * kLog2e;
+
+  load_rows<D, kBQ>(s_q, qb, p.q_ss, q0, p.Sq, tid);
+  load_rows<D, kBK>(s_k, kb, p.k_ss, 0, p.Skv, tid);
+  load_rows<D, kBK>(s_v, vb, p.v_ss, 0, p.Skv, tid);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(qf[kk], s_q + L::off(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it > 0) {
+      cp_async_wait_all();  // tile it has landed ...
+      __syncthreads();      // ... for every thread, and tile it - 1 is consumed
+    }
+    if (it + 1 < ntiles) {
+      const int64_t kn = static_cast<int64_t>(it + 1) * kBK;
+      load_rows<D, kBK>(s_k + (st ^ 1) * L::kKVBytes, kb, p.k_ss, kn, p.Skv, tid);
+      load_rows<D, kBK>(s_v + (st ^ 1) * L::kKVBytes, vb, p.v_ss, kn, p.Skv, tid);
+      cp_async_commit();
+    }
+    const int64_t kt = static_cast<int64_t>(it) * kBK;
+    if (p.causal && kt > wrow + 15) continue;  // every key above this warp's rows
+    const uint32_t sk = s_k + st * L::kKVBytes, sv = s_v + st * L::kKVBytes;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, eight n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, sk + L::off(j * 8 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
+        mma<T>(s[j], qf[kk], bf[0], bf[1]);
+        mma<T>(s[j + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // base-2 scores; mask only a tile that crosses the diagonal or Skv
+    const bool edge = (p.causal && kt + kBK - 1 > wrow) || kt + kBK > p.Skv;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl;
+        if (edge) {
+          const int64_t key = kt + j * 8 + 2 * tq + (e & 1);
+          const int64_t row = wrow + gr + (e >> 1) * 8;
+          if (key >= p.Skv || (p.causal && key > row)) x = -CUDART_INF_F;
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax on the fragment: rows gr (e = 0, 1) and gr + 8 (e = 2, 3)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], base[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -CUDART_INF_F ? 0.f : mx[r];
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - base[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+    }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragments are S's C fragments, rounded to T
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                             pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                             pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, sv + L::off(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), n + (lane >> 4)));
+        mma<T>(acc[n], a, bf[0], bf[1]);
+        mma<T>(acc[n + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = wrow + gr + 8 * r;
+    if (row >= p.Sq) continue;
+    T* orow = ob + row * p.o_ss + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack2<T>(acc[n][2 * r] * l[r], acc[n][2 * r + 1] * l[r]);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, const FlashParams& p,
+           cudaStream_t stream) {
+  static bool attr_set = false;  // per instantiation
+  constexpr size_t smem = Tile<D>::kSmem;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const int64_t grid = p.BH * p.n_qtiles;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_fwd_mma_kernel<T, D><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// f32: the CUDA-core kernel; bf16 / f16: the tensor-core kernel.
 template <typename T>
 int launch_d(int64_t D, const void* q, const void* k, const void* v, void* o,
              const FlashParams& p, int64_t B, cudaStream_t s) {
@@ -225,11 +524,24 @@ int launch_d(int64_t D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T>
+int launch_tc(int64_t D, const void* q, const void* k, const void* v, void* o,
+              const FlashParams& p, cudaStream_t s) {
+  switch (D) {
+    case 16: return tc::launch<T, 16>(q, k, v, o, p, s);
+    case 32: return tc::launch<T, 32>(q, k, v, o, p, s);
+    case 64: return tc::launch<T, 64>(q, k, v, o, p, s);
+    case 128: return tc::launch<T, 128>(q, k, v, o, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (q, k, v and o alike).  strides: 12
 // element strides, (batch, head, position) for q, k, v, o in that order.
-// D must be 16, 32, 64 or 128; H a multiple of group.
+// D must be 16, 32, 64 or 128; H a multiple of group.  bf16 / f16: every
+// base pointer and position stride 16-byte aligned (the wrapper checks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int dtype, int64_t B, int64_t H, int64_t group, int64_t Sq,
                                   int64_t Skv, int64_t D, const int64_t* strides, float scale,
@@ -243,14 +555,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.H = H; p.group = group; p.Sq = Sq; p.Skv = Skv;
-  p.n_qtiles = (Sq + kBQ - 1) / kBQ;
+  p.BH = B * H;
+  const int64_t bq = dtype == 0 ? kBQ : tc::kBQ;  // query rows a block
+  p.n_qtiles = (Sq + bq - 1) / bq;
   p.scale = scale;
   p.causal = causal;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_d<float>(D, q, k, v, o, p, B, s);
-    case 1: return launch_d<__nv_bfloat16>(D, q, k, v, o, p, B, s);
-    case 2: return launch_d<__half>(D, q, k, v, o, p, B, s);
+    case 1: return launch_tc<__nv_bfloat16>(D, q, k, v, o, p, s);
+    case 2: return launch_tc<__half>(D, q, k, v, o, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,39 +4,77 @@
 Replaces ``repro/kernels/decode_attention/kernel.py::decode_attention_pallas``.
 K and V are read through their strides (the last one 1), so the op's
 head-major (B, KH, S, D) and the static cache's token-major (B, S, KH, D),
-viewed as (B, KH, S, D), both go in without a copy.  Two launches per call
-(segments, merge), counted as one.
+viewed as (B, KH, S, D), both go in without a copy.  One launch per call:
+each (sequence, head) is split into :func:`num_splits` blocks over its live
+keys, and the last block of each merges them.  The blocks take tickets from
+an int32 counter per (sequence, head) that the kernel leaves at 0; the
+counters live here, one buffer per device, zeroed once and grown with
+B·KH, so launches on one device must run in stream order.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, common
 
-__all__ = ["decode_attention_cuda", "DTYPES", "HEAD_DIMS", "MAX_GROUP"]
+__all__ = ["decode_attention_cuda", "num_splits", "DTYPES", "HEAD_DIMS", "MAX_GROUP",
+           "MAX_SPLITS", "SPLIT_KEYS", "TICKETS0"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
+MAX_SPLITS = 128  # the kernel's merge holds this many states (kMaxSplits)
+SPLIT_KEYS = 32  # no more splits than one per this many cache positions
+TICKETS0 = 64  # the counter buffer's first size, in (sequence, head) pairs
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
+_tickets: dict[torch.device, torch.Tensor] = {}
+# buffers replaced by a larger one stay alive: a captured CUDA graph may
+# still launch with them
+_retired: list[torch.Tensor] = []
 
 
+@functools.cache
 def _lib():
     lib = _build.library("decode_attention")
     lib.rt_decode_attention.argtypes = [
-        _c, _c, _c, _c, _c, _c, _c, _c, ctypes.c_int,  # q, k, v, lengths, scratch x3, out, dtype
-        _i64, _i64, _i64, _i64, _i64,  # B, KH, G, D, S
+        _c, _c, _c, _c,  # q, k, v, lengths
+        _c, _c, _c, _c, _c, ctypes.c_int,  # scratch m, l, acc, tickets, out, dtype
+        _i64, _i64, _i64, _i64, _i64, _i64,  # B, KH, G, D, S, nsplit
         _i64, _i64, _i64, _i64, _i64, _i64,  # k strides, v strides (batch, head, token)
         ctypes.c_float, _c,  # scale, stream
     ]
     lib.rt_decode_attention.restype = ctypes.c_int
-    lib.rt_decode_segments.argtypes = [_i64]
-    lib.rt_decode_segments.restype = _i64
+    if lib.rt_decode_max_splits() != MAX_SPLITS:
+        raise RuntimeError("decode_attention: the library's split limit differs from MAX_SPLITS")
     return lib
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def num_splits(S: int, bkh: int, sms: int) -> int:
+    """Blocks per (sequence, head): about two a SM over the ``bkh`` pairs,
+    at most one per ``SPLIT_KEYS`` cache positions and ``MAX_SPLITS``.
+    From shapes alone — the live lengths are never read on the host."""
+    return max(1, min(-(-2 * sms // max(bkh, 1)), -(-S // SPLIT_KEYS), MAX_SPLITS))
+
+
+def tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's counter buffer, at least ``n`` int32 zeros long."""
+    t = _tickets.get(dev)
+    if t is None or t.numel() < n:
+        if t is not None:
+            _retired.append(t)
+        size = max(n, TICKETS0, 2 * t.numel() if t is not None else 0)
+        t = _tickets[dev] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return t
 
 
 def decode_attention_cuda(
@@ -46,8 +84,10 @@ def decode_attention_cuda(
     lengths: torch.Tensor,  # (B,) int32
     *,
     sm_scale: float,
+    nsplit: int | None = None,
 ) -> torch.Tensor:
-    """Launch K14 → (B, KH, G, D) in ``q.dtype``."""
+    """Launch K14 → (B, KH, G, D) in ``q.dtype``.  ``nsplit`` (1 to
+    ``MAX_SPLITS``) overrides :func:`num_splits`."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda: tensors on {dev}, expected cuda")
@@ -60,6 +100,8 @@ def decode_attention_cuda(
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"decode_attention: group {G} not in 1..{MAX_GROUP}")
+    if q.data_ptr() % 16:
+        raise ValueError("decode_attention q: must be 16-byte aligned")
     esize = q.element_size()
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or t.dtype != q.dtype or tuple(t.shape) != (B, KH, S, D):
@@ -73,15 +115,19 @@ def decode_attention_cuda(
     if B == 0:
         return out
     lib = _lib()
-    nseg = lib.rt_decode_segments(S)
-    part = torch.empty((2 + D) * B * KH * nseg * G, dtype=torch.float32, device=dev)
-    n = B * KH * nseg * G
+    if nsplit is None:
+        nsplit = num_splits(S, B * KH, _sm_count(dev))
+    elif not 1 <= nsplit <= MAX_SPLITS:
+        raise ValueError(f"decode_attention: nsplit {nsplit} not in 1..{MAX_SPLITS}")
+    n = B * KH * nsplit * G
+    part = torch.empty((2 + D) * n, dtype=torch.float32, device=dev)
+    tix = tickets(dev, B * KH)
     with torch.cuda.device(dev):
         rc = lib.rt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, KH, G, D, S, *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale), common.stream_of(dev),
+            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(), tix.data_ptr(),
+            out.data_ptr(), DTYPES[q.dtype], B, KH, G, D, S, nsplit, *k.stride()[:3],
+            *v.stride()[:3], float(sm_scale), common.stream_of(dev),
         )
     common.check_status(rc, lib, "decode_attention")
     common.count_launch("decode_attention")

@@ -4,7 +4,12 @@
 
 The kernel takes (B, H, S, D) tensors by strides — any layout whose last
 dimension is contiguous — so the model's (B, S, H, D) activations go in and
-come out without a transpose copy.  The output is written in place.
+come out without a transpose copy.  The output is written in place.  bf16
+and f16 run on the tensor cores and move rows by 16-byte asynchronous
+copies, so there every base address and every batch, head and position
+stride (of a dimension longer than 1) must be a multiple of 16 bytes: the
+wrapper raises on a view that breaks it (every view the model makes is
+aligned).  f32 runs on the CUDA cores and takes any such view.
 """
 from __future__ import annotations
 
@@ -66,6 +71,10 @@ def flash_attention_cuda(
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention {name}: last dimension must be contiguous")
+        if q.dtype != torch.float32 and (t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(f"flash_attention {name}: {q.dtype} needs a 16-byte-aligned base "
+                             f"and batch/head/position strides (strides {t.stride()})")
     if B == 0 or Sq == 0:
         return out
     if Skv == 0:

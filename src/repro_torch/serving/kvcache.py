@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import indexing
+from repro_torch.device import resolve
 from repro_torch.kernels import common
 from repro_torch.models.attention import MASK_VALUE, SoftmaxState, softmax_update
 from repro_torch.obs import device as obs_device
@@ -113,15 +114,16 @@ def init_cache(
     *,
     stack: int | None = None,
     dtype: torch.dtype | None = None,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> Cache:
     """Empty cache slot sized for ``length_hint`` under ``policy``.
 
     ``stack``: leading periods dim (the layer stack).  ``dtype`` defaults to
-    ``cfg.dtype``.
+    ``cfg.dtype``.  ``device=None`` means the card (``device.resolve``).
     """
     from repro_torch.models.transformer import DTYPES
 
+    device = resolve(device)
     policy = cfg.cache_policy if policy is None else policy
     _check_policy(policy)
     if cfg.cache_quant:

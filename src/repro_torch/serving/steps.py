@@ -21,6 +21,7 @@ import contextlib
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
 from repro_torch.models.attention import inner_attention, project_out, project_qkv
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.modules import embed, rms_norm, unembed
@@ -148,9 +149,11 @@ def init_decode_caches(
     length_hint: int,
     *,
     policy: str | None = None,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> list:
-    """Empty period-stacked caches sized for a context of ``length_hint``."""
+    """Empty period-stacked caches sized for a context of ``length_hint``;
+    ``device=None`` means the card (``device.resolve``)."""
+    device = resolve(device)
     _check_stack(cfg)
     return [kvcache.init_cache(cfg, batch, length_hint, policy, stack=cfg.n_periods, device=device)
             for _ in cfg.layout]

@@ -114,3 +114,35 @@ def test_non_cpu_tensors_go_to_the_kernel_which_wants_cuda():
     with pytest.raises(ValueError, match="bk"):
         ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32), bk=0)
     assert kernel.HEAD_DIMS == (32, 64, 128) and kernel.MAX_GROUP == 16
+
+
+@pytest.mark.parametrize("S,bkh,sms,want", [
+    (6144, 8, 132, 33),  # the serving shape: about two blocks a SM
+    (2048, 10, 132, 27),
+    (100, 5, 132, 4),  # a short cache: one split per 32 positions
+    (0, 8, 132, 1),
+    (1 << 20, 1, 132, kernel.MAX_SPLITS),
+])
+def test_split_count_comes_from_shapes_alone(S, bkh, sms, want):
+    assert kernel.num_splits(S, bkh, sms) == want
+
+
+def test_splits_cover_each_live_key_once():
+    """Split i of a sequence of length n takes keys [n*i/ns, n*(i+1)/ns):
+    together they are 0..n-1 in order, and none is empty once n >= ns."""
+    for ns in (1, 2, 3, 7, 33, kernel.MAX_SPLITS):
+        for n in (0, 1, ns - 1, ns, ns + 1, 1000):
+            bounds = [(n * i // ns, n * (i + 1) // ns) for i in range(ns)]
+            assert [t for lo, hi in bounds for t in range(lo, hi)] == list(range(n))
+            if n >= ns:
+                assert all(hi > lo for lo, hi in bounds)
+
+
+def test_ticket_buffer_is_zeroed_once_and_grows():
+    dev = torch.device("cpu")  # the buffer logic is the same on every device
+    first = kernel.tickets(dev, 3)
+    assert first.numel() >= kernel.TICKETS0 and first.dtype == torch.int32
+    assert not first.any() and kernel.tickets(dev, kernel.TICKETS0) is first
+    grown = kernel.tickets(dev, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert kernel.tickets(dev, 1) is grown and any(t is first for t in kernel._retired)

@@ -99,7 +99,7 @@ def test_prefill_chunk_matches_reference(model):
     prompt = rng.integers(0, cfg.vocab_size, 70).astype(np.int32)
     maxp = 12
     rc = rsteps.init_decode_caches(rcfg, 2, maxp * 8, policy="paged")
-    pc = steps.init_decode_caches(cfg, 2, maxp * 8, policy="paged")
+    pc = steps.init_decode_caches(cfg, 2, maxp * 8, policy="paged", device="cpu")
     row = np.full((maxp,), -1, np.int32)
     row[:9] = rng.permutation(2 * maxp)[:9]
     t0 = 0

@@ -165,6 +165,31 @@ def test_baseline_entry_points_need_a_card_unless_asked_for_cpu():
     assert static_init(4, device="cpu").data.device.type == "cpu"
 
 
+
+@pytest.mark.parametrize("entry", ["init_cache", "init_decode_caches", "Engine", "BatchEngine"])
+def test_serving_entry_points_need_a_card_unless_asked_for_cpu(entry):
+    from repro_torch.configs import reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import kvcache, steps
+    from repro_torch.serving.engine import BatchEngine, Engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = reduced("qwen2.5-3b", cache_b0=8)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    def first(cache):  # a tensor of the cache slot
+        return next(iter(cache.values()))
+
+    make = {
+        "init_cache": lambda **kw: first(kvcache.init_cache(cfg, 2, 9, "ggarray", **kw)),
+        "init_decode_caches": lambda **kw: first(steps.init_decode_caches(cfg, 2, 9, **kw)[0]),
+        "Engine": lambda **kw: Engine(params, cfg, **kw),
+        "BatchEngine": lambda **kw: BatchEngine(params, cfg, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
+
 def test_cpu_slice4_paths_launch_no_kernel():
     from repro_torch.core import LFVector, static_init, static_push_back
     from repro_torch.kernels import common

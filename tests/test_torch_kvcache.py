@@ -70,7 +70,7 @@ def test_fill_append_attend_match_reference(policy, layout, impl):
     q = rng.standard_normal((B, 1, H, DH)).astype(np.float32)
     lengths = np.asarray([n, 6, 1], np.int32)
     theirs = rkv.init_cache(rcfg, B, n, policy, dtype=jnp.float32)
-    ours = kv.init_cache(cfg, B, n, policy, dtype=torch.float32)
+    ours = kv.init_cache(cfg, B, n, policy, dtype=torch.float32, device="cpu")
     _assert_same_state(ours, theirs)
     if layout == "extents":
         theirs, ours = _split_pools(theirs, (5, 7)), _split_pools(ours, (5, 7))
@@ -109,8 +109,9 @@ def test_grow_ggarray_matches_reference(levels):
     ks, vs = _kv(rng, 2, 9, cfg.n_kv_heads, cfg.head_dim)
     theirs = rkv.fill_from_prefill(rkv.init_cache(rcfg, 2, 9, "ggarray", dtype=jnp.float32),
                                    jnp.asarray(ks), jnp.asarray(vs))
-    ours = kv.fill_from_prefill(kv.init_cache(cfg, 2, 9, "ggarray", dtype=torch.float32),
-                                torch.from_numpy(ks), torch.from_numpy(vs))
+    ours = kv.fill_from_prefill(
+        kv.init_cache(cfg, 2, 9, "ggarray", dtype=torch.float32, device="cpu"),
+        torch.from_numpy(ks), torch.from_numpy(vs))
     before = dict(ours)
     theirs, ours = rkv.grow_ggarray(theirs, rcfg, levels), kv.grow_ggarray(ours, cfg, levels)
     _assert_same_state(ours, theirs)
@@ -123,9 +124,9 @@ def test_grow_ggarray_matches_reference(levels):
 def test_capacity_matches_reference(policy, hint):
     rcfg, cfg = _cfgs(cache_b0=4, cache_slab=3)
     assert kv.cache_capacity(cfg, policy, hint) == rkv.cache_capacity(rcfg, policy, hint)
-    assert kv.capacity_of(kv.init_cache(cfg, 2, hint, policy)) == rkv.capacity_of(
+    assert kv.capacity_of(kv.init_cache(cfg, 2, hint, policy, device="cpu")) == rkv.capacity_of(
         rkv.init_cache(rcfg, 2, hint, policy))
-    stacked = kv.init_cache(cfg, 2, hint, policy, stack=3)
+    stacked = kv.init_cache(cfg, 2, hint, policy, stack=3, device="cpu")
     rstacked = rkv.init_cache(rcfg, 2, hint, policy, stack=3)
     _assert_same_state(stacked, rstacked)
     view = kv.period_view(stacked, 1)
@@ -192,8 +193,8 @@ def test_unported_policies_raise_naming_the_roadmap(what):
     rcfg, cfg = _cfgs(cache_quant=what == "quant")
     if what == "quant":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kv.init_cache(cfg, 1, 4, "ggarray")
+            kv.init_cache(cfg, 1, 4, "ggarray", device="cpu")
         return
-    ours, theirs = kv.init_cache(cfg, 2, 11, what), rkv.init_cache(rcfg, 2, 11, what)
+    ours, theirs = kv.init_cache(cfg, 2, 11, what, device="cpu"), rkv.init_cache(rcfg, 2, 11, what)
     assert {k: tuple(v.shape) for k, v in ours.items()} == {k: v.shape for k, v in theirs.items()}
     assert kv.capacity_of(ours) == rkv.capacity_of(theirs) == kv.cache_capacity(cfg, what, 11)

@@ -63,7 +63,7 @@ def _filled_ggarray_pair(rcfg, cfg, dtype, B=2, steps=13, seed=0):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(seed)
     theirs = rkv.init_cache(rcfg, B, steps + 4, "ggarray", dtype=jdt)
-    ours = kv.init_cache(cfg, B, steps + 4, "ggarray", dtype=tdt)
+    ours = kv.init_cache(cfg, B, steps + 4, "ggarray", dtype=tdt, device="cpu")
     shp = (B, 1, cfg.n_kv_heads, cfg.head_dim)
     for t in range(steps):
         k = jnp.asarray(rng.standard_normal(shp), jdt)
@@ -143,8 +143,8 @@ def test_static_caches_init_fill_append_attend_match_reference(policy, hint):
     kf, vf = (rng.standard_normal(shp).astype(np.float32) for _ in range(2))
     theirs = rkv.fill_from_prefill(rkv.init_cache(rcfg, B, hint, policy), jnp.asarray(kf),
                                    jnp.asarray(vf))
-    ours = kv.fill_from_prefill(kv.init_cache(cfg, B, hint, policy), torch.from_numpy(kf),
-                                torch.from_numpy(vf))
+    ours = kv.fill_from_prefill(kv.init_cache(cfg, B, hint, policy, device="cpu"),
+                                torch.from_numpy(kf), torch.from_numpy(vf))
     _assert_same_cache(ours, theirs)
     assert kv.capacity_of(ours) == rkv.capacity_of(theirs)
     lengths = np.asarray([S, S - 1, 1], np.int32)
@@ -172,7 +172,7 @@ def _policies_over_trace(n, seed):
     split = int(rng.integers(0, n + 1))  # bulk prefill, then per-step appends
     outs = {}
     for policy in ("static", "semistatic", "ggarray", "paged"):
-        cache = kv.init_cache(cfg, B, max(n, 8), policy, dtype=torch.float32)
+        cache = kv.init_cache(cfg, B, max(n, 8), policy, dtype=torch.float32, device="cpu")
         kv.fill_from_prefill(cache, torch.from_numpy(ks[:, :split]), torch.from_numpy(vs[:, :split]))
         for t in range(split, n):
             kv.append(cache, torch.from_numpy(ks[:, t:t + 1]), torch.from_numpy(vs[:, t:t + 1]), t)
@@ -251,12 +251,12 @@ def test_engine_rejects_unknown_policies(model):
     with pytest.raises(ValueError, match="policy"):
         Engine(params, cfg, policy="bogus", device="cpu")
     with pytest.raises(ValueError, match="policy"):
-        kv.init_cache(cfg, 1, 4, "bogus")
+        kv.init_cache(cfg, 1, 4, "bogus", device="cpu")
 
 
 def test_cache_numpy_round_trip_carries_bf16():
     _, cfg = _cfgs(cache_b0=4)
-    c = kv.init_cache(cfg, 2, 9, "static", dtype=torch.bfloat16)
+    c = kv.init_cache(cfg, 2, 9, "static", dtype=torch.bfloat16, device="cpu")
     c["k"].normal_()
     back = convert.cache_from_numpy(convert.cache_to_numpy(c), "cpu")
     assert back["k"].dtype == torch.bfloat16 and torch.equal(back["k"], c["k"])

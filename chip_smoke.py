@@ -2,6 +2,7 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --prefill-ab PARENT   # K13 of another checkout against this one
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -16,13 +17,22 @@ Run from the root of the repository.  Phases, one JSON line each:
    doubling / tz extents, page -1, fuzzed owner tables) and at the main
    paths' shapes, with the kernel's, the plain version's and (where one
    exists) a library call's times and the bound (bytes, or bf16 flops for K13).
+   K13 also at the edges of its 64- and 128-row tiles (lengths 63, 65, 127,
+   129 and 1000; bf16, f16 and f32; causal and not; both layouts), with
+   Sq < Skv, two launches at the serving shape bitwise equal, and a bf16
+   view off the 16-byte grid refused; timed in a CUDA graph.
    K2 (tensor-core scan) bitwise on int32 masks and full-range int32, f32
    within rtol 1e-3 / atol 1e-4; K5a (dispatch) and K5b (combine) bitwise
    with unique positions, up to the freeze's 2.7e8 lanes (repeated
    positions: int32 bitwise, floats within 1e-5 / 2e-2); K14 (flash-decode)
    within 2 ulps (bf16) / 256 ulps (f32) of the output's largest magnitude,
    head-major and token-major, lengths 0, inside and at S, the dead tail,
-   and the serving shape.
+   lengths 1, nsplit - 1, nsplit and nsplit + 1, S below nsplit, B * KH past
+   the ticket buffer's first size, 20 CUDA-graph replays then an eager
+   launch bitwise equal to the one before them, and the serving shape.
+   ``--prefill-ab PARENT``: only K13 of the checkout at PARENT against this
+   one's, in turns (parent, change, change, parent): serve.engine's
+   prefill and K13 at the serving shape, then one profiled prefill.
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -1099,19 +1109,23 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     note("decode_attention", [(k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), clean)])
 
     # the split by the live length: lengths 0, 1, nsplit - 1, nsplit and
-    # nsplit + 1 keys, where nsplit comes from B * KH and the SM count (S
-    # 2048) or from a short S (100: fewer splits than the card's two blocks
-    # a SM would give); then B * KH = 80, past the ticket buffer's first
-    # size, so it grows
+    # nsplit + 1 keys (at most S), where nsplit comes from B * KH and the SM
+    # count (S 2048), from a short S (100: fewer splits than two blocks a SM
+    # would give), or is set above S (24 positions, 33 splits: most splits
+    # are empty) or to an odd count with G = 1 (an odd number of states);
+    # then B * KH = 80, past the ticket buffer's first size, so it grows
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for B, KH, G, S, D in ((5, 2, 8, 2048, 128), (5, 1, 4, 100, 64), (40, 2, 8, 256, 128)):
-        ns = k_da.num_splits(S, B * KH, sms)
+    for B, KH, G, S, D, ns in ((5, 2, 8, 2048, 128, None), (5, 1, 4, 100, 64, None),
+                               (5, 2, 8, 24, 128, 33), (5, 1, 1, 300, 64, 7),
+                               (40, 2, 8, 256, 128, None)):
+        ns = ns or k_da.num_splits(S, B * KH, sms)
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(dtype)
             k, v = kv_pair(B, KH, S, D, dtype, "bshd")
-            lens = torch.tensor(([0, 1, ns - 1, ns, ns + 1] * B)[:B], dtype=torch.int32, device=dev)
-            got = k_da.decode_attention_cuda(q, k, v, lens.clamp(max=S), sm_scale=D ** -0.5)
-            want = r_da.decode_attention(q, k, v, lens.clamp(max=S))
+            lens = torch.tensor(([0, 1, ns - 1, ns, ns + 1] * B)[:B], dtype=torch.int32,
+                                device=dev).clamp(max=S)
+            got = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5, nsplit=ns)
+            want = r_da.decode_attention(q, k, v, lens)
             close(res, "decode_attention", got, want, k14_tol(want), rtol=0.0)
         res["decode_attention"][f"nsplit_S{S}_BKH{B * KH}"] = ns
     tix = k_da.tickets(q.device, 0)
@@ -2450,7 +2464,8 @@ def prefill_ab(card: str, seed: int, parent: str) -> dict:
     so.parent.mkdir(parents=True, exist_ok=True)
     built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
                             str(csrc / "flash_attention.cu")], capture_output=True, text=True, timeout=600)
-    check(built.returncode == 0, f"--prefill-ab: the parent's K13 did not build:\n{built.stdout}{built.stderr}")
+    check(built.returncode == 0,
+          f"--prefill-ab: the parent's K13 did not build:\n{built.stdout}{built.stderr}")
     libs = {"parent": ctypes.CDLL(str(so)), "change": _build.library("flash_attention")}
     libs["parent"].rt_error_string.argtypes = [ctypes.c_int]
     libs["parent"].rt_error_string.restype = ctypes.c_char_p

@@ -414,7 +414,7 @@ extern "C" int rt_decode_max_splits() { return kMaxSplits; }
 
 // q, out: (B, KH, G, D) contiguous, 16-byte aligned; k, v: strided (see
 // above), 16-byte aligned rows; lengths: (B,) int32.  part_m, part_l:
-// B*KH*nsplit*G f32 scratch, part_acc that times D.  tickets: at least
+// B*KH*nsplit*G f32 scratch, part_acc that times D, 16-byte aligned.  tickets: at least
 // B*KH int32, all 0 (the kernel leaves them 0).  dtype: 0 = f32, 1 = bf16.
 // G <= 16, D in {32, 64, 128}, 1 <= nsplit <= rt_decode_max_splits().
 extern "C" int rt_decode_attention(const void* q, const void* k, const void* v,

@@ -49,6 +49,8 @@ def _lib():
         ctypes.c_float, _c,  # scale, stream
     ]
     lib.rt_decode_attention.restype = ctypes.c_int
+    lib.rt_decode_max_splits.argtypes = []
+    lib.rt_decode_max_splits.restype = ctypes.c_int
     if lib.rt_decode_max_splits() != MAX_SPLITS:
         raise RuntimeError("decode_attention: the library's split limit differs from MAX_SPLITS")
     return lib
@@ -120,14 +122,15 @@ def decode_attention_cuda(
     elif not 1 <= nsplit <= MAX_SPLITS:
         raise ValueError(f"decode_attention: nsplit {nsplit} not in 1..{MAX_SPLITS}")
     n = B * KH * nsplit * G
-    part = torch.empty((2 + D) * n, dtype=torch.float32, device=dev)
+    # the states' acc first: the merge reads it 16 bytes at a time
+    part = torch.empty((D + 2) * n, dtype=torch.float32, device=dev)
     tix = tickets(dev, B * KH)
     with torch.cuda.device(dev):
         rc = lib.rt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(), tix.data_ptr(),
-            out.data_ptr(), DTYPES[q.dtype], B, KH, G, D, S, nsplit, *k.stride()[:3],
-            *v.stride()[:3], float(sm_scale), common.stream_of(dev),
+            part[D * n:].data_ptr(), part[(D + 1) * n:].data_ptr(), part.data_ptr(),
+            tix.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B, KH, G, D, S, nsplit,
+            *k.stride()[:3], *v.stride()[:3], float(sm_scale), common.stream_of(dev),
         )
     common.check_status(rc, lib, "decode_attention")
     common.count_launch("decode_attention")

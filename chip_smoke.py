@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --prefill-ab PARENT   # K13 of another checkout against this one
+    python3 chip_smoke.py --ab PARENT [--kernel flash_attention]   # one kernel, two checkouts
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -27,12 +27,14 @@ Run from the root of the repository.  Phases, one JSON line each:
    positions: int32 bitwise, floats within 1e-5 / 2e-2); K14 (flash-decode)
    within 2 ulps (bf16) / 256 ulps (f32) of the output's largest magnitude,
    head-major and token-major, lengths 0, inside and at S, the dead tail,
-   lengths 1, nsplit - 1, nsplit and nsplit + 1, S below nsplit, B * KH past
-   the ticket buffer's first size, 20 CUDA-graph replays then an eager
-   launch bitwise equal to the one before them, and the serving shape.
-   ``--prefill-ab PARENT``: only K13 of the checkout at PARENT against this
-   one's, in turns (parent, change, change, parent): serve.engine's
-   prefill and K13 at the serving shape, then one profiled prefill.
+   lengths 1, nsplit - 1, nsplit and nsplit + 1 at odd and even split
+   counts, B * KH past the ticket buffer's first size, a launch that would
+   grow the buffer inside a CUDA-graph capture refused, 20 CUDA-graph
+   replays then an eager launch bitwise equal to the one before them, and
+   the serving shape.
+   ``--ab PARENT --kernel NAME``: only ``csrc/NAME.cu`` of the checkout at
+   PARENT against this one's, in turns (parent, change, change, parent):
+   serve.engine's prefill, timed and then profiled (device time by kernel).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -805,6 +807,10 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(13)
+    # cases added after the first timings draw from ``more``: the timed
+    # shapes below keep the inputs their earlier times were taken on
+    more = torch.Generator(device=DEV)
+    more.manual_seed(113)
 
     # K13: the reference test's shapes, a ragged length (100 = one tile of
     # its own), every head dim, both dtypes, causal and not, both layouts.
@@ -823,10 +829,10 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
         for dtype in (torch.float32, torch.bfloat16) + ((torch.float16,) if S in (65, 1000) else ()):
             for causal in (True, False):
                 for layout in ("bhsd", "bshd"):
-                    flash_case(res, gen, 1, 4, 2, S, S, D, dtype, causal, layout)
+                    flash_case(res, more, 1, 4, 2, S, S, D, dtype, causal, layout)
     for Sq, Skv, D in ((1, 200, 64), (65, 129, 128), (100, 1000, 32)):
         for dtype in (torch.float32, torch.bfloat16):
-            flash_case(res, gen, 2, 4, 1, Sq, Skv, D, dtype, False, "bshd")
+            flash_case(res, more, 2, 4, 1, Sq, Skv, D, dtype, False, "bshd")
     # the slice's shape: 4 prompts x 16 heads over 2 kv heads, 1792 tokens
     B, H, KH, S, D = SERVE_PROMPTS, 16, 2, SERVE_LEN, 128
     for causal in (False, True):
@@ -858,16 +864,16 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
     check(repeat == 0, f"flash_attention: two launches on the same inputs differ in {repeat} elements")
     qh, kh, vh = (x.reshape(-1, S, D) for x in (q, k, v))
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
-    # device time from CUDA-graph replays (cuda_ms of the wrapper and the
-    # library call's graph time are in the shape string)
+    # device times from CUDA-graph replays, the kernel's and SDPA's alike
+    # (each one call from Python is in the shape string)
     timing["flash_attention"] = dict(
         ms=graph_ms(k13, 10),
         plain_ms=cuda_ms(lambda: r_fa.attention(qh, kh, vh, group=H // KH, causal=True), 3),
-        library_ms=cuda_ms(sdpa, 10),
+        library_ms=graph_ms(sdpa, 10),
         bound=bound_ms(2 * (2 * B * H * S * D + 2 * B * KH * S * D), 4 * B * H * pairs * D, card,
                        PEAK_BF16_FLOPS),
-        shape=f"q ({B}, {S}, {H}, {D}) bf16 strided, kv heads {KH}, causal; CUDA-graph time; "
-              f"one call from Python {cuda_ms(k13, 10)} ms; SDPA in a CUDA graph {graph_ms(sdpa, 10)} ms",
+        shape=f"q ({B}, {S}, {H}, {D}) bf16 strided, kv heads {KH}, causal; CUDA-graph times; "
+              f"one call from Python {cuda_ms(k13, 10)} ms, SDPA's {cuda_ms(sdpa, 10)} ms",
     )
     del q, k, v, out, qh, kh, vh, first
 
@@ -975,6 +981,10 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     dev = torch.device(DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(14)
+    # cases added after the first timings draw from ``more``: the timed
+    # shapes below keep the inputs their earlier times were taken on
+    more = torch.Generator(device=DEV)
+    more.manual_seed(114)
 
     def note(name, pairs):
         r = res[name]
@@ -1083,11 +1093,11 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     # K14: the reference test's shapes, both dtypes, head-major and the
     # static cache's token-major layout; lengths 0, inside a block and at S;
     # the dead tail
-    def kv_pair(B, KH, S, D, dtype, layout):
+    def kv_pair(B, KH, S, D, dtype, layout, g=gen):
         if layout == "bshd":
-            return tuple(torch.randn((B, S, KH, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+            return tuple(torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype).transpose(1, 2)
                          for _ in range(2))
-        return tuple(torch.randn((B, KH, S, D), generator=gen, device=dev).to(dtype) for _ in range(2))
+        return tuple(torch.randn((B, KH, S, D), generator=g, device=dev).to(dtype) for _ in range(2))
 
     for B, H, KH, S, D in DECODE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1109,34 +1119,47 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     note("decode_attention", [(k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5), clean)])
 
     # the split by the live length: lengths 0, 1, nsplit - 1, nsplit and
-    # nsplit + 1 keys (at most S), where nsplit comes from B * KH and the SM
-    # count (S 2048), from a short S (100: fewer splits than two blocks a SM
-    # would give), or is set above S (24 positions, 33 splits: most splits
-    # are empty) or to an odd count with G = 1 (an odd number of states);
-    # then B * KH = 80, past the ticket buffer's first size, so it grows
+    # nsplit + 1 keys (at most S), nsplit from S, B * KH and the SM count:
+    # 27 (S 2048, an odd count), 21 with G = 1 (an odd number of states), 4
+    # from a short S (100: one split per 32 positions) and 1 (S 24); lengths
+    # below nsplit leave splits empty.  S is never below nsplit (at most one
+    # split per 32 positions).  Then B * KH = 80, past the ticket buffer's
+    # first size, so it grows.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for B, KH, G, S, D, ns in ((5, 2, 8, 2048, 128, None), (5, 1, 4, 100, 64, None),
-                               (5, 2, 8, 24, 128, 33), (5, 1, 1, 300, 64, 7),
-                               (40, 2, 8, 256, 128, None)):
-        ns = ns or k_da.num_splits(S, B * KH, sms)
+    for B, KH, G, S, D in ((5, 2, 8, 2048, 128), (13, 1, 1, 700, 64), (5, 1, 4, 100, 64),
+                           (5, 2, 8, 24, 128), (40, 2, 8, 256, 128)):
+        ns = k_da.num_splits(S, B * KH, sms)
         for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(dtype)
-            k, v = kv_pair(B, KH, S, D, dtype, "bshd")
+            q = torch.randn((B, KH, G, D), generator=more, device=dev).to(dtype)
+            k, v = kv_pair(B, KH, S, D, dtype, "bshd", more)
             lens = torch.tensor(([0, 1, ns - 1, ns, ns + 1] * B)[:B], dtype=torch.int32,
-                                device=dev).clamp(max=S)
-            got = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5, nsplit=ns)
+                                device=dev).clamp(min=0, max=S)
+            got = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
             want = r_da.decode_attention(q, k, v, lens)
             close(res, "decode_attention", got, want, k14_tol(want), rtol=0.0)
         res["decode_attention"][f"nsplit_S{S}_BKH{B * KH}"] = ns
     tix = k_da.tickets(q.device, 0)
     check(tix.numel() >= 80, f"decode_attention: the ticket buffer did not grow ({tix.numel()})")
     check(int(tix.count_nonzero().item()) == 0, "decode_attention: a ticket was left non-zero")
-    # 20 CUDA-graph replays, then an eager launch: bitwise equal to the
-    # eager launch before them (each launch leaves its tickets at 0)
-    B, KH, G, S, D = 4, 2, 8, 1024, 128
-    q = torch.randn((B, KH, G, D), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = kv_pair(B, KH, S, D, torch.bfloat16, "bshd")
-    lens = torch.tensor([1000, 17, 512, 1024], dtype=torch.int32, device=dev)
+    # a first launch at B * KH = 130 (3 splits), past the buffer's size, inside a
+    # CUDA-graph capture is refused (the zero fill would only be recorded);
+    # once an eager launch has grown the buffer, 20 replays of the captured
+    # launch and then an eager launch are bitwise equal to the eager launch
+    # before them (each launch leaves its tickets at 0)
+    B, KH, G, S, D = 65, 2, 8, 512, 128
+    check(k_da.tickets(dev, 0).numel() < B * KH, "decode_attention: the capture case needs no growth")
+    q = torch.randn((B, KH, G, D), generator=more, device=dev).to(torch.bfloat16)
+    k, v = kv_pair(B, KH, S, D, torch.bfloat16, "bshd", more)
+    lens = torch.randint(0, S + 1, (B,), generator=more, device=dev).to(torch.int32)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
+        refused = False
+    except RuntimeError as e:
+        refused = "before a CUDA-graph capture" in str(e)
+    check(refused, "decode_attention: the ticket buffer was made inside a CUDA-graph capture")
+    del graph
     fresh = k_da.decode_attention_cuda(q, k, v, lens, sm_scale=D ** -0.5)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2435,41 +2458,26 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
     return total
 
 
-PREFILL_AB_REPS = 5
-PREFILL_AB_ORDER = ("parent", "change", "change", "parent")
+AB_REPS = 5
+AB_ORDER = ("parent", "change", "change", "parent")
 
 
-def prefill_ab(card: str, seed: int, parent: str) -> dict:
-    """``--prefill-ab PARENT``: K13 of another checkout (``PARENT``'s
-    ``src/repro_torch/csrc/flash_attention.cu``, built beside this one's)
-    against this checkout's, in turns on one card (parent, change, change,
-    parent): serve.engine's prefill (the median of ``PREFILL_AB_REPS`` after
-    a warm-up) and K13 at the serving shape; then one prefill of this
-    checkout under ``torch.profiler``, device time by kernel.  Reports only:
-    no gate."""
-    import ctypes
-
+def kernel_ab(card: str, seed: int, parent: str, name: str) -> dict:
+    """``--ab PARENT --kernel NAME``: the library built from the checkout at
+    PARENT's ``src/repro_torch/csrc/NAME.cu`` (its C interface must be this
+    checkout's) against this checkout's, in turns on one card (parent,
+    change, change, parent): serve.engine's prefill, the median of
+    ``AB_REPS`` after a warm-up, then one prefill under ``torch.profiler``
+    with the device time by kernel.  Reports only: no gate."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as k_fa
     from repro_torch.serving import steps
 
-    csrc = Path(parent).resolve() / "src" / "repro_torch" / "csrc"
-    check((csrc / "flash_attention.cu").is_file(), f"--prefill-ab: no {csrc / 'flash_attention.cu'}")
-    so = _build.build_dir() / "parent" / "libflash_attention.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
-                            str(csrc / "flash_attention.cu")], capture_output=True, text=True, timeout=600)
-    check(built.returncode == 0,
-          f"--prefill-ab: the parent's K13 did not build:\n{built.stdout}{built.stderr}")
-    libs = {"parent": ctypes.CDLL(str(so)), "change": _build.library("flash_attention")}
-    libs["parent"].rt_error_string.argtypes = [ctypes.c_int]
-    libs["parent"].rt_error_string.restype = ctypes.c_char_p
-
+    libs = {"parent": _build.library(name, root=parent), "change": _build.library(name)}
     rng = np.random.default_rng(seed + 200)
     cfg, params = serve_model(seed)
     lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
@@ -2478,52 +2486,37 @@ def prefill_ab(card: str, seed: int, parent: str) -> dict:
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab_size, int(n))
     toks_d, lens_d = torch.from_numpy(toks).to(DEV), torch.from_numpy(lens.astype(np.int32)).to(DEV)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(seed + 13)
-    B, H, KH, S, D = SERVE_PROMPTS, 16, 2, SERVE_LEN, 128
-    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=DEV).to(torch.bfloat16).transpose(1, 2)
-               for n in (H, KH, KH))
-    out = torch.empty_like(q)
-
-    def k13():
-        return k_fa.flash_attention_cuda(q, k, v, out, group=H // KH, causal=True, sm_scale=D ** -0.5)
 
     def prefill():
-        return steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
-                             lengths=lens_d)
+        out = steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
+                            lengths=lens_d)
+        torch.cuda.synchronize()
+        return out[0]
 
     turns, logits = [], {}
-    for turn in PREFILL_AB_ORDER:
-        _build._loaded["flash_attention"] = libs[turn]
-        prefill()
-        times = []
-        for _ in range(PREFILL_AB_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg, caches = prefill()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            del caches
-        logits.setdefault(turn, lg.float())
-        turns.append({"kernel": turn, "prefill_s": sorted(times)[len(times) // 2], "prefill_s_all": times,
-                      "k13_graph_ms": graph_ms(k13, 10), "k13_cuda_ms": cuda_ms(k13, 10)})
-        emit({"phase": "prefill_ab", "card": card, **turns[-1]})
-    _build._loaded["flash_attention"] = libs["change"]
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])  # kernels only
-    total = sum(t for _, t, _ in kern)
-    line = {"phase": "prefill_ab.profile", "card": card, "wall_ms": wall_ms, "kernel_ms_total": total,
-            "device_idle_share": 1 - total / wall_ms,
-            "k13_device_ms": sum(t for n, t, _ in kern if "flash_fwd" in n),
-            "top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]],
-            "logits_rel_l2_change_vs_parent": rel_l2(logits["change"], logits["parent"], cfg.vocab_size)}
+    for turn in AB_ORDER:
+        with _build.use(name, libs[turn]):
+            prefill()
+            times = []
+            for _ in range(AB_REPS):
+                t0 = time.perf_counter()
+                logits.setdefault(turn, prefill().float())
+                times.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                prefill()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])  # kernels only
+        total = sum(t for _, t, _ in kern)
+        turns.append({"phase": "kernel_ab", "card": card, "kernel": name, "turn": turn,
+                      "prefill_s": sorted(times)[len(times) // 2], "prefill_s_all": times,
+                      "profiled_wall_ms": wall_ms, "kernel_ms_total": total,
+                      "device_idle_share": 1 - total / wall_ms,
+                      "top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]]})
+        emit(turns[-1])
+    line = {"phase": "kernel_ab.logits", "card": card, "kernel": name,
+            "rel_l2_change_vs_parent": rel_l2(logits["change"], logits["parent"], cfg.vocab_size)}
     emit(line)
     return {"turns": turns, **line}
 
@@ -2913,8 +2906,10 @@ def obs_serve_paths(card: str, cfg, params, engine_prompts, batch_prompts) -> di
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--prefill-ab", metavar="PARENT", default=None,
-                    help="only time the prefill with PARENT's K13 against this checkout's, in turns")
+    ap.add_argument("--ab", metavar="PARENT", default=None,
+                    help="only time serve.engine's prefill with PARENT's build of --kernel "
+                         "against this checkout's, in turns")
+    ap.add_argument("--kernel", default="flash_attention", help="the csrc/*.cu library --ab swaps")
     args = ap.parse_args()
 
     import torch
@@ -2948,8 +2943,8 @@ def main() -> int:
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln] for k, v in info["log"].items()}
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"], "ptxas": regs})
 
-    if args.prefill_ab:
-        prefill_ab(card, args.seed, args.prefill_ab)
+    if args.ab:
+        kernel_ab(card, args.seed, args.ab, args.kernel)
         return 0
 
     # 3. kernels against their plain versions

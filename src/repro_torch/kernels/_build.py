@@ -10,6 +10,7 @@ failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_all", "library", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "build_all", "library", "nvcc_path", "use"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -42,9 +43,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _key() -> str:
+def _key(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
@@ -52,6 +53,11 @@ def _key() -> str:
 
 def build_dir() -> Path:
     return BUILD_ROOT / _key()
+
+
+def _nvcc(nvcc: str, src: Path, dst: Path) -> subprocess.Popen:
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(src.parent), "-o", str(dst), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def build_all() -> dict:
@@ -69,9 +75,7 @@ def build_all() -> dict:
     procs = []
     for src in todo:
         tmp = out / f"lib{src.stem}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        procs.append((src, tmp, _nvcc(nvcc, src, tmp)))
     log, failed = {}, []
     for src, tmp, proc in procs:
         text, _ = proc.communicate()
@@ -86,15 +90,51 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "built": [s.stem for s in todo], "log": log}
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (builds all on first use)."""
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library(name: str, root: str | Path | None = None) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (builds all on first use).
+
+    With ``root``, the one built from another checkout's
+    ``<root>/src/repro_torch/csrc/<name>.cu`` (into ``build/repro_torch/
+    other/<key>/``), for timing two versions of a kernel in one process;
+    the wrappers launch it only inside :func:`use`.
+    """
+    if root is not None:
+        src = Path(root).resolve() / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+        if not src.is_file():
+            raise FileNotFoundError(f"no kernel source {src}")
+        path = BUILD_ROOT / "other" / _key(src.parent) / f"lib{name}.so"
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".so.{os.getpid()}.tmp")
+            proc = _nvcc(nvcc_path(), src, tmp)
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"CUDA kernel build failed:\n--- nvcc {src} ---\n{text}")
+            os.replace(tmp, path)
+        return _load(path)
     lib = _loaded.get(name)
     if lib is None:
         path = build_dir() / f"lib{name}.so"
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        lib = _loaded[name] = _load(path)
     return lib
+
+
+@contextlib.contextmanager
+def use(name: str, lib: ctypes.CDLL):
+    """Inside the block, the wrappers of ``name`` launch ``lib`` (which must
+    export this checkout's C interface for it)."""
+    old = library(name)
+    _loaded[name] = lib
+    try:
+        yield
+    finally:
+        _loaded[name] = old

@@ -9,7 +9,10 @@ each (sequence, head) is split into :func:`num_splits` blocks over its live
 keys, and the last block of each merges them.  The blocks take tickets from
 an int32 counter per (sequence, head) that the kernel leaves at 0; the
 counters live here, one buffer per device, zeroed once and grown with
-B·KH, so launches on one device must run in stream order.
+B·KH, so launches on one device must run in stream order.  The buffer
+cannot be made or grown inside a CUDA-graph capture (its zero fill would
+only be recorded): a launch that would do so raises, and one eager launch
+at the captured B·KH, or :func:`tickets`, before the capture makes it.
 """
 from __future__ import annotations
 
@@ -38,7 +41,6 @@ _tickets: dict[torch.device, torch.Tensor] = {}
 _retired: list[torch.Tensor] = []
 
 
-@functools.cache
 def _lib():
     lib = _build.library("decode_attention")
     lib.rt_decode_attention.argtypes = [
@@ -72,6 +74,10 @@ def tickets(dev: torch.device, n: int) -> torch.Tensor:
     """The device's counter buffer, at least ``n`` int32 zeros long."""
     t = _tickets.get(dev)
     if t is None or t.numel() < n:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"decode_attention: the ticket buffer must hold {n} counters before a CUDA-graph "
+                f"capture; launch once eagerly at this B*KH, or call tickets(device, {n}), first")
         if t is not None:
             _retired.append(t)
         size = max(n, TICKETS0, 2 * t.numel() if t is not None else 0)
@@ -86,10 +92,8 @@ def decode_attention_cuda(
     lengths: torch.Tensor,  # (B,) int32
     *,
     sm_scale: float,
-    nsplit: int | None = None,
 ) -> torch.Tensor:
-    """Launch K14 → (B, KH, G, D) in ``q.dtype``.  ``nsplit`` (1 to
-    ``MAX_SPLITS``) overrides :func:`num_splits`."""
+    """Launch K14 → (B, KH, G, D) in ``q.dtype``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda: tensors on {dev}, expected cuda")
@@ -113,18 +117,15 @@ def decode_attention_cuda(
             raise ValueError(f"decode_attention {name}: rows must be contiguous and 16-byte aligned")
     common.check_tensor(lengths, "decode_attention lengths", device=dev,
                         dtypes=(torch.int32,), shape=(B,))
-    out = torch.empty_like(q)
     if B == 0:
-        return out
+        return torch.empty_like(q)
+    tix = tickets(dev, B * KH)
+    out = torch.empty_like(q)
     lib = _lib()
-    if nsplit is None:
-        nsplit = num_splits(S, B * KH, _sm_count(dev))
-    elif not 1 <= nsplit <= MAX_SPLITS:
-        raise ValueError(f"decode_attention: nsplit {nsplit} not in 1..{MAX_SPLITS}")
+    nsplit = num_splits(S, B * KH, _sm_count(dev))
     n = B * KH * nsplit * G
     # the states' acc first: the merge reads it 16 bytes at a time
     part = torch.empty((D + 2) * n, dtype=torch.float32, device=dev)
-    tix = tickets(dev, B * KH)
     with torch.cuda.device(dev):
         rc = lib.rt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),

@@ -146,3 +146,13 @@ def test_ticket_buffer_is_zeroed_once_and_grows():
     grown = kernel.tickets(dev, first.numel() + 1)
     assert grown.numel() > first.numel() and not grown.any()
     assert kernel.tickets(dev, 1) is grown and any(t is first for t in kernel._retired)
+
+
+def test_ticket_buffer_is_not_made_inside_a_graph_capture(monkeypatch):
+    """Inside a CUDA-graph capture the zero fill would only be recorded, so
+    making or growing the buffer there raises before anything is allocated."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    dev = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="before a CUDA-graph capture"):
+        kernel.tickets(dev, 8)
+    assert dev not in kernel._tickets

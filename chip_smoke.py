@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --ab PARENT [--kernel flash_attention]   # one kernel, two checkouts
+    python3 chip_smoke.py --turns PARENT   # the paged kernels and BatchEngine, two checkouts
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -32,9 +33,30 @@ Run from the root of the repository.  Phases, one JSON line each:
    grow the buffer inside a CUDA-graph capture refused, 20 CUDA-graph
    replays then an eager launch bitwise equal to the one before them, and
    the serving shape.
+   K8/K9 also at the edges of the gather's plan (N·P pages no multiple of a
+   block's 512 pieces, a single page, 4-, 2- and 1-byte pieces, slabs that
+   straddle blocks, 4 MB slabs, page -1 and ids past the pool, flat and
+   extents), counted and uncounted, and counted as a grid of three blocks
+   walking the ranges, bitwise, with the counters ``ref.gather_counters``;
+   K8 and its ``index_select`` timed in CUDA-graph replays (one call from
+   Python beside them), and the same kernel as a persistent grid of eight
+   blocks a SM walking the ranges.
+   K10/K11 also at the edges of the split by the live length (lengths 0, 1,
+   nsplit - 1, nsplit, nsplit + 1, at a page's end, a hole straddling a
+   split boundary, ids past the pool clipped or skipped; G 1, 4, 8, 16; D
+   16, 32, 64, 128; f32, bf16 and f16 pools), counted and uncounted, the
+   counters ``ref.attend_counters``; B * KH past the ticket buffer's first
+   size, a launch that would grow its buffers inside a CUDA-graph capture
+   refused, 20 replays then an eager launch bitwise equal to the one
+   before them, the tickets left zero.
    ``--ab PARENT --kernel NAME``: only ``csrc/NAME.cu`` of the checkout at
    PARENT against this one's, in turns (parent, change, change, parent):
    serve.engine's prefill, timed and then profiled (device time by kernel).
+   ``--turns PARENT``: one process per turn, importing PARENT's package or
+   this one's, in turns (parent, change, change, parent): K8, K9 and the KV
+   view with and without counters beside ``index_select``, K10/K11 at the
+   serving shape in CUDA-graph replays with and without counters, and
+   BatchEngine's steady decode steps.
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -591,7 +613,10 @@ def paged_cases(card: str, payload, note, timing) -> None:
     del exts, flat, idx, owners, bases, pages
     torch.cuda.empty_cache()
 
-    # K8: the freeze's gather of the 1/8-size flat ("geometric") arena.
+    # K8: the freeze's gather of the 1/8-size flat ("geometric") arena.  Its
+    # device time and index_select's from CUDA-graph replays: a call from
+    # Python (in the shape string) adds the wrapper's host time to the first
+    # of its launches, a few per cent of this one.
     t8 = B0 // 8
     npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
     S = 2 * sum(npages)  # geometric growth leaves up to half the pool free
@@ -600,14 +625,27 @@ def paged_cases(card: str, payload, note, timing) -> None:
     gather_case((pool,), pages)
     n_live_pages = int((pages >= 0).sum().item())
     idx = pages.clamp(min=0).flatten().long()
+    # The same kernel as a grid of GATHER_WALK_BLOCKS blocks a SM, each
+    # walking the 8 KB ranges (a persistent grid), where the plan launches a
+    # block a range: held bitwise, timed beside it (kernel.kv line).
+    walk, walk_grid = gather_walk((pool,), pages, clip_high=True)
+    got = walk()
+    note("paged_gather", [(got, r_pg.gather_pages(pool[:, :, None], pages).reshape(got.shape))])
+    walk_ms = graph_ms(walk, 20)
     timing["paged_gather"] = dict(
-        ms=cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20),
+        ms=graph_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20),
         plain_ms=cuda_ms(lambda: r_pg.gather_pages(pool[:, :, None], pages), 5),
-        library_ms=cuda_ms(lambda: pool.index_select(0, idx), 20),
+        library_ms=graph_ms(lambda: pool.index_select(0, idx), 20),
         bound=bound_ms(n_live_pages * t8 * 4 + pages.numel() * 4 + pages.numel() * t8 * 4, 0, card),
-        shape=f"pages ({NBLOCKS}, {pages.shape[1]}), {n_live_pages} live, flat pool {S} x {t8} f32",
+        shape=f"pages ({NBLOCKS}, {pages.shape[1]}), {n_live_pages} live, flat pool {S} x {t8} f32; "
+              f"CUDA-graph times; one call from Python "
+              f"{cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20)} ms, "
+              f"index_select's {cuda_ms(lambda: pool.index_select(0, idx), 20)} ms",
+        extra={"walk_ms": walk_ms, "walk_grid": walk_grid,
+               "walk_shape": f"the same launch as {walk_grid} blocks ({GATHER_WALK_BLOCKS} a SM) "
+                             f"walking the ranges; CUDA-graph times"},
     )
-    del pool, pages, idx
+    del pool, pages, idx, walk
     torch.cuda.empty_cache()
 
     # KV-shaped: the prefill wave (K12 on one extent) and the logical view
@@ -645,6 +683,97 @@ def paged_cases(card: str, payload, note, timing) -> None:
               view_shape=f"pages ({KV_ARRAYS}, 16), {S} live, 2 extents, out {view_bytes} bytes")
     timing["slab_append"]["extra"] = kv
     del exts, wide, owners, bases, pages
+    torch.cuda.empty_cache()
+    gather_edge_cases(note)
+
+
+GATHER_WALK_BLOCKS = 8  # blocks a SM of the persistent K8 grid that the kernel phase times
+
+
+def gather_walk(extents, pages, *, clip_high: bool, grid: int | None = None, block=None):
+    """K8/K9's kernel launched as a grid of ``grid`` blocks (by default
+    GATHER_WALK_BLOCKS a SM; never more than the plan's ranges), each
+    walking the ranges of the plan, into one output allocated here, with
+    the counter block ``block`` or none → (a function that launches it and
+    returns the output, the grid).  Not through the wrapper: it counts no
+    launch."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.paged import kernel as k_pg
+
+    dev = pages.device
+    T, item = extents[0].shape[1], tuple(extents[0].shape[2:])
+    N, P = pages.shape
+    out = torch.empty((N, P * T, *item), dtype=extents[0].dtype, device=dev)
+    slab_bytes = out[0].numel() // P * out.element_size()
+    unit = common.copy_unit(slab_bytes, out, *extents)
+    grid = min(k_pg.gather_plan(N * P, slab_bytes, unit).grid,
+               grid or GATHER_WALK_BLOCKS * common.sm_count(dev))
+    table = common.extent_table(tuple(extents))
+    n_slabs = sum(e.shape[0] for e in extents)
+    lib = k_pg._lib()
+
+    def run():
+        rc = lib.rt_paged_gather(table.data_ptr(), len(extents), n_slabs, int(clip_high),
+                                 pages.data_ptr(), out.data_ptr(), N * P, slab_bytes, unit, grid,
+                                 block.data_ptr() if block is not None else None,
+                                 common.stream_of(dev))
+        common.check_status(rc, lib, "paged_gather (walk)")
+        return out
+
+    return run, grid
+
+
+def gather_edge_cases(note) -> None:
+    """K8/K9 at the edges of the gather's plan (``gather_plan``): N·P pages
+    no multiple of a block's 512 pieces, a single page, slabs of 20, 10 and
+    5 bytes (4-, 2- and 1-byte pieces), slabs that straddle blocks, 4 MB
+    slabs, page -1 and ids past the pool, flat and through extents.  Each
+    case launched without and with counters, and counted as a grid of three
+    blocks walking the ranges (``gather_walk``): every output bitwise the
+    plain version, the counters ``ref.gather_counters``."""
+    import torch
+
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.obs import device as obs_device
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(117)
+    for dtype, T, item, N, P in (
+            (torch.float32, 64, (), 7, 19),  # 16-piece slabs, 32 a block: 133 pages
+            (torch.float32, 1, (), 1, 1),  # a single page of one 4-byte piece
+            (torch.float32, 5, (), 9, 13),  # 20-byte slabs: 4-byte pieces
+            (torch.bfloat16, 5, (), 9, 13),  # 10 bytes: 2-byte pieces
+            (torch.uint8, 5, (), 9, 13),  # 5 bytes: 1-byte pieces
+            (torch.float32, 300, (8,), 5, 3),  # 9600 bytes: 600 pieces, pages straddle blocks
+            (torch.bfloat16, 2048, (8, 128), 1, 2),  # a 4 MB slab: 512 blocks
+            (torch.float32, 256, (), 300, 7)):  # 1 KB slabs, 2100 pages
+        for layout in ("flat", "doubling"):
+            sizes_e = _extent_sizes(N * P // 2 + 2, layout)
+            S = sum(sizes_e)
+            if dtype == torch.uint8:
+                flat = torch.randint(0, 256, (S, T, *item), generator=gen, device=dev, dtype=dtype)
+            else:
+                flat = torch.randn((S, T, *item), generator=gen, device=dev).to(dtype)
+            exts = _split(flat, sizes_e)
+            pages = torch.randint(-1, S, (N, P), generator=gen, device=dev, dtype=torch.int32)
+            pages.view(-1)[::7] = S + 3  # past the pool
+            clip = len(exts) == 1
+            got = k_pg.paged_gather_cuda(exts, pages, clip_high=clip)
+            counted, blk = k_pg.paged_gather_cuda(exts, pages, clip_high=clip, instrument=True)
+            f = tuple(e.reshape(e.shape[0], T, -1) for e in exts)
+            want = (r_pg.gather_pages(f[0], pages) if clip else r_pg.gather_pages_extents(f, pages))
+            want = want.reshape(got.shape)
+            wblk = obs_device.new_block(dev)
+            walked = gather_walk(exts, pages, clip_high=clip, grid=3, block=wblk)[0]()
+            counters = r_pg.gather_counters(pages, S, clip)
+            note("paged_gather" if clip else "paged_gather_extents",
+                 [(got, want), (counted, want), (obs_device.from_block(blk), counters),
+                  (walked, want), (obs_device.from_block(wblk), counters)])
+            del flat, exts, got, counted, walked
     torch.cuda.empty_cache()
 
 
@@ -918,7 +1047,9 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
             library_ms=graph_ms(library, 20),
             bound=bound_ms(live_bytes + small, 0, card),
             shape=f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
-                  f"pages ({Bq}, {P}), {sum(lengths)} live tokens; CUDA-graph times; one call "
+                  f"pages ({Bq}, {P}), {sum(lengths)} live tokens, nsplit "
+                  f"{k_pg.attend_splits(P, T, Bq * KH, torch.cuda.get_device_properties(0).multi_processor_count)}"
+                  f"; CUDA-graph times; one call "
                   f"from Python {cuda_ms(lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens), 20)} ms",
         )
         del kx, vx
@@ -946,6 +1077,114 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
               f"{cuda_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50)} ms",
     )
     del groups, elems, mask
+    torch.cuda.empty_cache()
+    attend_edge_cases(res)
+
+
+def attend_edge_cases(res: dict) -> None:
+    """K10/K11 at the edges of the split by the live length: lengths 0, 1,
+    nsplit - 1, nsplit, nsplit + 1, one at a page's end, and one with a -1
+    hole that straddles a split boundary and an id past the pool (clipped
+    through one flat pool, skipped through extents); G in {1, 4, 8, 16}, D
+    in {16, 32, 64, 128}, f32, bf16 and f16 pools.  Each launched without
+    and with counters: the output within ATTN_TOL["float32"] of the plain
+    version (fed the ids as the kernel resolves them), the counted output
+    bitwise the uncounted one, the counters ``ref.attend_counters``.  Then
+    B·KH past the ticket buffer's first size; a launch that would grow it
+    inside a CUDA-graph capture refused; 20 replays of a captured launch and
+    an eager launch after them bitwise equal to the eager launch before;
+    the tickets left zero."""
+    import torch
+
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.obs import device as obs_device
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(118)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def one(q, pk, pv, pages, lens, layout):
+        S, T, KH = pk.shape[:3]
+        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
+        if sum(sizes) > S:
+            sizes[-1] -= sum(sizes) - S
+        kx, vx = _split(pk, sizes), _split(pv, sizes)
+        clip = len(kx) == 1
+        name = "paged_attend" if clip else "paged_attend_extents"
+        got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+        counted, blk = k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=True)
+        resolved = pages.clamp(max=S - 1) if clip else torch.where(pages >= S, -1, pages)
+        want = r_pg.attend_paged(q, pk.permute(2, 0, 1, 3), pv.permute(2, 0, 1, 3), resolved, lens)
+        close(res, name, got, want, ATTN_TOL["float32"])
+        r = res[name]
+        for a, b in ((counted, got),
+                     (obs_device.from_block(blk), r_pg.attend_counters(pages, lens, T, KH, S, clip))):
+            r["mismatches"] += compare(a, b)[0]
+        r["edge_cases"] = r.get("edge_cases", 0) + 1
+        return kx, vx
+
+    T, P, KH = 64, 20, 2
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    for i, (D, G) in enumerate((d, g) for d in (16, 32, 64, 128) for g in (1, 4, 8, 16)):
+        ns = k_pg.attend_splits(P, T, 7 * KH, sms)
+        lengths = [0, 1, ns - 1, ns, ns + 1, 3 * T, 1000]
+        S = sum(-(-n // T) for n in lengths) + 2
+        q, pk, pv, pages, lens = attend_inputs(gen, len(lengths), KH, G, D, T, S, P, dtypes[i % 3], lengths)
+        pages[6, 1] = -1  # keys 64..127: the split boundaries 1000 i / ns fall inside
+        pages[6, 3] = S + 5  # past the pool
+        for layout in ("flat", "doubling"):
+            one(q, pk, pv, pages, lens, layout)
+    res["paged_attend"]["edge_nsplit"] = ns
+
+    # B * KH = 400, past the ticket buffer's first size (in counters, and so
+    # in (sequence, head) pairs)
+    B, G, D = 200, 8, 128
+    lengths = [int(x) for x in torch.randint(0, P * T + 1, (B,), generator=gen, device=dev).cpu()]
+    S = sum(-(-n // T) for n in lengths) + 1
+    q, pk, pv, pages, lens = attend_inputs(gen, B, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    one(q, pk, pv, pages, lens, "doubling")
+    tix = k_pg.attend_buffers(q.device, 0, 0)[0]
+    check(tix.numel() > k_pg.ATTEND_TICKETS0, f"paged_attend: the ticket buffer did not grow ({tix.numel()})")
+    check(int(tix.count_nonzero().item()) == 0, "paged_attend: a ticket was left non-zero")
+
+    # a first launch past the buffer's size inside a capture is refused; once
+    # an eager launch has grown it, replays match the eager launches
+    B = tix.numel() // KH + 1
+    lengths = [int(x) for x in torch.randint(0, P * T + 1, (B,), generator=gen, device=dev).cpu()]
+    S = sum(-(-n // T) for n in lengths) + 1
+    q, pk, pv, pages, lens = attend_inputs(gen, B, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    kx, vx = (pk,), (pv,)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+        refused = False
+    except RuntimeError as e:
+        refused = "before a CUDA-graph capture" in str(e)
+    check(refused, "paged_attend: its buffers were grown inside a CUDA-graph capture")
+    del graph
+    fresh = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+    for _ in range(20):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
+    r = res["paged_attend"]
+    for a, b in ((replayed, fresh), (after, fresh)):
+        r["mismatches"] += compare(a, b)[0]
+    check(int(k_pg.attend_buffers(q.device, 0, 0)[0].count_nonzero().item()) == 0,
+          "paged_attend: a ticket was left non-zero after the replays")
+    r["replay_cases"] = r.get("replay_cases", 0) + 1
+    del graph, replayed, after, fresh, q, pk, pv, pages, lens, kx, vx
     torch.cuda.empty_cache()
 
 
@@ -2521,6 +2760,139 @@ def kernel_ab(card: str, seed: int, parent: str, name: str) -> dict:
     return {"turns": turns, **line}
 
 
+AB_NEW = 16  # --turns: new tokens per BatchEngine request
+
+
+def paged_times(card: str, seed: int) -> dict:
+    """One turn of ``--turns``, timed with whichever checkout's
+    ``repro_torch`` is on the path: K8 at its timed shape (the 1/8-size flat
+    arena's freeze) beside ``index_select``, K9 at the main path's freeze
+    (doubling extents of 2048 f32) beside ``index_select``, the KV view (two
+    extents of (8, 128) bf16 items in 2048-token slabs), each without and
+    with counters in turns (plain, counted, counted, plain); K10/K11 at the
+    serving shape in CUDA-graph replays, likewise; then BatchEngine over
+    doubling extents (K11) on 8 requests of 512-4096 tokens: the steady
+    decode steps (CUDA events, no prompt pending)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import BatchEngine
+
+    t = {"phase": "paged_ab.turn", "card": card, **paged_kernel_times(seed)}
+    rng = np.random.default_rng(seed + 17)
+    cfg, params = serve_model(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(BATCH_MIN, BATCH_MAX + 1, BATCH_SLOTS)]
+    be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, grow_chunk="doubling", device=DEV)
+    for p in prompts:
+        be.submit(p, AB_NEW)
+    _, steady_ev, _ = drive_batch(be)
+    torch.cuda.synchronize()
+    steps = sorted(a.elapsed_time(b) for a, b in steady_ev)
+    t.update(batch_steps=len(steps), batch_step_ms_median=steps[len(steps) // 2], batch_step_ms=steps)
+    del be, params
+    torch.cuda.empty_cache()
+    return t
+
+
+def paged_kernel_times(seed: int) -> dict:
+    """The kernel times of :func:`paged_times`."""
+    import torch
+
+    from repro_torch.kernels.paged import kernel as k_pg
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 17)
+    t = {}
+
+    def pair(name, fn, timer, iters, shape):
+        t[name], t[name + "_counted"] = _halves(lambda: fn(False), lambda: fn(True), timer, iters)
+        t[name + "_shape"] = shape
+
+    t8 = B0 // 8
+    npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
+    S = 2 * sum(npages)
+    _, _, pages = _arena_tables(npages, S, t8, gen)
+    pool = torch.randn((S, t8), generator=gen, device=dev)
+    idx = pages.clamp(min=0).flatten().long()
+    pair("k8_ms", lambda c: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=c),
+         graph_ms, 20, f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32; CUDA-graph times")
+    t["k8_index_select_ms"] = graph_ms(lambda: pool.index_select(0, idx), 20)
+    t["k8_python_ms"] = cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20)
+    t["k8_index_select_python_ms"] = cuda_ms(lambda: pool.index_select(0, idx), 20)
+    del pool, pages, idx
+
+    npages = [-(-int(0.9 * B0 * (2 ** NWAVES - 1) + j) // B0) for j in range(0, 4 * NBLOCKS, 4)]
+    sizes_e = _extent_sizes(sum(npages), "doubling")
+    S = sum(sizes_e)
+    _, _, pages = _arena_tables(npages, S, B0, gen)
+    flat = torch.randn((S, B0), generator=gen, device=dev)
+    exts = _split(flat, sizes_e)
+    idx = pages.clamp(min=0).flatten().long()
+    pair("k9_ms", lambda c: k_pg.paged_gather_cuda(exts, pages, clip_high=False, instrument=c),
+         cuda_ms, 10, f"pages ({NBLOCKS}, {pages.shape[1]}) over {len(exts)} extents of {B0} f32")
+    t["k9_index_select_ms"] = cuda_ms(lambda: flat.index_select(0, idx), 10)
+    del flat, exts, pages, idx
+    torch.cuda.empty_cache()
+
+    lens = torch.randint(KV_MIN, KV_MAX + 1, (KV_ARRAYS,), generator=gen, device=dev)
+    npages = [-(-(int(n) + KV_DECODE) // B0) for n in lens.cpu().tolist()]
+    S = sum(npages)
+    _, _, pages = _arena_tables(npages, S, B0, gen)
+    wide = torch.full((KV_ARRAYS, 16), -1, dtype=torch.int32, device=dev)
+    wide[:, :pages.shape[1]] = pages
+    half = S // 2
+    exts = tuple(torch.randn((n, B0, *KV_ITEM), generator=gen, device=dev).to(torch.bfloat16)
+                 for n in (half, S - half))
+    pair("kv_view_ms", lambda c: k_pg.paged_gather_cuda(exts, wide, clip_high=False, instrument=c),
+         cuda_ms, 3, f"pages ({KV_ARRAYS}, 16), {S} live, 2 extents of {B0} x {KV_ITEM} bf16")
+    del exts, wide, pages
+    torch.cuda.empty_cache()
+
+    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
+    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
+                                             device=DEV).cpu()]
+    P = max(-(-n // T) for n in lengths)
+    S = sum(-(-n // T) for n in lengths)
+    q, pk, pv, pages, lens = attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    for layout, name in (("flat", "k10_ms"), ("doubling", "k11_ms")):
+        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
+        if sum(sizes) > S:
+            sizes[-1] -= sum(sizes) - S
+        kx, vx = _split(pk, sizes), _split(pv, sizes)
+        pair(name, lambda c: k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=c), graph_ms, 20,
+             f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
+             f"{sum(lengths)} live tokens; CUDA-graph times")
+        del kx, vx
+    del q, pk, pv, pages, lens
+    torch.cuda.empty_cache()
+    return t
+
+
+def paged_turns(card: str, seed: int, parent: str) -> None:
+    """``--turns PARENT``: :func:`paged_times` in one process per turn, from
+    the checkout at PARENT and from this one, in turns (parent, change,
+    change, parent), then each time's parent and change means and their
+    ratio.  Reports only: no gate."""
+    turns = []
+    for turn in AB_ORDER:
+        root = Path(parent).resolve() if turn == "parent" else ROOT
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--paged-times",
+                               str(root), "--seed", str(seed)], capture_output=True, text=True,
+                              timeout=900)
+        check(proc.returncode == 0, f"--turns: the {turn} turn failed:\n{proc.stderr[-3000:]}")
+        rec = {**json.loads(proc.stdout.strip().splitlines()[-1]), "turn": turn, "root": str(root)}
+        emit(rec)
+        turns.append(rec)
+    keys = [k for k, v in turns[0].items() if isinstance(v, float)]
+    mean = {w: {k: sum(r[k] for r in turns if r["turn"] == w) / 2 for k in keys}
+            for w in ("parent", "change")}
+    emit({"phase": "paged_ab", "card": card, "order": list(AB_ORDER), "parent": mean["parent"],
+          "change": mean["change"],
+          "change_over_parent": {k: mean["change"][k] / mean["parent"][k] for k in keys}})
+
+
 # --------------------------------------------------------------------------
 # Phase 7: the device counter plane (K15) — instrumented kernels, arena and
 # serving.
@@ -2682,8 +3054,8 @@ def obs_kernel_phase(card: str) -> dict:
     pool = torch.randn((S, t8), generator=gen, device=dev)
     k89((pool,), pages)
     timed("paged_gather", lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True),
-          lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=True), cuda_ms, 20,
-          f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32")
+          lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=True), graph_ms, 20,
+          f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32; CUDA-graph times")
     npages = [-(-int(0.9 * B0 * (2 ** NWAVES - 1) + j) // B0) for j in range(0, 4 * NBLOCKS, 4)]
     sizes_e = _extent_sizes(sum(npages), "doubling")
     S = sum(sizes_e)
@@ -2910,6 +3282,10 @@ def main() -> int:
                     help="only time serve.engine's prefill with PARENT's build of --kernel "
                          "against this checkout's, in turns")
     ap.add_argument("--kernel", default="flash_attention", help="the csrc/*.cu library --ab swaps")
+    ap.add_argument("--turns", metavar="PARENT", default=None,
+                    help="only time the paged kernels (K8, K9, K10/K11) and BatchEngine's decode "
+                         "steps with PARENT's package against this checkout's, in turns")
+    ap.add_argument("--paged-times", metavar="ROOT", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2917,7 +3293,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    src = (Path(args.paged_times).resolve() if args.paged_times else ROOT) / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found: run from a checkout", file=sys.stderr)
         return 2
@@ -2945,6 +3321,12 @@ def main() -> int:
 
     if args.ab:
         kernel_ab(card, args.seed, args.ab, args.kernel)
+        return 0
+    if args.turns:
+        paged_turns(card, args.seed, args.turns)
+        return 0
+    if args.paged_times:
+        emit(paged_times(card, args.seed))
         return 0
 
     # 3. kernels against their plain versions

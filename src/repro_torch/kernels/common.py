@@ -14,10 +14,15 @@ a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
   plain versions and ``core.ggarray``;
 * :func:`extent_table`, the device table through which the paged kernels
   (K8/K9, K10/K11, K12) address a pool of one or many extents — it replaces the
-  reference's per-extent operands and ``kernels/common.py::extent_row``.
+  reference's per-extent operands and ``kernels/common.py::extent_row``;
+* :func:`device_buffer`, the per-device scratch and ticket buffers of the
+  split decode kernels (K14, K10/K11), made once and grown, never inside a
+  CUDA-graph capture, and :func:`sm_count`, from which their split counts
+  and the paged gather's grid are sized.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -38,6 +43,8 @@ __all__ = [
     "to_device",
     "copy_unit",
     "extent_table",
+    "device_buffer",
+    "sm_count",
     "put_drop_",
     "scatter_levels_",
 ]
@@ -180,6 +187,36 @@ def extent_table(extents: tuple[torch.Tensor, ...]) -> torch.Tensor:
     while len(_extent_tables) > _EXTENT_TABLES_KEPT:
         _extent_tables.popitem(last=False)
     return table
+
+
+def device_buffer(store: dict, retired: list, dev: torch.device, n: int, dtype: torch.dtype, *,
+                  first: int, zero: bool, what: str) -> torch.Tensor:
+    """``store[dev]``, at least ``n`` elements of ``dtype`` long: made at
+    ``max(n, first)`` elements, then doubled (or grown to ``n``) when too
+    short, zero-filled where ``zero``.  A buffer it replaces goes to
+    ``retired`` and stays alive, because a captured CUDA graph may still
+    launch with it.  Inside a CUDA-graph capture making or growing one
+    raises (its zero fill would only be recorded, and the memory would
+    belong to the graph's pool): one eager launch at the captured shape
+    makes it first."""
+    t = store.get(dev)
+    if t is None or t.numel() < n:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{what}: the buffer must hold {n} elements before a CUDA-graph capture; launch "
+                f"once eagerly at this shape first")
+        if t is not None:
+            retired.append(t)
+        size = max(n, first, 2 * t.numel() if t is not None else 0)
+        make = torch.zeros if zero else torch.empty
+        t = store[dev] = make(size, dtype=dtype, device=dev)
+    return t
+
+
+@functools.cache
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def put_drop_(

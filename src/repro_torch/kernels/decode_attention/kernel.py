@@ -17,7 +17,6 @@ at the captured B·KH, or :func:`tickets`, before the capture makes it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -58,11 +57,6 @@ def _lib():
     return lib
 
 
-@functools.cache
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def num_splits(S: int, bkh: int, sms: int) -> int:
     """Blocks per (sequence, head): about two a SM over the ``bkh`` pairs,
     at most one per ``SPLIT_KEYS`` cache positions and ``MAX_SPLITS``.
@@ -72,17 +66,8 @@ def num_splits(S: int, bkh: int, sms: int) -> int:
 
 def tickets(dev: torch.device, n: int) -> torch.Tensor:
     """The device's counter buffer, at least ``n`` int32 zeros long."""
-    t = _tickets.get(dev)
-    if t is None or t.numel() < n:
-        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"decode_attention: the ticket buffer must hold {n} counters before a CUDA-graph "
-                f"capture; launch once eagerly at this B*KH, or call tickets(device, {n}), first")
-        if t is not None:
-            _retired.append(t)
-        size = max(n, TICKETS0, 2 * t.numel() if t is not None else 0)
-        t = _tickets[dev] = torch.zeros(size, dtype=torch.int32, device=dev)
-    return t
+    return common.device_buffer(_tickets, _retired, dev, n, torch.int32, first=TICKETS0, zero=True,
+                                what="decode_attention tickets")
 
 
 def decode_attention_cuda(
@@ -122,7 +107,7 @@ def decode_attention_cuda(
     tix = tickets(dev, B * KH)
     out = torch.empty_like(q)
     lib = _lib()
-    nsplit = num_splits(S, B * KH, _sm_count(dev))
+    nsplit = num_splits(S, B * KH, common.sm_count(dev))
     n = B * KH * nsplit * G
     # the states' acc first: the merge reads it 16 bytes at a time
     part = torch.empty((D + 2) * n, dtype=torch.float32, device=dev)

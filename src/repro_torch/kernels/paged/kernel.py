@@ -12,17 +12,27 @@ writes the extents in place — the counterpart of the reference's donated,
 aliased pool.  The gather and the attention take ``instrument=True``: they
 launch their counting instantiations (K15) and also return the ``(NSLOTS,)``
 int32 counter block (``obs/device.py``).
+
+The gather's plan (:func:`gather_plan`) and the attention's split count
+(:func:`attend_splits`) are computed here from shapes (and, for the split,
+the SM count), never from data.  The attention is one launch: its blocks
+merge through a scratch of partial states and ticket counters that live
+here, one of each per device, made once and grown, never inside a
+CUDA-graph capture (:func:`attend_buffers`), so launches on one device must
+run in stream order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, common
 from repro_torch.obs import device as obs_device
 
-__all__ = ["paged_gather_cuda", "slab_append_cuda", "paged_attend_cuda", "ATTEND_SEGMENT"]
+__all__ = ["paged_gather_cuda", "slab_append_cuda", "paged_attend_cuda", "gather_plan",
+           "attend_splits", "attend_buffers", "GatherPlan"]
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -31,32 +41,98 @@ _int = ctypes.c_int
 
 def _lib():
     lib = _build.library("paged")
-    lib.rt_paged_gather.argtypes = [_c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _c, _c]
+    if getattr(lib, "ready", False):  # argument types set once per library
+        return lib
+    lib.rt_paged_gather.argtypes = [
+        _c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _i64, _c, _c,  # .. unit, grid, ctr, stream
+    ]
     lib.rt_paged_gather.restype = _int
+    lib.rt_gather_block_pieces.argtypes, lib.rt_gather_block_pieces.restype = [], _int
+    if lib.rt_gather_block_pieces() != GATHER_BLOCK_PIECES:
+        raise RuntimeError("paged_gather: the library's block size differs from gather_plan's")
     lib.rt_slab_append.argtypes = [
         _c, _int, _i64, _c, _c, _c, _c, _c, _c, _c, _c,  # table .. new_sizes
         _i64, _i64, _i64, _i64, _int, _c,  # narrays, m, T, item_bytes, unit, stream
     ]
     lib.rt_slab_append.restype = _int
+    lib.ready = True
     return lib
 
 
 def _attend_lib():
     lib = _build.library("paged_attend")
+    if getattr(lib, "ready", False):  # argument types set once per library
+        return lib
     lib.rt_paged_attend.argtypes = [
         _c, _c, _int, _i64, _int, _c, _c, _c,  # ktable .. lengths
-        _c, _c, _c, _c, _int,  # part_m, part_l, part_acc, out, dtype
-        _i64, _i64, _i64, _i64, _i64, _i64, _i64, _c, _c,  # B, KH, G, D, P, T, seg, ctr, stream
+        _c, _c, _c, _int,  # part, tickets, out, dtype
+        _i64, _i64, _i64, _i64, _i64, _i64, _i64, _c, _c,  # B, KH, G, D, P, T, nsplit, ctr, stream
     ]
     lib.rt_paged_attend.restype = _int
+    for fn in (lib.rt_paged_attend_max_splits, lib.rt_paged_attend_group):
+        fn.argtypes, fn.restype = [], _int
+    if (lib.rt_paged_attend_max_splits(), lib.rt_paged_attend_group()) != (ATTEND_MAX_SPLITS,
+                                                                           ATTEND_GROUP):
+        raise RuntimeError("paged_attend: the library's split limit or group differs from this module's")
+    lib.ready = True
     return lib
 
 
-# Tokens per pass-1 block of the paged attention (csrc/paged_attend.cu).
-ATTEND_SEGMENT = 256
+# The gather's plan (csrc/paged.cu): one pass over the output, a block per
+# GATHER_BLOCK_PIECES pieces (256 threads, two pieces each).
+GATHER_BLOCK_PIECES = 512
+
+
+class GatherPlan(NamedTuple):
+    slab_units: int  # pieces per slab
+    pieces: int  # npages * slab_units
+    grid: int  # blocks: ceil(pieces / GATHER_BLOCK_PIECES)
+
+
+def gather_plan(npages: int, slab_bytes: int, unit: int) -> GatherPlan:
+    """The paged gather's plan for ``npages`` pages of ``slab_bytes`` copied
+    in ``unit``-byte pieces: block b copies pieces [512 b, 512 (b + 1)) of
+    the output, and the pages they touch are resolved once per block."""
+    slab_units = slab_bytes // unit
+    pieces = npages * slab_units
+    return GatherPlan(slab_units, pieces, -(-pieces // GATHER_BLOCK_PIECES))
+
+
 ATTEND_HEAD_DIMS = (16, 32, 64, 128)
 ATTEND_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ATTEND_MAX_GROUP = 16
+ATTEND_MAX_SPLITS = 128  # the kernel's merge holds this many states (kMaxSplits)
+ATTEND_GROUP = 8  # splits a first-level merge takes (kGroup)
+ATTEND_BLOCKS_PER_SM = 4  # blocks a SM in the wave (csrc/paged_attend.cu's kBlocksPerSm)
+ATTEND_SPLIT_KEYS = 32  # no more splits than one per this many positions
+ATTEND_TICKETS0 = 256  # the ticket buffer's first size, in counters
+ATTEND_PARTS0 = 1 << 18  # the partial-state scratch's first size, in floats (1 MB)
+_attend_tickets: dict[torch.device, torch.Tensor] = {}
+_attend_parts: dict[torch.device, torch.Tensor] = {}
+_attend_retired: list[torch.Tensor] = []  # replaced buffers a captured graph may still use
+
+
+def attend_splits(P: int, T: int, bkh: int, sms: int) -> int:
+    """Blocks per (sequence, head) of the paged attention: as many as fill
+    one wave of ATTEND_BLOCKS_PER_SM resident blocks a SM over the ``bkh``
+    pairs (a block's chain of loads, not the bytes, sets its time), at most
+    one per ATTEND_SPLIT_KEYS of the P·T positions a page table addresses
+    and ATTEND_MAX_SPLITS.  From shapes alone: lengths are never read."""
+    return max(1, min(ATTEND_BLOCKS_PER_SM * sms // max(bkh, 1), -(-(P * T) // ATTEND_SPLIT_KEYS),
+                      ATTEND_MAX_SPLITS))
+
+
+def attend_buffers(dev: torch.device, n_tickets: int, n_parts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's ticket buffer (at least ``n_tickets`` int32 zeros: per
+    (sequence, head) a counter per group of ATTEND_GROUP splits and a final
+    one) and partial-state scratch (at least ``n_parts`` f32: the splits'
+    and the groups' states), made once and grown, never inside a CUDA-graph
+    capture (``common.device_buffer``)."""
+    tickets = common.device_buffer(_attend_tickets, _attend_retired, dev, n_tickets, torch.int32,
+                                   first=ATTEND_TICKETS0, zero=True, what="paged_attend tickets")
+    parts = common.device_buffer(_attend_parts, _attend_retired, dev, n_parts, torch.float32,
+                                 first=ATTEND_PARTS0, zero=False, what="paged_attend scratch")
+    return tickets, parts
 
 
 def _check_extents(extents: tuple[torch.Tensor, ...], what: str) -> tuple[torch.device, int, tuple]:
@@ -107,12 +183,13 @@ def paged_gather_cuda(
     n_slabs = sum(e.shape[0] for e in extents)
     slab_bytes = T * _item_bytes(extents[0], item)
     unit = common.copy_unit(slab_bytes, out, *extents)
+    plan = gather_plan(N * P, slab_bytes, unit)
     table = common.extent_table(tuple(extents))
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.rt_paged_gather(
             table.data_ptr(), len(extents), n_slabs, int(clip_high), pages.data_ptr(),
-            out.data_ptr(), N * P, slab_bytes, unit,
+            out.data_ptr(), N * P, slab_bytes, unit, plan.grid,
             block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
     name = "paged_gather" if len(extents) == 1 else "paged_gather_extents"
@@ -184,15 +261,17 @@ def paged_attend_cuda(
     instrument: bool = False,
 ):
     """Launch K10 (one extent) or K11 (several) → ``(B, KH, G, D)`` f32, and
-    with ``instrument`` the counter block (pass 1 counts the reference's walk
-    over (B, KH, P): launch, visited and skipped tiles, score and masked lanes).
+    with ``instrument`` the counter block (the reference's walk over (B, KH,
+    P): launch, visited and skipped tiles, score and masked lanes).
 
     ``q``: ``(B, KH, G, D)`` f32, pre-scaled; ``k_extents``/``v_extents``:
     each ``(S_e, T, KH, D)``, the token-major slabs the cache holds, in global
-    slab-id order, none empty, the same geometry for k and v; ``pages``:
-    ``(B, P)`` int32 global slab ids; ``lengths``: ``(B,)`` int32.  Page −1
-    and pages at or past the length are skipped; ids past the pool read the
-    last slab of one flat pool and are skipped through extents.
+    slab-id order, none empty, the same geometry for k and v, 16-byte
+    aligned; ``pages``: ``(B, P)`` int32 global slab ids; ``lengths``:
+    ``(B,)`` int32.  Page −1 and keys at or past the length are left out;
+    ids past the pool read the last slab of one flat pool and are skipped
+    through extents.  One launch; beyond the output (and the counter block)
+    it allocates nothing once :func:`attend_buffers` holds this shape.
     """
     dev, T, item = _check_extents(k_extents, "paged_attend k")
     dev_v, T_v, item_v = _check_extents(v_extents, "paged_attend v")
@@ -222,16 +301,17 @@ def paged_attend_cuda(
                         f"{tuple(ATTEND_POOL_DTYPES)}")
     if any(e.shape[0] == 0 for e in k_extents):
         raise ValueError("paged_attend: empty extents must be dropped first")
+    if any(t.data_ptr() % 16 for t in (q, *k_extents, *v_extents)):
+        raise ValueError("paged_attend: q and every extent must be 16-byte aligned")
     P = pages.shape[1]
     out = torch.empty((B, KH, G, D), dtype=torch.float32, device=dev)
     block = obs_device.new_block(dev) if instrument else None
     if B == 0:
         return out if block is None else (out, block)
-    seg = min(T, ATTEND_SEGMENT)
-    nparts = P * (-(-T // seg))
-    part_m = torch.empty((B * KH * nparts * G,), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * KH * nparts * G * D,), dtype=torch.float32, device=dev)
+    nsplit = attend_splits(P, T, B * KH, common.sm_count(dev))
+    ngroups = -(-nsplit // ATTEND_GROUP)
+    tickets, part = attend_buffers(dev, B * KH * (ngroups + 1),
+                                   (D + 2) * B * KH * (nsplit + ngroups) * G)
     n_slabs = sum(e.shape[0] for e in k_extents)
     ktable = common.extent_table(tuple(k_extents))
     vtable = common.extent_table(tuple(v_extents))
@@ -240,9 +320,8 @@ def paged_attend_cuda(
         rc = lib.rt_paged_attend(
             ktable.data_ptr(), vtable.data_ptr(), len(k_extents), n_slabs,
             int(len(k_extents) == 1), q.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), dtype,
-            B, KH, G, D, P, T, seg, block.data_ptr() if block is not None else None,
-            common.stream_of(dev),
+            part.data_ptr(), tickets.data_ptr(), out.data_ptr(), dtype, B, KH, G, D, P, T, nsplit,
+            block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
     name = "paged_attend" if len(k_extents) == 1 else "paged_attend_extents"
     common.check_status(rc, lib, name)

@@ -2,8 +2,7 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --ab PARENT [--kernel flash_attention]   # one kernel, two checkouts
-    python3 chip_smoke.py --turns PARENT   # the paged kernels and BatchEngine, two checkouts
+    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch]   # two checkouts, in turns
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -12,8 +11,9 @@ Run from the root of the repository.  Phases, one JSON line each:
 3. kernels — K1 (row scan), K3 (push-back, one group and the KV cache's
    two), K6 (compaction), K7 (segmented gather), K8/K9 (paged gather, one
    extent / many) and K12 (slab append) against their plain PyTorch
-   versions, bitwise; K13 (flash prefill) and K10/K11 (paged decode
-   attention) within the reference tests' attention tolerances; at small
+   versions, bitwise; K13 (flash prefill) within the reference tests'
+   attention tolerances and K10/K11 (paged decode attention) within 1e-4
+   (``ATTEND_TOL``, abs + rel, every pool dtype); at small
    ragged shapes (three payload types, scalar and (8, 128) items, flat /
    doubling / tz extents, page -1, fuzzed owner tables) and at the main
    paths' shapes, with the kernel's, the plain version's and (where one
@@ -36,11 +36,9 @@ Run from the root of the repository.  Phases, one JSON line each:
    K8/K9 also at the edges of the gather's plan (N·P pages no multiple of a
    block's 512 pieces, a single page, 4-, 2- and 1-byte pieces, slabs that
    straddle blocks, 4 MB slabs, page -1 and ids past the pool, flat and
-   extents), counted and uncounted, and counted as a grid of three blocks
-   walking the ranges, bitwise, with the counters ``ref.gather_counters``;
-   K8 and its ``index_select`` timed in CUDA-graph replays (one call from
-   Python beside them), and the same kernel as a persistent grid of eight
-   blocks a SM walking the ranges.
+   extents), counted and uncounted, bitwise, with the counters
+   ``ref.gather_counters``; K8 and its ``index_select`` timed in CUDA-graph
+   replays (one call from Python beside them).
    K10/K11 also at the edges of the split by the live length (lengths 0, 1,
    nsplit - 1, nsplit, nsplit + 1, at a page's end, a hole straddling a
    split boundary, ids past the pool clipped or skipped; G 1, 4, 8, 16; D
@@ -49,14 +47,14 @@ Run from the root of the repository.  Phases, one JSON line each:
    size, a launch that would grow its buffers inside a CUDA-graph capture
    refused, 20 replays then an eager launch bitwise equal to the one
    before them, the tickets left zero.
-   ``--ab PARENT --kernel NAME``: only ``csrc/NAME.cu`` of the checkout at
-   PARENT against this one's, in turns (parent, change, change, parent):
-   serve.engine's prefill, timed and then profiled (device time by kernel).
-   ``--turns PARENT``: one process per turn, importing PARENT's package or
-   this one's, in turns (parent, change, change, parent): K8, K9 and the KV
-   view with and without counters beside ``index_select``, K10/K11 at the
-   serving shape in CUDA-graph replays with and without counters, and
-   BatchEngine's steady decode steps.
+   ``--ab PARENT``: one process per turn, importing the package of the
+   checkout at PARENT or this one's (each builds its own kernels), in turns
+   (parent, change, change, parent), timing what ``--what`` names:
+   ``prefill`` (serve.engine's prefill, then profiled: device time by
+   kernel), ``paged`` (K8, K9 and the KV view beside ``index_select``,
+   K10/K11 at the serving shape in CUDA-graph replays; each with and
+   without counters; the kernel phase's input builders) and ``batch``
+   (BatchEngine's steady decode steps).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -341,10 +339,7 @@ def kernel_phase(card: str, gen) -> dict:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         res[name]["cases"] += 1
 
-    def rand_payload(shape, dtype):
-        if dtype == torch.int32:
-            return torch.randint(-1000, 1000, shape, generator=gen, device=dev, dtype=dtype)
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    rand_payload = make_payload(gen)
 
     def levels_of(n, b0, nlev, dtype, item=()):
         return tuple(rand_payload((n, w, *item), dtype) for w in indexing.bucket_sizes(b0, nlev))
@@ -464,6 +459,19 @@ def kernel_phase(card: str, gen) -> dict:
     return res
 
 
+def make_payload(gen):
+    """→ payload(shape, dtype): random data drawn from ``gen`` (int32 in
+    [-1000, 1000), floats normal)."""
+    import torch
+
+    def payload(shape, dtype):
+        if dtype == torch.int32:
+            return torch.randint(-1000, 1000, shape, generator=gen, device=DEV, dtype=dtype)
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    return payload
+
+
 def _extent_sizes(S: int, layout: str) -> list:
     """Extent sizes covering at least ``S`` slabs: one flat extent, the
     doubling schedule from S/8, or the Tarjan-Zwick sequence."""
@@ -570,20 +578,10 @@ def paged_cases(card: str, payload, note, timing) -> None:
                             torch.ones((N, m), dtype=torch.bool, device=dev))
                 del exts
 
-    # Main-path shapes.  K12: the scalar arena's last grow wave (512 arrays,
-    # slabs of 2048, m = 2048 * 2^7 onto sizes where seven waves left them),
-    # the pool in doubling extents.  K9: the freeze's gather of that arena.
-    m_last = B0 << (NWAVES - 1)
-    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** (NWAVES - 1) - 1)), dtype=torch.int32, device=dev)
-    sizes += ints(-(B0 // 2), B0 // 2, (NBLOCKS,))
-    mask = torch.rand((NBLOCKS, m_last), generator=gen, device=dev) < 0.9
-    after = (sizes + mask.sum(1, dtype=torch.int32)).cpu().tolist()
-    npages = [-(-a // B0) for a in after]
-    sizes_e = _extent_sizes(sum(npages), "doubling")
-    S = sum(sizes_e)
-    owners, bases, pages = _arena_tables(npages, S, B0, gen)
-    exts = _split(payload((S, B0), torch.float32), sizes_e)
-    elems = payload((NBLOCKS, m_last), torch.float32)
+    # Main-path shapes.  K12: the scalar arena's last grow wave; K9: the
+    # freeze's gather of that arena (k12_inputs).
+    exts, owners, bases, sizes, elems, mask, pages = k12_inputs(gen, payload)
+    m_last, S = mask.shape[1], sum(e.shape[0] for e in exts)
     append_case(exts, owners, bases, sizes, elems, mask)
     live = int(mask.sum().item())
     flat = torch.cat(exts)
@@ -613,25 +611,14 @@ def paged_cases(card: str, payload, note, timing) -> None:
     del exts, flat, idx, owners, bases, pages
     torch.cuda.empty_cache()
 
-    # K8: the freeze's gather of the 1/8-size flat ("geometric") arena.  Its
-    # device time and index_select's from CUDA-graph replays: a call from
-    # Python (in the shape string) adds the wrapper's host time to the first
-    # of its launches, a few per cent of this one.
-    t8 = B0 // 8
-    npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
-    S = 2 * sum(npages)  # geometric growth leaves up to half the pool free
-    _, _, pages = _arena_tables(npages, S, t8, gen)
-    pool = payload((S, t8), torch.float32)
+    # K8 (k8_inputs).  Its device time and index_select's from CUDA-graph
+    # replays: a call from Python (in the shape string) adds the wrapper's
+    # host time to the first of its launches, a few per cent of this one.
+    pool, pages = k8_inputs(gen, payload)
+    S, t8 = pool.shape
     gather_case((pool,), pages)
     n_live_pages = int((pages >= 0).sum().item())
     idx = pages.clamp(min=0).flatten().long()
-    # The same kernel as a grid of GATHER_WALK_BLOCKS blocks a SM, each
-    # walking the 8 KB ranges (a persistent grid), where the plan launches a
-    # block a range: held bitwise, timed beside it (kernel.kv line).
-    walk, walk_grid = gather_walk((pool,), pages, clip_high=True)
-    got = walk()
-    note("paged_gather", [(got, r_pg.gather_pages(pool[:, :, None], pages).reshape(got.shape))])
-    walk_ms = graph_ms(walk, 20)
     timing["paged_gather"] = dict(
         ms=graph_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20),
         plain_ms=cuda_ms(lambda: r_pg.gather_pages(pool[:, :, None], pages), 5),
@@ -641,23 +628,14 @@ def paged_cases(card: str, payload, note, timing) -> None:
               f"CUDA-graph times; one call from Python "
               f"{cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20)} ms, "
               f"index_select's {cuda_ms(lambda: pool.index_select(0, idx), 20)} ms",
-        extra={"walk_ms": walk_ms, "walk_grid": walk_grid,
-               "walk_shape": f"the same launch as {walk_grid} blocks ({GATHER_WALK_BLOCKS} a SM) "
-                             f"walking the ranges; CUDA-graph times"},
     )
-    del pool, pages, idx, walk
+    del pool, pages, idx
     torch.cuda.empty_cache()
 
     # KV-shaped: the prefill wave (K12 on one extent) and the logical view
-    # after the decode steps (K9 over two extents), (8, 128) bf16 items.
-    lens = ints(KV_MIN, KV_MAX + 1, (KV_ARRAYS,))
-    mask = torch.arange(KV_MAX, device=dev)[None, :] < lens[:, None]
-    npages = [-(-(int(n) + KV_DECODE) // B0) for n in lens.cpu().tolist()]
-    S = sum(npages)
-    owners, bases, pages = _arena_tables(npages, S, B0, gen)
-    pool = torch.zeros((S, B0, *KV_ITEM), dtype=torch.bfloat16, device=dev)
-    elems = payload((KV_ARRAYS, KV_MAX, *KV_ITEM), torch.bfloat16)
-    zeros = torch.zeros((KV_ARRAYS,), dtype=torch.int32, device=dev)
+    # after the decode steps (K9 over two extents) (kv_inputs, kv_view).
+    pool, owners, bases, zeros, elems, mask, pages = kv_inputs(gen, payload)
+    S = pool.shape[0]
     append_case((pool,), owners, bases, zeros, elems, mask)
     item_bytes = 2 * KV_ITEM[0] * KV_ITEM[1]
     live = int(mask.sum().item())
@@ -669,11 +647,8 @@ def paged_cases(card: str, payload, note, timing) -> None:
     k_pg.slab_append_cuda((pool,), owners, bases, zeros, elems, mask)
     del elems, mask
     torch.cuda.empty_cache()
-    half = S // 2
-    exts = (pool[:half].clone(), pool[half:].clone())
+    exts, wide = kv_view(pool, pages)
     del pool
-    wide = torch.full((KV_ARRAYS, 16), -1, dtype=torch.int32, device=dev)
-    wide[:, :pages.shape[1]] = pages
     gather_case(exts, wide)
     view_bytes = wide.numel() * B0 * item_bytes
     kv.update(view_ms=cuda_ms(lambda: k_pg.paged_gather_cuda(exts, wide, clip_high=False), 3),
@@ -687,42 +662,67 @@ def paged_cases(card: str, payload, note, timing) -> None:
     gather_edge_cases(note)
 
 
-GATHER_WALK_BLOCKS = 8  # blocks a SM of the persistent K8 grid that the kernel phase times
-
-
-def gather_walk(extents, pages, *, clip_high: bool, grid: int | None = None, block=None):
-    """K8/K9's kernel launched as a grid of ``grid`` blocks (by default
-    GATHER_WALK_BLOCKS a SM; never more than the plan's ranges), each
-    walking the ranges of the plan, into one output allocated here, with
-    the counter block ``block`` or none → (a function that launches it and
-    returns the output, the grid).  Not through the wrapper: it counts no
-    launch."""
+def k12_inputs(gen, payload):
+    """K12's and K9's timed inputs: the scalar arena's last grow wave (512
+    arrays, slabs of 2048, m = 2048 * 2^7 onto sizes where seven waves left
+    them) over a pool in doubling extents, and the page table of the arena
+    after it (the freeze's gather) → (extents, owners, bases, sizes, elems,
+    mask, pages)."""
     import torch
 
-    from repro_torch.kernels import common
-    from repro_torch.kernels.paged import kernel as k_pg
+    m_last = B0 << (NWAVES - 1)
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** (NWAVES - 1) - 1)), dtype=torch.int32, device=DEV)
+    sizes += torch.randint(-(B0 // 2), B0 // 2, (NBLOCKS,), generator=gen, device=DEV, dtype=torch.int32)
+    mask = torch.rand((NBLOCKS, m_last), generator=gen, device=DEV) < 0.9
+    after = (sizes + mask.sum(1, dtype=torch.int32)).cpu().tolist()
+    npages = [-(-a // B0) for a in after]
+    sizes_e = _extent_sizes(sum(npages), "doubling")
+    S = sum(sizes_e)
+    owners, bases, pages = _arena_tables(npages, S, B0, gen)
+    exts = _split(payload((S, B0), torch.float32), sizes_e)
+    elems = payload((NBLOCKS, m_last), torch.float32)
+    return exts, owners, bases, sizes, elems, mask, pages
 
-    dev = pages.device
-    T, item = extents[0].shape[1], tuple(extents[0].shape[2:])
-    N, P = pages.shape
-    out = torch.empty((N, P * T, *item), dtype=extents[0].dtype, device=dev)
-    slab_bytes = out[0].numel() // P * out.element_size()
-    unit = common.copy_unit(slab_bytes, out, *extents)
-    grid = min(k_pg.gather_plan(N * P, slab_bytes, unit).grid,
-               grid or GATHER_WALK_BLOCKS * common.sm_count(dev))
-    table = common.extent_table(tuple(extents))
-    n_slabs = sum(e.shape[0] for e in extents)
-    lib = k_pg._lib()
 
-    def run():
-        rc = lib.rt_paged_gather(table.data_ptr(), len(extents), n_slabs, int(clip_high),
-                                 pages.data_ptr(), out.data_ptr(), N * P, slab_bytes, unit, grid,
-                                 block.data_ptr() if block is not None else None,
-                                 common.stream_of(dev))
-        common.check_status(rc, lib, "paged_gather (walk)")
-        return out
+def k8_inputs(gen, payload):
+    """K8's timed inputs: the freeze's gather of the 1/8-size flat
+    ("geometric") arena → (pool, pages)."""
+    import torch
 
-    return run, grid
+    t8 = B0 // 8
+    npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
+    S = 2 * sum(npages)  # geometric growth leaves up to half the pool free
+    _, _, pages = _arena_tables(npages, S, t8, gen)
+    return payload((S, t8), torch.float32), pages
+
+
+def kv_inputs(gen, payload):
+    """The KV-shaped arena's prefill wave: 64 arrays of (8, 128) bf16
+    items, ragged lengths, into a zeroed pool of 2048-token slabs with room
+    for the decode steps → (pool, owners, bases, sizes (zeros), elems,
+    mask, pages)."""
+    import torch
+
+    lens = torch.randint(KV_MIN, KV_MAX + 1, (KV_ARRAYS,), generator=gen, device=DEV, dtype=torch.int32)
+    mask = torch.arange(KV_MAX, device=DEV)[None, :] < lens[:, None]
+    npages = [-(-(int(n) + KV_DECODE) // B0) for n in lens.cpu().tolist()]
+    S = sum(npages)
+    owners, bases, pages = _arena_tables(npages, S, B0, gen)
+    pool = torch.zeros((S, B0, *KV_ITEM), dtype=torch.bfloat16, device=DEV)
+    elems = payload((KV_ARRAYS, KV_MAX, *KV_ITEM), torch.bfloat16)
+    zeros = torch.zeros((KV_ARRAYS,), dtype=torch.int32, device=DEV)
+    return pool, owners, bases, zeros, elems, mask, pages
+
+
+def kv_view(pool, pages):
+    """The logical view's inputs after the decode steps: the pool in two
+    extents and the page table widened to 16 pages → (extents, pages)."""
+    import torch
+
+    half = pool.shape[0] // 2
+    wide = torch.full((KV_ARRAYS, 16), -1, dtype=torch.int32, device=DEV)
+    wide[:, :pages.shape[1]] = pages
+    return (pool[:half].clone(), pool[half:].clone()), wide
 
 
 def gather_edge_cases(note) -> None:
@@ -730,9 +730,8 @@ def gather_edge_cases(note) -> None:
     no multiple of a block's 512 pieces, a single page, slabs of 20, 10 and
     5 bytes (4-, 2- and 1-byte pieces), slabs that straddle blocks, 4 MB
     slabs, page -1 and ids past the pool, flat and through extents.  Each
-    case launched without and with counters, and counted as a grid of three
-    blocks walking the ranges (``gather_walk``): every output bitwise the
-    plain version, the counters ``ref.gather_counters``."""
+    case launched without and with counters: every output bitwise the plain
+    version, the counters ``ref.gather_counters``."""
     import torch
 
     from repro_torch.kernels.paged import kernel as k_pg
@@ -767,13 +766,10 @@ def gather_edge_cases(note) -> None:
             f = tuple(e.reshape(e.shape[0], T, -1) for e in exts)
             want = (r_pg.gather_pages(f[0], pages) if clip else r_pg.gather_pages_extents(f, pages))
             want = want.reshape(got.shape)
-            wblk = obs_device.new_block(dev)
-            walked = gather_walk(exts, pages, clip_high=clip, grid=3, block=wblk)[0]()
             counters = r_pg.gather_counters(pages, S, clip)
             note("paged_gather" if clip else "paged_gather_extents",
-                 [(got, want), (counted, want), (obs_device.from_block(blk), counters),
-                  (walked, want), (obs_device.from_block(wblk), counters)])
-            del flat, exts, got, counted, walked
+                 [(got, want), (counted, want), (obs_device.from_block(blk), counters)])
+            del flat, exts, got, counted
     torch.cuda.empty_cache()
 
 
@@ -781,6 +777,12 @@ def gather_edge_cases(note) -> None:
 # (tests/kernels/test_attention_kernels.py): rtol = atol = 2e-3 in f32,
 # test_flash_dtypes' 2e-2 in bf16.
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+# K10/K11 against their plain version, every pool dtype, abs + rel: the f32
+# walk and the tensor-core walk (q and P in hi + lo 16-bit halves) measured
+# within 1e-5 on the H100, a tensor-core walk without the lo halves 4e-3
+# (tools/paged_attend_variants.py, PERF.md), which ATTN_TOL["float32"]
+# passes in most cases.
+ATTEND_TOL = 1e-4
 # K14 against its plain version: both accumulate in f32 and differ only in
 # summation order (the plain f32 version alone is up to 13 f32 ulps of
 # max|out| off a float64 one at these shapes) and in the last rounding to
@@ -869,22 +871,41 @@ def attend_inputs(gen, B, KH, G, D, T, S, P, dtype, lengths):
     return q, pool_k, pool_v, pages.to(DEV), lens
 
 
+def serving_attend_inputs(gen):
+    """K10/K11's timed inputs: q (8, 2, 8, 128) f32 over 2048-token bf16
+    slabs, the lengths of BatchEngine's requests mid-decode → (q, k pool,
+    v pool, pages, lengths tensor, lengths)."""
+    import torch
+
+    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
+    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
+                                             device=DEV).cpu()]
+    P = max(-(-n // T) for n in lengths)
+    S = sum(-(-n // T) for n in lengths)
+    return (*attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths), lengths)
+
+
+def pool_extents(pool_k, pool_v, layout):
+    """The K and V pools cut into the extents of ``layout`` (trimmed to the
+    pool's slabs) → (k extents, v extents)."""
+    S = pool_k.shape[0]
+    sizes = _extent_sizes(S, layout)
+    if sum(sizes) > S:
+        sizes[-1] -= sum(sizes) - S
+    sizes = [n for n in sizes if n > 0]
+    return _split(pool_k, sizes), _split(pool_v, sizes)
+
+
 def attend_case(res, q, pool_k, pool_v, pages, lens, layout):
     """K10 (flat) or K11 (extents) against ``ref.attend_paged`` on the
     reference's head-major view of the same pool."""
     from repro_torch.kernels.paged import kernel as k_pg
     from repro_torch.kernels.paged import ref as r_pg
 
-    S = pool_k.shape[0]
-    sizes = _extent_sizes(S, layout)
-    if sum(sizes) > S:
-        sizes[-1] -= sum(sizes) - S
-    sizes = [n for n in sizes if n > 0]
-    kx, vx = _split(pool_k, sizes), _split(pool_v, sizes)
+    kx, vx = pool_extents(pool_k, pool_v, layout)
     got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
     want = r_pg.attend_paged(q, pool_k.permute(2, 0, 1, 3), pool_v.permute(2, 0, 1, 3), pages, lens)
-    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want,
-          ATTN_TOL["float32"])
+    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want, ATTEND_TOL)
     return kx, vx
 
 
@@ -1016,14 +1037,10 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
             q, pk, pv, pages, lens = attend_inputs(gen, len(lengths), KH, G, D, T, S, P, dtype, lengths)
             pages[4, 1] = -1  # an unclaimed hole inside a live sequence
             attend_case(res, q, pk, pv, pages, lens, layout)
-    # the serving shape: q (8, 2, 8, 128) f32 over 2048-token bf16 slabs,
-    # lengths of BatchEngine's requests mid-decode
-    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
-    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
-                                             device=DEV).cpu()]
-    P = max(-(-n // T) for n in lengths)
-    S = sum(-(-n // T) for n in lengths)
-    q, pk, pv, pages, lens = attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths)
+    # the serving shape (serving_attend_inputs)
+    q, pk, pv, pages, lens, lengths = serving_attend_inputs(gen)
+    Bq, KH, G, D = q.shape
+    P, T = pages.shape[1], pk.shape[1]
     live_bytes = 2 * sum(lengths) * KH * D * 2
     small = q.numel() * 4 * 2 + pages.numel() * 4 + Bq * 4
     idx = pages.clamp(min=0).flatten().long()
@@ -1087,7 +1104,7 @@ def attend_edge_cases(res: dict) -> None:
     hole that straddles a split boundary and an id past the pool (clipped
     through one flat pool, skipped through extents); G in {1, 4, 8, 16}, D
     in {16, 32, 64, 128}, f32, bf16 and f16 pools.  Each launched without
-    and with counters: the output within ATTN_TOL["float32"] of the plain
+    and with counters: the output within ATTEND_TOL of the plain
     version (fed the ids as the kernel resolves them), the counted output
     bitwise the uncounted one, the counters ``ref.attend_counters``.  Then
     B·KH past the ticket buffer's first size; a launch that would grow it
@@ -1107,17 +1124,14 @@ def attend_edge_cases(res: dict) -> None:
 
     def one(q, pk, pv, pages, lens, layout):
         S, T, KH = pk.shape[:3]
-        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
-        if sum(sizes) > S:
-            sizes[-1] -= sum(sizes) - S
-        kx, vx = _split(pk, sizes), _split(pv, sizes)
+        kx, vx = pool_extents(pk, pv, layout)
         clip = len(kx) == 1
         name = "paged_attend" if clip else "paged_attend_extents"
         got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens)
         counted, blk = k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=True)
         resolved = pages.clamp(max=S - 1) if clip else torch.where(pages >= S, -1, pages)
         want = r_pg.attend_paged(q, pk.permute(2, 0, 1, 3), pv.permute(2, 0, 1, 3), resolved, lens)
-        close(res, name, got, want, ATTN_TOL["float32"])
+        close(res, name, got, want, ATTEND_TOL)
         r = res[name]
         for a, b in ((counted, got),
                      (obs_device.from_block(blk), r_pg.attend_counters(pages, lens, T, KH, S, clip))):
@@ -2369,7 +2383,7 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
     got = k_pg.paged_attend_cuda(q, kx, vx, pages, lens_d)
     want = r_pg.attend_paged(q, torch.cat(kx).permute(2, 0, 1, 3), torch.cat(vx).permute(2, 0, 1, 3),
                              pages, lens_d)
-    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want, ATTN_TOL["float32"])
+    close(res, "paged_attend" if len(kx) == 1 else "paged_attend_extents", got, want, ATTEND_TOL)
     del cap, q, kx, vx, got, want
     torch.cuda.synchronize()
     step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
@@ -2697,28 +2711,24 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
     return total
 
 
-AB_REPS = 5
+AB_REPS = 5  # prefills a turn, after a warm-up
+AB_NEW = 16  # new tokens per BatchEngine request
 AB_ORDER = ("parent", "change", "change", "parent")
+AB_WHAT = ("prefill", "paged", "batch")
 
 
-def kernel_ab(card: str, seed: int, parent: str, name: str) -> dict:
-    """``--ab PARENT --kernel NAME``: the library built from the checkout at
-    PARENT's ``src/repro_torch/csrc/NAME.cu`` (its C interface must be this
-    checkout's) against this checkout's, in turns on one card (parent,
-    change, change, parent): serve.engine's prefill, the median of
-    ``AB_REPS`` after a warm-up, then one prefill under ``torch.profiler``
-    with the device time by kernel.  Reports only: no gate."""
+def ab_prefill(seed: int, cfg, params) -> dict:
+    """serve.engine's prefill: the median of ``AB_REPS`` after a warm-up,
+    then one prefill under ``torch.profiler`` with the device time by
+    kernel."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import _build
     from repro_torch.serving import steps
 
-    libs = {"parent": _build.library(name, root=parent), "change": _build.library(name)}
     rng = np.random.default_rng(seed + 200)
-    cfg, params = serve_model(seed)
     lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
     lens[-1] = SERVE_LEN
     toks = np.zeros((SERVE_PROMPTS, SERVE_LEN), np.int32)
@@ -2727,60 +2737,96 @@ def kernel_ab(card: str, seed: int, parent: str, name: str) -> dict:
     toks_d, lens_d = torch.from_numpy(toks).to(DEV), torch.from_numpy(lens.astype(np.int32)).to(DEV)
 
     def prefill():
-        out = steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
-                            lengths=lens_d)
+        steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray", lengths=lens_d)
         torch.cuda.synchronize()
-        return out[0]
 
-    turns, logits = [], {}
-    for turn in AB_ORDER:
-        with _build.use(name, libs[turn]):
-            prefill()
-            times = []
-            for _ in range(AB_REPS):
-                t0 = time.perf_counter()
-                logits.setdefault(turn, prefill().float())
-                times.append(time.perf_counter() - t0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                prefill()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])  # kernels only
-        total = sum(t for _, t, _ in kern)
-        turns.append({"phase": "kernel_ab", "card": card, "kernel": name, "turn": turn,
-                      "prefill_s": sorted(times)[len(times) // 2], "prefill_s_all": times,
-                      "profiled_wall_ms": wall_ms, "kernel_ms_total": total,
-                      "device_idle_share": 1 - total / wall_ms,
-                      "top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]]})
-        emit(turns[-1])
-    line = {"phase": "kernel_ab.logits", "card": card, "kernel": name,
-            "rel_l2_change_vs_parent": rel_l2(logits["change"], logits["parent"], cfg.vocab_size)}
-    emit(line)
-    return {"turns": turns, **line}
+    prefill()
+    times = []
+    for _ in range(AB_REPS):
+        t0 = time.perf_counter()
+        prefill()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])  # kernels only
+    total = sum(t for _, t, _ in kern)
+    torch.cuda.empty_cache()
+    return {"prefill_s": sorted(times)[len(times) // 2], "prefill_s_all": times,
+            "prefill_profiled_wall_ms": wall_ms, "prefill_kernel_ms": total,
+            "prefill_device_idle_share": 1 - total / wall_ms,
+            "prefill_top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]]}
 
 
-AB_NEW = 16  # --turns: new tokens per BatchEngine request
+def ab_paged(seed: int) -> dict:
+    """The paged kernels at the kernel phase's timed shapes (its input
+    builders, drawn from a generator of their own), each without and with
+    counters in turns (plain, counted, counted, plain): K8 beside
+    ``index_select`` in CUDA-graph replays (and one call from Python each),
+    K9 at the freeze's shape beside ``index_select``, the KV view, and
+    K10/K11 at the serving shape in CUDA-graph replays."""
+    import torch
+
+    from repro_torch.kernels.paged import kernel as k_pg
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 17)
+    payload = make_payload(gen)
+    t = {}
+
+    def pair(name, fn, timer, iters):
+        t[name], t[name + "_counted"] = _halves(lambda: fn(False), lambda: fn(True), timer, iters)
+
+    pool, pages = k8_inputs(gen, payload)
+    idx = pages.clamp(min=0).flatten().long()
+    pair("k8_ms", lambda c: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=c),
+         graph_ms, 20)
+    t["k8_index_select_ms"] = graph_ms(lambda: pool.index_select(0, idx), 20)
+    t["k8_python_ms"] = cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20)
+    t["k8_index_select_python_ms"] = cuda_ms(lambda: pool.index_select(0, idx), 20)
+    del pool, pages, idx
+
+    exts, _, _, _, elems, mask, pages = k12_inputs(gen, payload)
+    del elems, mask
+    flat = torch.cat(exts)
+    idx = pages.clamp(min=0).flatten().long()
+    pair("k9_ms", lambda c: k_pg.paged_gather_cuda(exts, pages, clip_high=False, instrument=c), cuda_ms, 10)
+    t["k9_index_select_ms"] = cuda_ms(lambda: flat.index_select(0, idx), 10)
+    del flat, exts, pages, idx
+    torch.cuda.empty_cache()
+
+    pool, owners, bases, zeros, elems, mask, pages = kv_inputs(gen, payload)
+    k_pg.slab_append_cuda((pool,), owners, bases, zeros, elems, mask)
+    del elems, mask
+    exts, wide = kv_view(pool, pages)
+    del pool
+    pair("kv_view_ms", lambda c: k_pg.paged_gather_cuda(exts, wide, clip_high=False, instrument=c),
+         cuda_ms, 3)
+    del exts, wide
+    torch.cuda.empty_cache()
+
+    q, pk, pv, pages, lens, _ = serving_attend_inputs(gen)
+    for layout, name in (("flat", "k10_ms"), ("doubling", "k11_ms")):
+        kx, vx = pool_extents(pk, pv, layout)
+        pair(name, lambda c: k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=c), graph_ms, 20)
+        del kx, vx
+    del q, pk, pv, pages, lens
+    torch.cuda.empty_cache()
+    return t
 
 
-def paged_times(card: str, seed: int) -> dict:
-    """One turn of ``--turns``, timed with whichever checkout's
-    ``repro_torch`` is on the path: K8 at its timed shape (the 1/8-size flat
-    arena's freeze) beside ``index_select``, K9 at the main path's freeze
-    (doubling extents of 2048 f32) beside ``index_select``, the KV view (two
-    extents of (8, 128) bf16 items in 2048-token slabs), each without and
-    with counters in turns (plain, counted, counted, plain); K10/K11 at the
-    serving shape in CUDA-graph replays, likewise; then BatchEngine over
-    doubling extents (K11) on 8 requests of 512-4096 tokens: the steady
-    decode steps (CUDA events, no prompt pending)."""
+def ab_batch(seed: int, cfg, params) -> dict:
+    """BatchEngine over doubling extents (K11) on 8 requests of 512-4096
+    tokens, ``AB_NEW`` new each: its steady decode steps (CUDA events, no
+    prompt pending)."""
     import numpy as np
     import torch
 
     from repro_torch.serving.engine import BatchEngine
 
-    t = {"phase": "paged_ab.turn", "card": card, **paged_kernel_times(seed)}
     rng = np.random.default_rng(seed + 17)
-    cfg, params = serve_model(seed)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(BATCH_MIN, BATCH_MAX + 1, BATCH_SLOTS)]
     be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, grow_chunk="doubling", device=DEV)
@@ -2789,106 +2835,45 @@ def paged_times(card: str, seed: int) -> dict:
     _, steady_ev, _ = drive_batch(be)
     torch.cuda.synchronize()
     steps = sorted(a.elapsed_time(b) for a, b in steady_ev)
-    t.update(batch_steps=len(steps), batch_step_ms_median=steps[len(steps) // 2], batch_step_ms=steps)
-    del be, params
+    del be
     torch.cuda.empty_cache()
+    return {"batch_steps": len(steps), "batch_step_ms_median": steps[len(steps) // 2],
+            "batch_step_ms": steps}
+
+
+def ab_turn(card: str, seed: int, what: list) -> dict:
+    """One turn of ``--ab``: the timings named in ``what``, with whichever
+    checkout's ``repro_torch`` this process imported."""
+    t = {"phase": "ab.turn", "card": card}
+    if "paged" in what:
+        t.update(ab_paged(seed))
+    if "prefill" in what or "batch" in what:
+        cfg, params = serve_model(seed)
+        if "prefill" in what:
+            t.update(ab_prefill(seed, cfg, params))
+        if "batch" in what:
+            t.update(ab_batch(seed, cfg, params))
     return t
 
 
-def paged_kernel_times(seed: int) -> dict:
-    """The kernel times of :func:`paged_times`."""
-    import torch
-
-    from repro_torch.kernels.paged import kernel as k_pg
-
-    dev = torch.device(DEV)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(seed + 17)
-    t = {}
-
-    def pair(name, fn, timer, iters, shape):
-        t[name], t[name + "_counted"] = _halves(lambda: fn(False), lambda: fn(True), timer, iters)
-        t[name + "_shape"] = shape
-
-    t8 = B0 // 8
-    npages = [-(-int(0.9 * t8 * (2 ** NWAVES - 1) + j) // t8) for j in range(0, 4 * NBLOCKS, 4)]
-    S = 2 * sum(npages)
-    _, _, pages = _arena_tables(npages, S, t8, gen)
-    pool = torch.randn((S, t8), generator=gen, device=dev)
-    idx = pages.clamp(min=0).flatten().long()
-    pair("k8_ms", lambda c: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=c),
-         graph_ms, 20, f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32; CUDA-graph times")
-    t["k8_index_select_ms"] = graph_ms(lambda: pool.index_select(0, idx), 20)
-    t["k8_python_ms"] = cuda_ms(lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True), 20)
-    t["k8_index_select_python_ms"] = cuda_ms(lambda: pool.index_select(0, idx), 20)
-    del pool, pages, idx
-
-    npages = [-(-int(0.9 * B0 * (2 ** NWAVES - 1) + j) // B0) for j in range(0, 4 * NBLOCKS, 4)]
-    sizes_e = _extent_sizes(sum(npages), "doubling")
-    S = sum(sizes_e)
-    _, _, pages = _arena_tables(npages, S, B0, gen)
-    flat = torch.randn((S, B0), generator=gen, device=dev)
-    exts = _split(flat, sizes_e)
-    idx = pages.clamp(min=0).flatten().long()
-    pair("k9_ms", lambda c: k_pg.paged_gather_cuda(exts, pages, clip_high=False, instrument=c),
-         cuda_ms, 10, f"pages ({NBLOCKS}, {pages.shape[1]}) over {len(exts)} extents of {B0} f32")
-    t["k9_index_select_ms"] = cuda_ms(lambda: flat.index_select(0, idx), 10)
-    del flat, exts, pages, idx
-    torch.cuda.empty_cache()
-
-    lens = torch.randint(KV_MIN, KV_MAX + 1, (KV_ARRAYS,), generator=gen, device=dev)
-    npages = [-(-(int(n) + KV_DECODE) // B0) for n in lens.cpu().tolist()]
-    S = sum(npages)
-    _, _, pages = _arena_tables(npages, S, B0, gen)
-    wide = torch.full((KV_ARRAYS, 16), -1, dtype=torch.int32, device=dev)
-    wide[:, :pages.shape[1]] = pages
-    half = S // 2
-    exts = tuple(torch.randn((n, B0, *KV_ITEM), generator=gen, device=dev).to(torch.bfloat16)
-                 for n in (half, S - half))
-    pair("kv_view_ms", lambda c: k_pg.paged_gather_cuda(exts, wide, clip_high=False, instrument=c),
-         cuda_ms, 3, f"pages ({KV_ARRAYS}, 16), {S} live, 2 extents of {B0} x {KV_ITEM} bf16")
-    del exts, wide, pages
-    torch.cuda.empty_cache()
-
-    T, KH, G, D, Bq = SERVE_SLAB, 2, 8, 128, BATCH_SLOTS
-    lengths = [int(x) for x in torch.randint(BATCH_MIN, BATCH_MAX + BATCH_NEW, (Bq,), generator=gen,
-                                             device=DEV).cpu()]
-    P = max(-(-n // T) for n in lengths)
-    S = sum(-(-n // T) for n in lengths)
-    q, pk, pv, pages, lens = attend_inputs(gen, Bq, KH, G, D, T, S, P, torch.bfloat16, lengths)
-    for layout, name in (("flat", "k10_ms"), ("doubling", "k11_ms")):
-        sizes = [n for n in _extent_sizes(S, layout) if n > 0]
-        if sum(sizes) > S:
-            sizes[-1] -= sum(sizes) - S
-        kx, vx = _split(pk, sizes), _split(pv, sizes)
-        pair(name, lambda c: k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=c), graph_ms, 20,
-             f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
-             f"{sum(lengths)} live tokens; CUDA-graph times")
-        del kx, vx
-    del q, pk, pv, pages, lens
-    torch.cuda.empty_cache()
-    return t
-
-
-def paged_turns(card: str, seed: int, parent: str) -> None:
-    """``--turns PARENT``: :func:`paged_times` in one process per turn, from
-    the checkout at PARENT and from this one, in turns (parent, change,
-    change, parent), then each time's parent and change means and their
-    ratio.  Reports only: no gate."""
+def ab_turns(card: str, seed: int, parent: str, what: list) -> None:
+    """``--ab PARENT``: :func:`ab_turn` in one process per turn, importing
+    the checkout at PARENT's package or this one's (each builds its own
+    kernels), in turns (parent, change, change, parent); then each time's
+    parent and change means and their ratio.  Reports only: no gate."""
     turns = []
     for turn in AB_ORDER:
-        root = Path(parent).resolve() if turn == "parent" else ROOT
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--paged-times",
-                               str(root), "--seed", str(seed)], capture_output=True, text=True,
-                              timeout=900)
-        check(proc.returncode == 0, f"--turns: the {turn} turn failed:\n{proc.stderr[-3000:]}")
-        rec = {**json.loads(proc.stdout.strip().splitlines()[-1]), "turn": turn, "root": str(root)}
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ab", parent,
+                               "--what", ",".join(what), "--turn", turn, "--seed", str(seed)],
+                              capture_output=True, text=True, timeout=1200)
+        check(proc.returncode == 0, f"--ab: the {turn} turn failed:\n{proc.stderr[-3000:]}")
+        rec = {**json.loads(proc.stdout.strip().splitlines()[-1]), "turn": turn}
         emit(rec)
         turns.append(rec)
     keys = [k for k, v in turns[0].items() if isinstance(v, float)]
     mean = {w: {k: sum(r[k] for r in turns if r["turn"] == w) / 2 for k in keys}
             for w in ("parent", "change")}
-    emit({"phase": "paged_ab", "card": card, "order": list(AB_ORDER), "parent": mean["parent"],
+    emit({"phase": "ab", "card": card, "what": what, "order": list(AB_ORDER), "parent": mean["parent"],
           "change": mean["change"],
           "change_over_parent": {k: mean["change"][k] / mean["parent"][k] for k in keys}})
 
@@ -3279,21 +3264,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="PARENT", default=None,
-                    help="only time serve.engine's prefill with PARENT's build of --kernel "
-                         "against this checkout's, in turns")
-    ap.add_argument("--kernel", default="flash_attention", help="the csrc/*.cu library --ab swaps")
-    ap.add_argument("--turns", metavar="PARENT", default=None,
-                    help="only time the paged kernels (K8, K9, K10/K11) and BatchEngine's decode "
-                         "steps with PARENT's package against this checkout's, in turns")
-    ap.add_argument("--paged-times", metavar="ROOT", default=None, help=argparse.SUPPRESS)
+                    help="only time --what with the checkout at PARENT's package against this "
+                         "one's, one process per turn, in turns")
+    ap.add_argument("--what", default=",".join(AB_WHAT),
+                    help=f"what --ab times, of {','.join(AB_WHAT)}")
+    ap.add_argument("--turn", choices=("parent", "change"), default=None,
+                    help="with --ab: run one turn in this process and print its times")
     args = ap.parse_args()
+    what = [w for w in args.what.split(",") if w]
+    if any(w not in AB_WHAT for w in what):
+        ap.error(f"--what: expected names of {AB_WHAT}, got {args.what}")
+    if args.turn and not args.ab:
+        ap.error("--turn needs --ab")
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    src = (Path(args.paged_times).resolve() if args.paged_times else ROOT) / "src"
+    src = (Path(args.ab).resolve() if args.turn == "parent" else ROOT) / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found: run from a checkout", file=sys.stderr)
         return 2
@@ -3319,14 +3308,11 @@ def main() -> int:
     regs = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln] for k, v in info["log"].items()}
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"], "ptxas": regs})
 
+    if args.turn:
+        emit(ab_turn(card, args.seed, what))
+        return 0
     if args.ab:
-        kernel_ab(card, args.seed, args.ab, args.kernel)
-        return 0
-    if args.turns:
-        paged_turns(card, args.seed, args.turns)
-        return 0
-    if args.paged_times:
-        emit(paged_times(card, args.seed))
+        ab_turns(card, args.seed, args.ab, what)
         return 0
 
     # 3. kernels against their plain versions

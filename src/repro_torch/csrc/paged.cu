@@ -21,24 +21,19 @@
 // exact.  All addressing is 64-bit.
 //
 // Design: a block per kGatherBlockPieces pieces of the output (a range of
-// 8 KB of 16-byte pieces, whatever the slab size).  The plan
-// (kernels/paged/kernel.py::gather_plan) launches one block per range, so
-// each block is short-lived and the block scheduler balances the card.  The
-// kernel also takes a smaller grid (the kWalk instantiation), each block
-// then walking the ranges blockIdx.x, blockIdx.x + gridDim.x, ... — the
-// persistent design, a few blocks a SM sized from the SM count;
-// chip_smoke.py times that walk beside the one-block-a-range plan and
-// index_select, and the walk measured slower on the H100 (PERF.md).  In
-// each range a block first resolves the pages the range touches — the page
+// 8 KB of 16-byte pieces, whatever the slab size), one block per range
+// (kernels/paged/kernel.py::gather_plan), so each block is short-lived and
+// the block scheduler balances the card.  (A persistent grid of a few
+// blocks a SM walking the ranges measured 5.5 % slower on the H100:
+// PERF.md.)  A block first resolves the pages its range touches — the page
 // id, the extent search (common.cuh::slab_address) — one thread a page,
 // into shared memory; then each thread copies kGatherPer pieces
 // (consecutive threads on consecutive pieces), every load issued before its
 // stores.  Counters (K15, kCount = true): the thread that resolves a page
 // whose first piece lies in the range counts it as a live tile if it
-// resolved to a slab, else as a masked tile, in registers across its walk,
-// and block 0 counts the launch; each block adds its sums with ctr_accum
-// once, after its walk, so the atomics grow with the blocks, not with the
-// pages.  That is the reference's count for K8 (pages >= 0, ids past one
+// resolved to a slab, else as a masked tile, and block 0 counts the launch;
+// each block adds its sums with ctr_accum once, so the atomics grow with
+// the blocks, not with the pages.  That is the reference's count for K8 (pages >= 0, ids past one
 // flat pool clipped) and its oracle's for K9 (_gather_ctr over the resolved
 // extent table), without its vmem row padding.  The tests replay the
 // plan's arithmetic (tests/test_torch_paged_split.py).
@@ -77,52 +72,49 @@ constexpr int kGatherMaxPages = kGatherBlockPieces + 1;          // pages a bloc
 constexpr int kCompactThreads = 1024;
 constexpr int kScatterThreads = 512;
 
-// kWalk = false: a block per range (grid == nranges), the loop body once.
-template <typename U, bool kCount, bool kWalk>
+// grid (nranges); block r copies pieces [r * kGatherBlockPieces, (r + 1) *
+// kGatherBlockPieces) of the output.
+template <typename U, bool kCount>
 __global__ void __launch_bounds__(kGatherThreads)
 paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, int clip_high,
                     const int* __restrict__ pages, U* __restrict__ out, int64_t npages,
-                    int64_t slab_units, int shift, int64_t nranges, int* __restrict__ ctr) {
+                    int64_t slab_units, int shift, int* __restrict__ ctr) {
   __shared__ const U* s_src[kGatherMaxPages];  // null: the page reads zeros
   const int tid = threadIdx.x;
   const int64_t total = npages * slab_units;
   const int64_t slab_bytes = slab_units * static_cast<int64_t>(sizeof(U));
   int tiles = 0, masked = 0;  // counters (kCount)
-  for (int64_t r = blockIdx.x; r < nranges; r += gridDim.x) {
-    if (kWalk && r != blockIdx.x) __syncthreads();  // the last range is done with s_src
-    const int64_t first = r * kGatherBlockPieces;
-    const int64_t last = (first + kGatherBlockPieces < total ? first + kGatherBlockPieces : total) - 1;
-    const int64_t p0 = shift >= 0 ? first >> shift : first / slab_units;
-    const int64_t p1 = shift >= 0 ? last >> shift : last / slab_units;
-    for (int64_t p = p0 + tid; p <= p1; p += kGatherThreads) {
-      int64_t s = pages[p];
-      if (clip_high && s >= n_slabs) s = n_slabs - 1;
-      const bool live = s >= 0 && s < n_slabs;
-      s_src[p - p0] = live ? reinterpret_cast<const U*>(slab_address(tbl, next, s, slab_bytes)) : nullptr;
-      if (kCount && p * slab_units >= first) {  // the page's first piece is in this range
-        tiles += live ? 1 : 0;
-        masked += live ? 0 : 1;
-      }
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kGatherBlockPieces;
+  const int64_t last = (first + kGatherBlockPieces < total ? first + kGatherBlockPieces : total) - 1;
+  const int64_t p0 = shift >= 0 ? first >> shift : first / slab_units;
+  const int64_t p1 = shift >= 0 ? last >> shift : last / slab_units;
+  for (int64_t p = p0 + tid; p <= p1; p += kGatherThreads) {
+    int64_t s = pages[p];
+    if (clip_high && s >= n_slabs) s = n_slabs - 1;
+    const bool live = s >= 0 && s < n_slabs;
+    s_src[p - p0] = live ? reinterpret_cast<const U*>(slab_address(tbl, next, s, slab_bytes)) : nullptr;
+    if (kCount && p * slab_units >= first) {  // the page's first piece is in this range
+      tiles += live ? 1 : 0;
+      masked += live ? 0 : 1;
     }
-    __syncthreads();
-    const int64_t base = p0 * slab_units;  // the first page's first piece
-    U v[kGatherPer];
+  }
+  __syncthreads();
+  const int64_t base = p0 * slab_units;  // the first page's first piece
+  U v[kGatherPer];
 #pragma unroll
-    for (int j = 0; j < kGatherPer; ++j) {  // every load first ...
-      const int64_t i = first + j * kGatherThreads + tid;
-      if (i <= last) {
-        const uint32_t local = static_cast<uint32_t>(i - base);  // < kGatherBlockPieces + slab_units
-        const uint32_t lp = shift >= 0 ? local >> shift : local / static_cast<uint32_t>(slab_units);
-        const U* src = s_src[lp];
-        v[j] = src != nullptr ? __ldg(src + (local - lp * static_cast<uint32_t>(slab_units))) : U{};
-      }
+  for (int j = 0; j < kGatherPer; ++j) {  // every load first ...
+    const int64_t i = first + j * kGatherThreads + tid;
+    if (i <= last) {
+      const uint32_t local = static_cast<uint32_t>(i - base);  // < kGatherBlockPieces + slab_units
+      const uint32_t lp = shift >= 0 ? local >> shift : local / static_cast<uint32_t>(slab_units);
+      const U* src = s_src[lp];
+      v[j] = src != nullptr ? __ldg(src + (local - lp * static_cast<uint32_t>(slab_units))) : U{};
     }
+  }
 #pragma unroll
-    for (int j = 0; j < kGatherPer; ++j) {  // ... then the stores
-      const int64_t i = first + j * kGatherThreads + tid;
-      if (i <= last) out[i] = v[j];
-    }
-    if constexpr (!kWalk) break;
+  for (int j = 0; j < kGatherPer; ++j) {  // ... then the stores
+    const int64_t i = first + j * kGatherThreads + tid;
+    if (i <= last) out[i] = v[j];
   }
   if constexpr (kCount) {
     int c[3] = {blockIdx.x == 0 && tid == 0 ? 1 : 0, tiles, masked};
@@ -192,20 +184,16 @@ slab_scatter_kernel(const int64_t* __restrict__ tbl, int next, const int* __rest
 
 template <typename U>
 int launch_gather(const int64_t* tbl, int next, int64_t n_slabs, int clip_high,
-                  const int* pages, void* out, int64_t npages, int64_t slab_bytes, int64_t grid,
-                  int* ctr, cudaStream_t stream) {
+                  const int* pages, void* out, int64_t npages, int64_t slab_bytes, int* ctr,
+                  cudaStream_t stream) {
   const int64_t slab_units = slab_bytes / static_cast<int64_t>(sizeof(U));
   const int64_t nranges = (npages * slab_units + kGatherBlockPieces - 1) / kGatherBlockPieces;
-  if (grid < 1 || grid > nranges || slab_units > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (slab_units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (nranges > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int shift = (slab_units & (slab_units - 1)) == 0 ? __builtin_ctzll(slab_units) : -1;
-  auto kernel = ctr != nullptr
-      ? (grid < nranges ? paged_gather_kernel<U, true, true> : paged_gather_kernel<U, true, false>)
-      : (grid < nranges ? paged_gather_kernel<U, false, true> : paged_gather_kernel<U, false, false>);
-  kernel<<<static_cast<unsigned>(grid), kGatherThreads, 0, stream>>>(
-      tbl, next, n_slabs, clip_high, pages, static_cast<U*>(out), npages, slab_units, shift,
-      nranges, ctr);
+  auto kernel = ctr != nullptr ? paged_gather_kernel<U, true> : paged_gather_kernel<U, false>;
+  kernel<<<static_cast<unsigned>(nranges), kGatherThreads, 0, stream>>>(
+      tbl, next, n_slabs, clip_high, pages, static_cast<U*>(out), npages, slab_units, shift, ctr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,15 +224,12 @@ extern "C" int rt_gather_block_pieces() { return kGatherBlockPieces; }
 // table: the device extent table of next extents (see above); n_slabs =
 // start_E.  pages: (npages,) int32.  out: (npages, slab_bytes).  unit: the
 // copy width in bytes (16, 4, 2 or 1), dividing slab_bytes and every
-// pointer.  grid: the blocks, from 1 to the ranges of
-// rt_gather_block_pieces() pieces, ceil(npages * slab_bytes / unit /
-// rt_gather_block_pieces()) — the plan's (kernel.py::gather_plan) is one a
-// range; a smaller grid walks the ranges.  ctr: a zeroed (kCtrSlots,) int32
-// counter block, or null.
+// pointer; the grid is a block per rt_gather_block_pieces() pieces
+// (kernel.py::gather_plan).  ctr: a zeroed (kCtrSlots,) int32 counter
+// block, or null.
 extern "C" int rt_paged_gather(const void* table, int next, int64_t n_slabs, int clip_high,
                                const void* pages, void* out, int64_t npages,
-                               int64_t slab_bytes, int unit, int64_t grid, void* ctr,
-                               void* stream) {
+                               int64_t slab_bytes, int unit, void* ctr, void* stream) {
   if (next < 1 || slab_bytes < 1 || n_slabs < 1 || unit < 1 || slab_bytes % unit != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (npages <= 0) return 0;
@@ -253,10 +238,10 @@ extern "C" int rt_paged_gather(const void* table, int next, int64_t n_slabs, int
   auto s = static_cast<cudaStream_t>(stream);
   auto* c = static_cast<int*>(ctr);
   switch (unit) {
-    case 16: return launch_gather<uint4>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, grid, c, s);
-    case 4: return launch_gather<uint32_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, grid, c, s);
-    case 2: return launch_gather<uint16_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, grid, c, s);
-    case 1: return launch_gather<unsigned char>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, grid, c, s);
+    case 16: return launch_gather<uint4>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 4: return launch_gather<uint32_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 2: return launch_gather<uint16_t>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
+    case 1: return launch_gather<unsigned char>(tbl, next, n_slabs, clip_high, pg, out, npages, slab_bytes, c, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -43,13 +43,17 @@
 //
 // bf16 and f16 pools run on the tensor cores (mma.sync m16n8k16, keys in the
 // rows so that no row is padding): a warp takes 16-key tiles, S^T = K q^T
-// with q split into hi + lo 16-bit halves (so the scores keep f32's
-// precision), an online softmax per query row on the accumulator layout,
+// with q split into hi + lo 16-bit halves (hi + lo carry about 16
+// significant bits in bf16, 22 in f16, where one 16-bit pass keeps 8 or
+// 11), an online softmax per query row on the accumulator layout,
 // rescaling only when a row's max moves, then O^T += V^T P^T with P split
 // into hi + lo halves too and transposed in registers (movmatrix); K and V
-// fragments by ldmatrix from the XOR-swizzled ring.  f32 pools run on the
-// CUDA cores, one key at a time per warp, a lane holding some dims of one or
-// two query rows.
+// fragments by ldmatrix from the XOR-swizzled ring.  (The CUDA-core walk on
+// 16-bit pools, converting K and V on load, measured 1.6x slower at the
+// serving shape; without the lo halves the output moves by 4e-3:
+// tools/paged_attend_variants.py, PERF.md.)  f32 pools run on the CUDA
+// cores, one key at a time per warp, a lane holding some dims of one or two
+// query rows.
 //
 // The two warps merge in shared memory, in warp order, into the block's (m,
 // l, acc), written to scratch.  The splits then merge as a tree: the last
@@ -497,8 +501,8 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {  // movmatrix: an
 // The tensor-core walk (bf16 and f16 pools), keys in the rows of the
 // products so that no row is padding: a warp takes 16-key tiles of each
 // chunk, S^T = K q^T as m16n8k16 (16 keys x 8 query rows a tile, GP / 8
-// row tiles; q split into hi + lo 16-bit halves held in shared memory, so
-// the scores keep f32's precision; K fragments by ldmatrix from the
+// row tiles; q split into hi + lo 16-bit halves held in shared memory,
+// about 16 significant bits in bf16; K fragments by ldmatrix from the
 // swizzled ring), an online softmax per query row on the accumulator
 // layout (a row's keys lie in the lanes of one lane % 4), then O^T += V^T
 // P^T as m16n8k16 with V^T by ldmatrix.trans and P^T from S^T's

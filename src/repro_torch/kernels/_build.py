@@ -43,9 +43,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _key(csrc: Path = CSRC) -> str:
+def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(csrc.glob("*.cu*")):
+    for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
@@ -97,28 +97,8 @@ def _load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def library(name: str, root: str | Path | None = None) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (builds all on first use).
-
-    With ``root``, the one built from another checkout's
-    ``<root>/src/repro_torch/csrc/<name>.cu`` (into ``build/repro_torch/
-    other/<key>/``), for timing two versions of a kernel in one process;
-    the wrappers launch it only inside :func:`use`.
-    """
-    if root is not None:
-        src = Path(root).resolve() / "src" / "repro_torch" / "csrc" / f"{name}.cu"
-        if not src.is_file():
-            raise FileNotFoundError(f"no kernel source {src}")
-        path = BUILD_ROOT / "other" / _key(src.parent) / f"lib{name}.so"
-        if not path.exists():
-            path.parent.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".so.{os.getpid()}.tmp")
-            proc = _nvcc(nvcc_path(), src, tmp)
-            text, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"CUDA kernel build failed:\n--- nvcc {src} ---\n{text}")
-            os.replace(tmp, path)
-        return _load(path)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (builds all on first use)."""
     lib = _loaded.get(name)
     if lib is None:
         path = build_dir() / f"lib{name}.so"
@@ -130,8 +110,9 @@ def library(name: str, root: str | Path | None = None) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def use(name: str, lib: ctypes.CDLL):
-    """Inside the block, the wrappers of ``name`` launch ``lib`` (which must
-    export this checkout's C interface for it)."""
+    """Inside the block, the wrappers of ``name`` launch ``lib``, another
+    build of ``csrc/<name>.cu`` with the same C interface (for example a
+    variant of the source, ``tools/paged_attend_variants.py``)."""
     old = library(name)
     _loaded[name] = lib
     try:

@@ -44,7 +44,7 @@ def _lib():
     if getattr(lib, "ready", False):  # argument types set once per library
         return lib
     lib.rt_paged_gather.argtypes = [
-        _c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _i64, _c, _c,  # .. unit, grid, ctr, stream
+        _c, _int, _i64, _int, _c, _c, _i64, _i64, _int, _c, _c,  # .. unit, ctr, stream
     ]
     lib.rt_paged_gather.restype = _int
     lib.rt_gather_block_pieces.argtypes, lib.rt_gather_block_pieces.restype = [], _int
@@ -183,13 +183,12 @@ def paged_gather_cuda(
     n_slabs = sum(e.shape[0] for e in extents)
     slab_bytes = T * _item_bytes(extents[0], item)
     unit = common.copy_unit(slab_bytes, out, *extents)
-    plan = gather_plan(N * P, slab_bytes, unit)
     table = common.extent_table(tuple(extents))
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.rt_paged_gather(
             table.data_ptr(), len(extents), n_slabs, int(clip_high), pages.data_ptr(),
-            out.data_ptr(), N * P, slab_bytes, unit, plan.grid,
+            out.data_ptr(), N * P, slab_bytes, unit,
             block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
     name = "paged_gather" if len(extents) == 1 else "paged_gather_extents"

@@ -21,16 +21,15 @@ from repro_torch.obs import device as obs_device
 # K8/K9: the gather's work plan
 # ---------------------------------------------------------------------------
 
-def replay_gather(plan: k_pg.GatherPlan, ranges=None) -> tuple[np.ndarray, np.ndarray]:
-    """The pieces each range writes and the pages it counts, as the kernel
+def replay_gather(plan: k_pg.GatherPlan) -> tuple[np.ndarray, np.ndarray]:
+    """The pieces each block writes and the pages it counts, as the kernel
     computes them → (output piece of every write, page of every count).
-    Range b (by default every range of the plan once, a block each) is
-    pieces [512 b, 512 (b + 1)) ∩ [0, pieces); its block resolves pages
+    Block b takes pieces [512 b, 512 (b + 1)) ∩ [0, pieces); it resolves pages
     first // su .. last // su, and counts those whose first piece (page ·
     su) lies in the range; thread t writes pieces 512 b + 256 j + t, j < 2,
     from page p0 + local // su at local % su, local = i − p0 · su."""
     su, bp = plan.slab_units, k_pg.GATHER_BLOCK_PIECES
-    b = np.arange(plan.grid) if ranges is None else np.asarray(ranges, np.int64)
+    b = np.arange(plan.grid)
     first = b * bp
     last = np.minimum(first + bp, plan.pieces) - 1
     p0, p1 = first // su, last // su
@@ -54,6 +53,15 @@ def replay_gather(plan: k_pg.GatherPlan, ranges=None) -> tuple[np.ndarray, np.nd
     (3, 4 << 20, 16),  # the KV view's 4 MB slabs: 512 blocks a page
     (7, 9600, 16),  # 600 pieces: pages straddle blocks
     (117, 20, 4), (117, 10, 2), (117, 5, 1), (40, 4, 4),  # 4-, 2- and 1-byte pieces
+    (238, 1024, 16),  # one row of K8's page table
+    (1, 4 << 20, 16),  # a single 4 MB page: 512 blocks
+    (2, 16, 16), (1000, 16, 16),  # one piece a page: 512 pages a block
+    (513, 8192 + 16, 16),  # 513 pieces a slab: one page's end in every block
+    (9, 1536, 16),  # 96 pieces a slab: no power of two
+    (4, 1 << 20, 4),  # 1 MB slabs of 4-byte pieces: 512 blocks a page
+    (1, 8192, 1),  # 1-byte pieces, one page: 16 blocks
+    (3, 2, 2), (5, 6, 2), (11, 12, 4),  # a few small pieces a page
+    (512, 64, 16),  # four pieces a page
 ])
 def test_gather_plan_writes_each_page_byte_once(npages, slab_bytes, unit):
     plan = k_pg.gather_plan(npages, slab_bytes, unit)
@@ -63,23 +71,6 @@ def test_gather_plan_writes_each_page_byte_once(npages, slab_bytes, unit):
     counts = np.bincount(pieces, minlength=plan.pieces)
     assert len(counts) == plan.pieces and (counts == 1).all()
     # every page counted (live or masked tile) by exactly one block
-    assert np.array_equal(np.sort(counted), np.arange(npages))
-
-
-@pytest.mark.parametrize("grid", [1, 3, 8 * 132])
-@pytest.mark.parametrize("npages,slab_bytes,unit", [
-    (121_856 // 64, 1024, 16), (133, 256, 16), (3, 4 << 20, 16), (117, 5, 1)])
-def test_gather_walk_takes_each_range_once(grid, npages, slab_bytes, unit):
-    """A grid smaller than the plan's (the persistent launch that
-    chip_smoke.py times): block b walks ranges b, b + grid, ...; every range
-    is taken by one block, so every output piece is still written once and
-    every page counted once."""
-    plan = k_pg.gather_plan(npages, slab_bytes, unit)
-    g = min(grid, plan.grid)
-    walked = [r for blk in range(g) for r in range(blk, plan.grid, g)]
-    assert sorted(walked) == list(range(plan.grid))
-    pieces, counted = replay_gather(plan, walked)
-    assert (np.bincount(pieces, minlength=plan.pieces) == 1).all()
     assert np.array_equal(np.sort(counted), np.arange(npages))
 
 

@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch]   # two checkouts, in turns
+    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch,append]   # two checkouts, in turns
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -47,14 +47,27 @@ Run from the root of the repository.  Phases, one JSON line each:
    size, a launch that would grow its buffers inside a CUDA-graph capture
    refused, 20 replays then an eager launch bitwise equal to the one
    before them, the tickets left zero.
+   K3 and K12 also at the edges of their tile-parallel row scan
+   (``append_edge_cases``, a generator of its own): m at a tile's edges and
+   over many tiles, all-masked and all-live rows, 16-, 4-, 2- (and for K12
+   1-) byte copy units over f32, int32, bf16 and f16; K3 counted and
+   uncounted (counters ``ref.counters``), on sizes at level boundaries,
+   waves past the last level and m = 1 with one to four groups of mixed
+   items; K12 on fuzzed and arena-built owner tables with lanes past every
+   slab and a sparse mask; all bitwise.  The two-group K3 is timed beside
+   an empty kernel of its grid in the same CUDA-graph harness (the launch
+   floor, in its shape string).
    ``--ab PARENT``: one process per turn, importing the package of the
    checkout at PARENT or this one's (each builds its own kernels), in turns
    (parent, change, change, parent), timing what ``--what`` names:
    ``prefill`` (serve.engine's prefill, then profiled: device time by
    kernel), ``paged`` (K8, K9 and the KV view beside ``index_select``,
    K10/K11 at the serving shape in CUDA-graph replays; each with and
-   without counters; the kernel phase's input builders) and ``batch``
-   (BatchEngine's steady decode steps).
+   without counters; the kernel phase's input builders), ``batch``
+   (BatchEngine's steady decode steps) and ``append`` (K12 at the main and
+   KV shapes, K3 at the main shape and at the decode append in CUDA-graph
+   replays and from Python, with and without counters; the main path's
+   and arena.doubling's grow; a few Engine decode steps).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
@@ -382,12 +395,16 @@ def kernel_phase(card: str, gen) -> dict:
                 k67_case(written, b0, live)
 
     # Main-path shapes: 512 blocks, b0 = 2048, 8 levels; the last grow wave
-    # (m = 2048 * 2^7) onto sizes where the seventh wave left them.
+    # (m = 2048 * 2^7) onto sizes where the seventh wave left them (k3_inputs).
     m_last = B0 << (NWAVES - 1)
     n_lev = NWAVES
-    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** (NWAVES - 1) - 1)), dtype=torch.int32, device=dev)
-    sizes += torch.randint(-(B0 // 4), B0 // 4, (NBLOCKS,), generator=gen, device=dev, dtype=torch.int32)
-    levels, elems, mask, written = k3_case(NBLOCKS, B0, n_lev, m_last, torch.float32, sizes, p_live=0.9)
+    levels, elems, mask, sizes = k3_inputs(gen, rand_payload)
+    written = tuple(x.clone() for x in levels)
+    sa, pa = k_pb.push_back_cuda(written, sizes, B0, elems, mask)
+    lb = tuple(x.clone() for x in levels)
+    _, sb, pb_ = r_pb.push_back(lb, sizes, B0, elems, mask)
+    note("push_back", [(sa, sb), (pa, pb_), *zip(written, lb)])
+    del lb
     live_lanes = int(mask.sum().item())
     timing = {}
     la = tuple(x.clone() for x in levels)
@@ -441,6 +458,8 @@ def kernel_phase(card: str, gen) -> dict:
     torch.cuda.empty_cache()
     paged_cases(card, rand_payload, note, timing)
     torch.cuda.synchronize()
+    append_edge_cases(card, note)
+    torch.cuda.synchronize()
     serve_kernel_cases(card, res, timing)
     torch.cuda.synchronize()
     slice4_kernel_cases(card, res, timing)
@@ -457,6 +476,53 @@ def kernel_phase(card: str, gen) -> dict:
         check(r["mismatches"] == 0, f"{name}: {r['mismatches']} elements differ from the plain version")
         check(r["cases"] > 0, f"{name}: never held against its plain version")
     return res
+
+
+def k3_inputs(gen, payload):
+    """K3's timed inputs: the main path's last grow wave (512 blocks, b0 =
+    2048, 8 levels of f32, m = 2048 * 2^7 at 0.9 density) onto sizes where
+    the seventh wave left them → (levels, elems, mask, sizes)."""
+    import torch
+
+    from repro_torch.core import indexing
+
+    m_last = B0 << (NWAVES - 1)
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** (NWAVES - 1) - 1)), dtype=torch.int32, device=DEV)
+    sizes += torch.randint(-(B0 // 4), B0 // 4, (NBLOCKS,), generator=gen, device=DEV, dtype=torch.int32)
+    levels = tuple(payload((NBLOCKS, w), torch.float32) for w in indexing.bucket_sizes(B0, NWAVES))
+    elems = payload((NBLOCKS, m_last), torch.float32)
+    mask = torch.rand((NBLOCKS, m_last), generator=gen, device=DEV) < 0.9
+    return levels, elems, mask, sizes
+
+
+def multi_inputs(gen, n, b0, nlev, m, item, p_live=1.0):
+    """The two-group K3's inputs: k and v levels and waves of ``item`` bf16
+    items and one mask → (groups, elems, mask)."""
+    import torch
+
+    from repro_torch.core import indexing
+
+    def lv():
+        return tuple(torch.randn((n, w, *item), generator=gen, device=DEV).to(torch.bfloat16)
+                     for w in indexing.bucket_sizes(b0, nlev))
+
+    groups = (lv(), lv())
+    elems = tuple(torch.randn((n, m, *item), generator=gen, device=DEV).to(torch.bfloat16)
+                  for _ in groups)
+    mask = torch.rand((n, m), generator=gen, device=DEV) < p_live
+    return groups, elems, mask
+
+
+def decode_inputs(gen):
+    """The Engine's decode append, K3's two-group timed shape: 4 sequences,
+    m = 1, k and v items (2, 128) bf16 over the two levels of a cache grown
+    once → (groups, sizes, elems, mask)."""
+    import torch
+
+    sizes = torch.randint(SERVE_SLAB, 2 * SERVE_SLAB, (SERVE_PROMPTS,), generator=gen, device=DEV,
+                          dtype=torch.int32)
+    groups, elems, mask = multi_inputs(gen, SERVE_PROMPTS, SERVE_SLAB, 2, 1, (2, 128))
+    return groups, sizes, elems, mask
 
 
 def make_payload(gen):
@@ -660,6 +726,172 @@ def paged_cases(card: str, payload, note, timing) -> None:
     del exts, wide, owners, bases, pages
     torch.cuda.empty_cache()
     gather_edge_cases(note)
+
+
+def append_edge_cases(card: str, note) -> None:
+    """K3 and K12 at the edges of the tile-parallel row scan and of their
+    copies, each held bitwise against its plain version (K3 counted and
+    uncounted, its counters equal to ``ref.counters``), from a generator of
+    their own: m at a tile's edges (tile - 1, tile, tile + 1) and over many
+    tiles, all-masked and all-live rows, f32 / int32 / bf16 / f16 payloads
+    in 16-, 4- and 2-byte copy units (and 1-byte for K12's byte items; K3
+    takes no 1-byte payload); K3 on sizes at a level boundary and waves past
+    the last level, and at m = 1 with one to four groups of mixed item
+    sizes; K12 on fuzzed owner tables (owner -1, owners past N, overlapping
+    windows, misaligned bases), arena tables whose claimed slabs end inside
+    the wave, and a sparse mask whose slab windows span many tiles."""
+    import torch
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels import common
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.paged import ref as r_pg
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+    from repro_torch.obs import device as obs_device
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(19)
+    payload = make_payload(gen)
+
+    def payload8(shape, dtype):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=dtype)
+        return payload(shape, dtype)
+
+    def item_bytes(t, lead):
+        n = t.element_size()
+        for d in t.shape[lead:]:
+            n *= d
+        return n
+
+    seen = {"push_back_cases": 0, "slab_append_cases": 0, "k3_plans": set(), "k12_plans": set(),
+            "k3_units": set(), "k12_units": set()}
+
+    def k3(n, b0, nlev, m, groups, p_live, sizes=None):
+        """groups: ((item, dtype), ...) sharing one mask."""
+        cap = indexing.capacity(b0, nlev)
+        if sizes is None:
+            sizes = torch.randint(0, cap + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+        levels = tuple(tuple(payload((n, w, *it), dt) for w in indexing.bucket_sizes(b0, nlev))
+                       for it, dt in groups)
+        elems = tuple(payload((n, m, *it), dt) for it, dt in groups)
+        mask = torch.rand((n, m), generator=gen, device=dev) < p_live
+        a, b = clone_tree(levels), clone_tree(levels)
+        sa, pa = k_pb.push_back_cuda_multi(a, sizes, b0, elems, mask)
+        sb, pb_, blk = k_pb.push_back_cuda_multi(b, sizes, b0, elems, mask, instrument=True)
+        pairs = []
+        for g, (lv, e) in enumerate(zip(levels, elems)):
+            want = clone_tree(lv)
+            _, ws, wp = r_pb.push_back(want, sizes, b0, e, mask)
+            pairs += [*zip(a[g], want), *zip(b[g], want), (sa, ws), (pa, wp), (sb, ws), (pb_, wp)]
+        pairs.append((obs_device.from_block(blk), r_pb.counters(mask, sizes, b0, nlev)))
+        note("push_back" if len(groups) == 1 else "push_back_multi", pairs)
+        unit = [common.copy_unit(item_bytes(e, 2), e, *lv) for e, lv in zip(elems, levels)]
+        seen["k3_plans"].add(tuple(k_pb.push_back_plan(m, sum(item_bytes(e, 2) // u for e, u in zip(elems, unit)))))
+        seen["k3_units"].update(unit)
+        seen["push_back_cases"] += 1
+
+    f32, i32, bf16, f16 = torch.float32, torch.int32, torch.bfloat16, torch.float16
+    tile = 256 * common.SCAN_PER  # K3's tile at m > 64 lanes of one unit
+    for m in (tile - 1, tile, tile + 1, 3 * tile + 5, 40_000):
+        for p_live in (0.6, 0.0, 1.0):
+            k3(3, 8, 12, m, [((), f32)], p_live)
+    # sizes at a level's first and last slot and past the capacity; a wave
+    # that runs past the last level
+    b0, nlev = 16, 6
+    starts = indexing.bucket_starts(b0, nlev)
+    cap = indexing.capacity(b0, nlev)
+    edge = [starts[2], starts[2] - 1, starts[4], starts[5] - 1, cap - 3, cap, cap + 7]
+    sizes = torch.tensor(edge, dtype=torch.int32, device=dev)
+    for m in (1, 40, tile + 1):
+        k3(len(edge), b0, nlev, m, [((), i32)], 0.9, sizes)
+        k3(len(edge), b0, nlev, m, [((2, 8), bf16), ((3,), f32)], 1.0, sizes)
+    # m = 1 with one to four groups of mixed items: 16-byte (512 B bf16),
+    # 4-byte (12 B f32) and 2-byte (10 B f16) units, and int32 scalars
+    mixed = [((2, 128), bf16), ((3,), f32), ((5,), f16), ((), i32)]
+    for ng in range(1, 5):
+        for n in (1, 4, 37):
+            k3(n, SERVE_SLAB // 64, 3, 1, mixed[:ng], 1.0)
+            k3(n, 4, 3, 1, mixed[:ng][::-1], 0.5)
+    for it, dt in mixed + [((2, 128), f16), ((2, 8), f32)]:
+        k3(5, 4, 9, 130, [(it, dt)], 0.6)
+    # 128-thread blocks: 96 and 128 16-byte units a row
+    k3(4, 8, 3, 1, [((2, 128), bf16)] * 3, 1.0)
+    k3(4, 8, 3, 2, [((2, 128), bf16)] * 2, 0.5)
+
+    def k12(N, T, m, item, dtype, mask, owners, bases, sizes, layout="flat"):
+        S = owners.shape[0]
+        sizes_e = _extent_sizes(S, layout)
+        total = sum(sizes_e)
+        if total > S:  # the layout's extra slabs are free
+            owners = torch.cat([owners, torch.full((total - S,), -1, dtype=torch.int32, device=dev)])
+            bases = torch.cat([bases, torch.zeros((total - S,), dtype=torch.int32, device=dev)])
+        exts = _split(payload8((total, T, *item), dtype), sizes_e)
+        elems = payload8((N, m, *item), dtype)
+        work = clone_tree(exts)
+        ns, pos = k_pg.slab_append_cuda(work, owners, bases, sizes, elems, mask)
+        flat = torch.cat([e.reshape(e.shape[0], T, -1) for e in exts])
+        want_pool, want_sizes, want_pos = r_pg.slab_append(flat, owners, bases, sizes,
+                                                           elems.reshape(N, m, -1), mask)
+        got_pool = torch.cat([w.reshape(w.shape[0], T, -1) for w in work])
+        note("slab_append", [(got_pool, want_pool), (ns, want_sizes), (pos, want_pos)])
+        ib = item_bytes(elems, 2)
+        seen["k12_plans"].add(tuple(k_pg.append_plan(m, ib, T)))
+        seen["k12_units"].add(common.copy_unit(ib, elems, *work))
+        seen["slab_append_cases"] += 1
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def covering(N, T, m, mask, sizes, short=0):
+        """Arena tables whose claimed slabs cover each array's wave, less
+        ``short`` slabs (its last live lanes then land past every slab)."""
+        after = (sizes + mask.sum(1, dtype=torch.int32)).cpu().tolist()
+        npages = [max(-(-a // T) - short, 0) for a in after]
+        owners, bases, _ = _arena_tables(npages, sum(npages) + 3, T, gen)
+        return owners, bases
+
+    # the scan pass's tile edges (64 threads up to 1024 lanes, 128 to 2048,
+    # 256 above: tiles of 1024, 2048 and 4096 lanes) and many tiles
+    N, T = 3, 64
+    for m in (1023, 1024, 1025, 2048, 2049, 4095, 4096, 4097, 20_000):
+        for p_live in (0.7, 0.0, 1.0):
+            mask = torch.rand((N, m), generator=gen, device=dev) < p_live
+            sizes = ints(0, 3 * T, (N,))
+            owners, bases = covering(N, T, m, mask, sizes, short=1 if p_live == 0.7 else 0)
+            k12(N, T, m, (), torch.float32, mask, owners, bases, sizes, "doubling" if m % 2 else "flat")
+    # a sparse mask: each 128-slot window spans about eight 4096-lane tiles
+    m = 60_000
+    mask = torch.rand((N, m), generator=gen, device=dev) < 0.004
+    sizes = ints(0, 300, (N,))
+    owners, bases = covering(N, 128, m, mask, sizes)
+    k12(N, 128, m, (), torch.int32, mask, owners, bases, sizes, "doubling")
+    # copy blocks of part of a slab: 2 KB items in 16-slot chunks, the last
+    # chunk of a 100-slot slab ragged
+    T, m = 100, 700
+    mask = torch.rand((N, m), generator=gen, device=dev) < 0.8
+    sizes = ints(0, 3 * T, (N,))
+    owners, bases = covering(N, T, m, mask, sizes, short=1)
+    k12(N, T, m, (8, 128), torch.bfloat16, mask, owners, bases, sizes, "doubling")
+    # fuzzed tables: free slabs, owners past N, overlapping windows,
+    # misaligned bases; payloads in 16-, 4-, 2- and 1-byte units
+    for item, dtype in (((8,), torch.float32), ((3,), torch.float32), ((3,), torch.float16),
+                        ((3,), torch.uint8), ((), torch.bfloat16), ((2, 128), torch.bfloat16)):
+        for m in (37, 4097):
+            T, N, P = 5, 7, 40
+            S = 40
+            owners = ints(-1, N + 1, (S,))
+            bases = ints(0, P, (S,)) * T + ints(-1, 2, (S,)) * ints(0, 2, (S,))
+            mask = torch.rand((N, m), generator=gen, device=dev) < 0.7
+            k12(N, T, m, item, dtype, mask, owners, bases, ints(0, 3 * T, (N,)), "tz")
+    emit({"phase": "kernel.append_edges", "card": card,
+          "push_back_cases": seen["push_back_cases"], "slab_append_cases": seen["slab_append_cases"],
+          "push_back_plans": sorted(seen["k3_plans"]), "slab_append_plans": sorted(seen["k12_plans"]),
+          "push_back_units": sorted(seen["k3_units"]), "slab_append_units": sorted(seen["k12_units"])})
+    check(seen["k3_units"] >= {16, 4, 2}, f"K3 edge cases missed a copy unit: {seen['k3_units']}")
+    check(seen["k12_units"] >= {16, 4, 2, 1}, f"K12 edge cases missed a copy unit: {seen['k12_units']}")
 
 
 def k12_inputs(gen, payload):
@@ -912,20 +1144,10 @@ def attend_case(res, q, pool_k, pool_v, pages, lens, layout):
 def push_back_multi_case(res, gen, n, b0, nlev, m, item, sizes, p_live=1.0):
     """The two-group K3 (k and v) against the plain push-back, group by
     group, bitwise."""
-    import torch
-
-    from repro_torch.core import indexing
     from repro_torch.kernels.push_back import kernel as k_pb
     from repro_torch.kernels.push_back import ref as r_pb
 
-    def lv():
-        return tuple(torch.randn((n, w, *item), generator=gen, device=DEV).to(torch.bfloat16)
-                     for w in indexing.bucket_sizes(b0, nlev))
-
-    groups = (lv(), lv())
-    elems = tuple(torch.randn((n, m, *item), generator=gen, device=DEV).to(torch.bfloat16)
-                  for _ in groups)
-    mask = torch.rand((n, m), generator=gen, device=DEV) < p_live
+    groups, elems, mask = multi_inputs(gen, n, b0, nlev, m, item, p_live)
     got = tuple(tuple(x.clone() for x in g) for g in groups)
     ns, pos = k_pb.push_back_cuda_multi(got, sizes, b0, elems, mask)
     pairs = []
@@ -1083,6 +1305,7 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
                           dtype=torch.int32)
     groups, elems, mask = push_back_multi_case(res, gen, SERVE_PROMPTS, SERVE_SLAB, 2, 1, (KH, D), sizes)
     item_bytes = KH * D * 2
+    plan = k_pb.push_back_plan(1, 2 * item_bytes // 16)
     timing["push_back_multi"] = dict(
         ms=graph_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50),
         plain_ms=graph_ms(lambda: [r_pb.push_back(g, sizes, SERVE_SLAB, e, mask)
@@ -1091,7 +1314,9 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
         bound=bound_ms(SERVE_PROMPTS * (1 + 4 + 4 + 4 + 4 * item_bytes), 0, card),
         shape=f"2 groups x 2 levels of ({SERVE_PROMPTS}, {SERVE_SLAB}*2^b, {KH}, {D}) bf16, "
               f"wave ({SERVE_PROMPTS}, 1); CUDA-graph times; one call from Python "
-              f"{cuda_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50)} ms",
+              f"{cuda_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50)} ms; "
+              f"launch floor (an empty kernel of the same {SERVE_PROMPTS} x {plan.threads} grid, same "
+              f"harness) {graph_ms(lambda: k_pb.empty_launch_cuda(torch.device(DEV), SERVE_PROMPTS, plan.threads), 50)} ms",
     )
     del groups, elems, mask
     torch.cuda.empty_cache()
@@ -2714,7 +2939,8 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
 AB_REPS = 5  # prefills a turn, after a warm-up
 AB_NEW = 16  # new tokens per BatchEngine request
 AB_ORDER = ("parent", "change", "change", "parent")
-AB_WHAT = ("prefill", "paged", "batch")
+AB_WHAT = ("prefill", "paged", "batch", "append")
+AB_DECODE_NEW = 24  # new tokens of the append turn's Engine run
 
 
 def ab_prefill(seed: int, cfg, params) -> dict:
@@ -2841,18 +3067,92 @@ def ab_batch(seed: int, cfg, params) -> dict:
             "batch_step_ms": steps}
 
 
+def ab_append(card: str, seed: int, cfg, params) -> dict:
+    """The two append kernels at the kernel phase's timed shapes (its input
+    builders, drawn from a generator of their own): K12 on the scalar
+    arena's last grow wave and on the KV prefill wave; K3 on the main
+    path's last grow wave, without and with counters (plain, counted,
+    counted, plain) and in CUDA-graph replays, and on the Engine's decode
+    append (two groups, m = 1) in CUDA-graph replays, with and without
+    counters, and called once from Python.  Then the paths that run them: the GGArray main path's grow
+    (K3) and arena.doubling's grow (K12), eight waves each, and a few
+    ``Engine(policy="ggarray")`` decode steps (the two-group K3 in every
+    layer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.paged import kernel as k_pg
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.pool import SlabArena
+    from repro_torch.runtime import TwoPhasePipeline
+    from repro_torch.serving import steps
+    from repro_torch.serving.engine import Engine
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 19)
+    payload = make_payload(gen)
+    t = {}
+    exts, owners, bases, sizes, elems, mask, _ = k12_inputs(gen, payload)
+    t["k12_ms"] = cuda_ms(lambda: k_pg.slab_append_cuda(exts, owners, bases, sizes, elems, mask), 10)
+    del exts, owners, bases, sizes, elems, mask
+    torch.cuda.empty_cache()
+    pool, owners, bases, zeros, elems, mask, _ = kv_inputs(gen, payload)
+    t["k12_kv_ms"] = cuda_ms(lambda: k_pg.slab_append_cuda((pool,), owners, bases, zeros, elems, mask), 5)
+    del pool, owners, bases, zeros, elems, mask
+    torch.cuda.empty_cache()
+    levels, elems, mask, sizes = k3_inputs(gen, payload)
+    t["k3_ms"], t["k3_counted_ms"] = _halves(
+        lambda: k_pb.push_back_cuda(levels, sizes, B0, elems, mask),
+        lambda: k_pb.push_back_cuda(levels, sizes, B0, elems, mask, instrument=True), cuda_ms, 10)
+    t["k3_graph_ms"] = graph_ms(lambda: k_pb.push_back_cuda(levels, sizes, B0, elems, mask), 5)
+    del levels, elems, mask, sizes
+    torch.cuda.empty_cache()
+    groups, sizes, elems, mask = decode_inputs(gen)
+    t["k3_decode_graph_ms"], t["k3_decode_graph_counted_ms"] = _halves(
+        lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask),
+        lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask, instrument=True),
+        graph_ms, 50)
+    t["k3_decode_python_ms"] = cuda_ms(lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask), 50)
+    del groups, sizes, elems, mask
+
+    rng = np.random.default_rng(seed + 19)
+    pipe = TwoPhasePipeline(nblocks=NBLOCKS, b0=B0, device=DEV)
+    t["main_grow_s"] = grow(pipe, rng, B0, "auto", card)[1]
+    del pipe
+    torch.cuda.empty_cache()
+    arena = SlabArena(NBLOCKS, B0, dtype=torch.float32, grow_chunk="doubling", device=DEV)
+    t["arena_doubling_grow_s"] = grow(TwoPhasePipeline.from_arena(arena), rng, B0, "auto", card)[1]
+    del arena
+    torch.cuda.empty_cache()
+
+    lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
+    lens[-1] = SERVE_LEN  # the batch pads to it: a multiple of K13's tile, as in serve.engine
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    eng = Engine(params, cfg, device=DEV)
+    with StepTimer(steps, "decode_step") as timer:
+        eng.generate(prompts, AB_DECODE_NEW)
+    step_ms = timer.step_ms()
+    t.update(engine_decode_steps=len(step_ms), engine_step_ms_median=step_ms[len(step_ms) // 2],
+             engine_step_ms=step_ms)
+    del eng
+    torch.cuda.empty_cache()
+    return t
+
+
 def ab_turn(card: str, seed: int, what: list) -> dict:
     """One turn of ``--ab``: the timings named in ``what``, with whichever
     checkout's ``repro_torch`` this process imported."""
     t = {"phase": "ab.turn", "card": card}
     if "paged" in what:
         t.update(ab_paged(seed))
-    if "prefill" in what or "batch" in what:
+    if "prefill" in what or "batch" in what or "append" in what:
         cfg, params = serve_model(seed)
         if "prefill" in what:
             t.update(ab_prefill(seed, cfg, params))
         if "batch" in what:
             t.update(ab_batch(seed, cfg, params))
+        if "append" in what:
+            t.update(ab_append(card, seed, cfg, params))
     return t
 
 

@@ -41,24 +41,39 @@
 // K12 replaces src/repro/kernels/paged/kernel.py::slab_append_pallas: a
 // wave (N, m, item) with its mask lands at positions sizes[n] + exclusive
 // scan of the mask, through slab ownership — slot j of slab s holds
-// logical position bases[s] + j of array owners[s].  Two kernels, launched
-// back to back on one stream:
-//   1. slab_compact — one block per array: the exclusive scan of the mask
-//      row in chunks of 1024 lanes (block_exclusive_scan, as in K3) writes
-//      the positions (-1 where masked) and the new sizes, and the block
-//      copies each chunk's live items, in order, into a scratch row
-//      (N, m, item) — coalesced, one unit per thread.
-//   2. slab_scatter — one block per slab of the whole pool (all extents in
-//      one launch): a slab owned by o copies the window
-//      [max(0, sizes[o] - bases[s]), min(T, sizes[o] + count[o] - bases[s]))
-//      of o's scratch row into its slots, a contiguous copy.  Slabs with
-//      owner -1 are never written; owners past N are clamped to N - 1, as
-//      the reference clamps them.  Live lanes that land past every claimed
-//      slab are written nowhere, yet keep their position and count.
+// logical position bases[s] + j of array owners[s].  Slabs with owner -1
+// are never written; owners past N are clamped to N - 1, as the reference
+// clamps them; two slabs with one window both get it; live lanes that land
+// past every claimed slab are written nowhere, yet keep their position and
+// count.  Bound: bytes — the mask and the wave read once, the live items
+// and the positions written once.  Up to three launches on one stream,
+// with no scratch the size of the wave:
+//   1. the count pass of common.cuh's tile-parallel row scan, where a row
+//      has more than one tile of NT * 16 lanes;
+//   2. slab_scan — grid (N x tiles): each block scans its tile, writes the
+//      positions (-1 where masked), and publishes the row's rank at every
+//      1024-lane segment's first lane (segpre, (N, nseg + 1) int32, the
+//      last entry the row's count); the row's last tile writes its new size;
+//   3. slab_copy — slab-major, no scratch: a block of 128 threads per
+//      chunk of a slab's slots (the whole slab for 4-byte items and
+//      2048-slot slabs; 16 slots of a 2 KB KV item).  Owner o and base b
+//      give the chunk its ranks [max(0, b - size_o), min(count_o, b -
+//      size_o + T)) cut to the chunk; the block counts over o's segment
+//      prefix for the segments holding those ranks (two or three at 0.9
+//      density; many where the mask is sparse), re-scans their mask bytes
+//      in windows of 2048 lanes to list rank -> lane in shared memory, then
+//      copies the items from the wave into the slab in the widest unit,
+//      reads in lane order and writes contiguous.  Each step waits on the
+//      one before (owner -> size and count -> segments -> mask -> items),
+//      so small blocks, sixteen a SM, hide that chain better than large
+//      ones (PERF.md).
 // This keeps the reference's semantics for any owners/bases table, also
-// ones the arena never builds (two slabs with one window both get it).
-// Bound: bytes — the mask and the wave read once, the live items and the
-// positions written once; the scratch round trip is above that bound.
+// ones the arena never builds, by construction: each slab copies its own
+// window.  Against the bound it re-reads the mask bytes of the segments
+// each slab covers (about 1.3 bytes a lane at the main shape) in place of
+// a scratch round trip of every live item (8 bytes a live f32 lane).
+// kernels/paged/kernel.py::append_plan and the rank search's twin
+// (rank_segments) are the plan in Python (tests/test_torch_append_plan.py).
 #include <climits>
 
 #include "common.cuh"
@@ -69,8 +84,9 @@ constexpr int kGatherThreads = 256;
 constexpr int kGatherPer = 2;                                    // pieces a thread
 constexpr int kGatherBlockPieces = kGatherThreads * kGatherPer;  // pieces a block
 constexpr int kGatherMaxPages = kGatherBlockPieces + 1;          // pages a block touches, at most
-constexpr int kCompactThreads = 1024;
-constexpr int kScatterThreads = 512;
+constexpr int kCopyThreads = 128;  // 16 blocks a SM to hide the copy block's chain of loads
+constexpr int kMaxChunk = 2048;  // slots a copy block, at most (kernel.py::APPEND_MAX_CHUNK)
+constexpr int kCopyUnroll = 4;   // units a thread has in flight
 
 // grid (nranges); block r copies pieces [r * kGatherBlockPieces, (r + 1) *
 // kGatherBlockPieces) of the output.
@@ -123,63 +139,116 @@ paged_gather_kernel(const int64_t* __restrict__ tbl, int next, int64_t n_slabs, 
   }
 }
 
-template <typename U>
-__global__ void __launch_bounds__(kCompactThreads)
-slab_compact_kernel(const unsigned char* __restrict__ mask, const int* __restrict__ sizes,
-                    const U* __restrict__ elems, U* __restrict__ scratch,
-                    int* __restrict__ pos_out, int* __restrict__ new_sizes, int64_t m,
-                    int64_t item_units) {
-  __shared__ int scan_smem[32];
-  __shared__ int lane_of[kCompactThreads];  // live item k of the chunk -> its lane
-  const int64_t row = blockIdx.x;
+// grid (N * tiles); block (row, tile): positions, new sizes, segment prefixes.
+template <int NT>
+__global__ void __launch_bounds__(NT, 1536 / NT)  // 40 registers: six 256-thread blocks a SM
+slab_scan_kernel(const unsigned char* __restrict__ mask, const int* __restrict__ sizes,
+                 const int* __restrict__ counts, int* __restrict__ pos_out,
+                 int* __restrict__ new_sizes, int* __restrict__ segpre, int64_t m, int tiles,
+                 int nseg) {
+  const int64_t row = blockIdx.x / tiles;
+  const int tile = static_cast<int>(blockIdx.x - row * tiles);
   const int size = sizes[row];
-  const U* src_row = elems + row * m * item_units;
-  U* dst_row = scratch + row * m * item_units;
-  int carry = 0;
-  for (int64_t j0 = 0; j0 < m; j0 += kCompactThreads) {
-    const int64_t j = j0 + threadIdx.x;
-    const int live = (j < m && mask[row * m + j] != 0) ? 1 : 0;
-    int total;
-    const int off = block_exclusive_scan<kCompactThreads>(live, scan_smem, &total);
-    if (j < m) pos_out[row * m + j] = live ? size + carry + off : -1;
-    if (live) lane_of[off] = static_cast<int>(j - j0);
-    __syncthreads();
-    const int64_t n_units = static_cast<int64_t>(total) * item_units;
-    U* dst = dst_row + static_cast<int64_t>(carry) * item_units;
-    for (int64_t q = threadIdx.x; q < n_units; q += kCompactThreads) {
-      const int64_t k = q / item_units;
-      const int64_t u = q - k * item_units;
-      dst[q] = src_row[(j0 + lane_of[k]) * item_units + u];
+  const TileScan s = tile_scan<NT>(mask + row * m, m, tile,
+                                  counts != nullptr ? counts + row * tiles : nullptr);
+  int* pt = pos_out + row * m + s.tile_lane0;
+  int* seg = segpre + row * (nseg + 1);
+#pragma unroll
+  for (int i = 0; i < kScanPer; ++i) {
+    const int o = i * NT + threadIdx.x;
+    if (o < s.lanes) {
+      pt[o] = (s.live >> i) & 1u ? size + s.rank[i] : -1;
+      if (o % kSegLanes == 0) seg[(s.tile_lane0 + o) / kSegLanes] = s.rank[i];  // thread 0
     }
-    __syncthreads();  // lane_of is rewritten by the next chunk
-    carry += total;
   }
-  if (threadIdx.x == 0) new_sizes[row] = size + carry;
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    seg[nseg] = s.tile_first + s.tile_total;
+    new_sizes[row] = size + s.tile_first + s.tile_total;
+  }
 }
 
+// grid (n_slabs * chunks); block (s, c) fills slots [c * chunk, (c + 1) *
+// chunk) of slab s where its owner's wave reaches them.
 template <typename U>
-__global__ void __launch_bounds__(kScatterThreads)
-slab_scatter_kernel(const int64_t* __restrict__ tbl, int next, const int* __restrict__ owners,
-                    const int* __restrict__ bases, const int* __restrict__ sizes,
-                    const int* __restrict__ new_sizes, const U* __restrict__ scratch,
-                    int64_t narrays, int64_t m, int64_t slab_size, int64_t item_units) {
-  const int64_t s = blockIdx.x;
+__global__ void __launch_bounds__(kCopyThreads)
+slab_copy_kernel(const int64_t* __restrict__ tbl, int next, const int* __restrict__ owners,
+                 const int* __restrict__ bases, const int* __restrict__ sizes,
+                 const int* __restrict__ segpre, const unsigned char* __restrict__ mask,
+                 const U* __restrict__ elems, int64_t narrays, int64_t m, int nseg, int64_t slab_size,
+                 int64_t item_units, int shift, int chunk, int chunks) {
+  constexpr int kWindow = kCopyThreads * kScanPer;  // lanes re-scanned a round
+  __shared__ int scan_smem[32];
+  __shared__ int lane_of[kMaxChunk];  // the chunk's k-th rank -> its lane in the row
+  const int tid = threadIdx.x;
+  const int64_t s = blockIdx.x / chunks;
+  const int c = static_cast<int>(blockIdx.x - s * chunks);
   const int owner = owners[s];
+  // the slab's address, its search overlapping the owner's load
+  U* const slab = reinterpret_cast<U*>(
+      slab_address(tbl, next, s, slab_size * item_units * static_cast<int64_t>(sizeof(U))));
   if (owner < 0) return;
   const int64_t own = owner < narrays ? owner : narrays - 1;
+  const int* seg = segpre + own * (nseg + 1);
   const int64_t size = sizes[own];
-  const int64_t count = static_cast<int64_t>(new_sizes[own]) - size;
+  const int64_t count = seg[nseg];
   const int64_t base = bases[s];
-  const int64_t lo = size - base > 0 ? size - base : 0;
-  const int64_t hi_raw = size + count - base;
-  const int64_t hi = hi_raw < slab_size ? hi_raw : slab_size;
-  if (lo >= hi) return;
-  U* dst = reinterpret_cast<U*>(
-      slab_address(tbl, next, s, slab_size * item_units * static_cast<int64_t>(sizeof(U))));
-  dst += lo * item_units;
-  const U* src = scratch + (own * m + base + lo - size) * item_units;
-  const int64_t n_units = (hi - lo) * item_units;
-  for (int64_t q = threadIdx.x; q < n_units; q += kScatterThreads) dst[q] = src[q];
+  // slot j <-> rank r = base + j - size, live where 0 <= r < count
+  int64_t j_lo = static_cast<int64_t>(c) * chunk, j_hi = j_lo + chunk;
+  if (j_hi > slab_size) j_hi = slab_size;
+  if (size - base > j_lo) j_lo = size - base;
+  if (size + count - base < j_hi) j_hi = size + count - base;
+  if (j_lo >= j_hi) return;  // the same for every thread of the block
+  const int64_t r_lo = base + j_lo - size, r_hi = base + j_hi - size;
+  // The segments holding ranks [r_lo, r_hi), counted over the prefix by
+  // the whole block (one round of loads, not a chain of them): g0, the last
+  // segment starting at or before r_lo, is the number of segments that do,
+  // less one; g1, the first starting at or past r_hi (nseg if none), the
+  // number of entries below r_hi.  seg is non-decreasing from seg[0] = 0.
+  int at_or_before = 0, below = 0;
+  for (int g = tid; g <= nseg; g += kCopyThreads) {
+    const int v = seg[g];
+    at_or_before += g < nseg && v <= r_lo ? 1 : 0;
+    below += v < r_hi ? 1 : 0;
+  }
+  const int g0 = block_sum<kCopyThreads>(at_or_before, scan_smem) - 1;
+  const int g1 = block_sum<kCopyThreads>(below, scan_smem);
+  const int64_t lane_end = static_cast<int64_t>(g1) * kSegLanes < m ? static_cast<int64_t>(g1) * kSegLanes : m;
+  const unsigned char* mrow = mask + own * m;
+  int64_t rank = seg[g0];
+  for (int64_t w0 = static_cast<int64_t>(g0) * kSegLanes; w0 < lane_end && rank < r_hi; w0 += kWindow) {
+    const int64_t lane0 = w0 + static_cast<int64_t>(tid) * kScanPer;
+    const uint32_t bits = lane0 < lane_end ? live_bits16(mrow, lane0, lane_end) : 0u;
+    int total;
+    int64_t r = rank + block_exclusive_scan<kCopyThreads>(__popc(bits), scan_smem, &total);
+#pragma unroll
+    for (int i = 0; i < kScanPer; ++i) {
+      if ((bits >> i) & 1u) {
+        if (r >= r_lo && r < r_hi) lane_of[r - r_lo] = static_cast<int>(lane0 + i);
+        ++r;
+      }
+    }
+    rank += total;
+  }
+  __syncthreads();
+  U* dst = slab + j_lo * item_units;
+  const U* src = elems + own * m * item_units;
+  const int64_t n_units = (j_hi - j_lo) * item_units;
+  for (int64_t q0 = tid; q0 < n_units; q0 += static_cast<int64_t>(kCopyThreads) * kCopyUnroll) {
+    U v[kCopyUnroll];
+#pragma unroll
+    for (int j = 0; j < kCopyUnroll; ++j) {  // every load first ...
+      const int64_t q = q0 + static_cast<int64_t>(j) * kCopyThreads;
+      if (q < n_units) {
+        const int64_t k = shift >= 0 ? q >> shift : q / item_units;
+        v[j] = __ldg(src + lane_of[k] * item_units + (q - k * item_units));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCopyUnroll; ++j) {  // ... then the stores
+      const int64_t q = q0 + static_cast<int64_t>(j) * kCopyThreads;
+      if (q < n_units) dst[q] = v[j];
+    }
+  }
 }
 
 template <typename U>
@@ -197,23 +266,36 @@ int launch_gather(const int64_t* tbl, int next, int64_t n_slabs, int clip_high,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NT>
+int launch_scan(const unsigned char* mask, const int* sizes, int* counts, int* pos_out,
+                int* new_sizes, int* segpre, int64_t narrays, int64_t m, int nseg,
+                cudaStream_t stream) {
+  const int64_t tiles = (m + NT * kScanPer - 1) / (NT * kScanPer);
+  if (narrays * tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto grid = static_cast<unsigned>(narrays * tiles);
+  if (tiles > 1) {
+    if (counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    row_tile_count_kernel<NT><<<grid, NT, 0, stream>>>(mask, m, static_cast<int>(tiles), counts);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  slab_scan_kernel<NT><<<grid, NT, 0, stream>>>(mask, sizes, tiles > 1 ? counts : nullptr, pos_out,
+                                                new_sizes, segpre, m, static_cast<int>(tiles), nseg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename U>
-int launch_append(const int64_t* tbl, int next, int64_t n_slabs, const int* owners,
-                  const int* bases, const int* sizes, const void* elems,
-                  const unsigned char* mask, void* scratch, int* pos_out, int* new_sizes,
-                  int64_t narrays, int64_t m, int64_t slab_size, int64_t item_bytes,
-                  cudaStream_t stream) {
+int launch_copy(const int64_t* tbl, int next, int64_t n_slabs, const int* owners, const int* bases,
+                const int* sizes, const int* segpre, const unsigned char* mask, const void* elems,
+                int64_t narrays, int64_t m, int nseg, int64_t slab_size, int64_t item_bytes,
+                int chunk, cudaStream_t stream) {
   const int64_t item_units = item_bytes / static_cast<int64_t>(sizeof(U));
-  if (narrays > INT_MAX || n_slabs > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  slab_compact_kernel<U><<<static_cast<unsigned>(narrays), kCompactThreads, 0, stream>>>(
-      mask, sizes, static_cast<const U*>(elems), static_cast<U*>(scratch), pos_out, new_sizes,
-      m, item_units);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_slabs == 0) return 0;
-  slab_scatter_kernel<U><<<static_cast<unsigned>(n_slabs), kScatterThreads, 0, stream>>>(
-      tbl, next, owners, bases, sizes, new_sizes, static_cast<const U*>(scratch), narrays, m,
-      slab_size, item_units);
+  const int shift = (item_units & (item_units - 1)) == 0 ? __builtin_ctzll(item_units) : -1;
+  const int64_t chunks = (slab_size + chunk - 1) / chunk;
+  if (n_slabs * chunks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  slab_copy_kernel<U><<<static_cast<unsigned>(n_slabs * chunks), kCopyThreads, 0, stream>>>(
+      tbl, next, owners, bases, sizes, segpre, mask, static_cast<const U*>(elems), narrays, m, nseg,
+      slab_size, item_units, shift, chunk, static_cast<int>(chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,30 +329,54 @@ extern "C" int rt_paged_gather(const void* table, int next, int64_t n_slabs, int
 }
 
 // table, next, n_slabs: as above.  owners, bases: (n_slabs,) int32.
-// sizes: (narrays,) int32.  elems, scratch: (narrays, m, item_bytes).
-// mask: (narrays, m) bool.  pos_out: (narrays, m) int32.  new_sizes:
-// (narrays,) int32.  The pool is written in place.
+// sizes: (narrays,) int32.  elems: (narrays, m, item_bytes).  mask:
+// (narrays, m) bool.  pos_out: (narrays, m) int32.  new_sizes: (narrays,)
+// int32.  threads, tiles, nseg64 and chunk: kernel.py::append_plan's (a
+// plan that differs from the kernel's own arithmetic is refused): the
+// scan pass's block, 64, 128 or 256; tiles = ceil(m / (16 threads)), and
+// where that is more than one, counts is (narrays * tiles) int32 scratch;
+// segpre is (narrays, nseg + 1) int32 scratch, nseg = ceil(m / 1024);
+// chunk, the slots a copy block, 1 .. kMaxChunk.  unit: the copy width in bytes (16,
+// 4, 2 or 1), dividing item_bytes and every pointer.  The pool is written
+// in place.
 extern "C" int rt_slab_append(const void* table, int next, int64_t n_slabs, const void* owners,
                               const void* bases, const void* sizes, const void* elems,
-                              const void* mask, void* scratch, void* pos_out, void* new_sizes,
-                              int64_t narrays, int64_t m, int64_t slab_size,
-                              int64_t item_bytes, int unit, void* stream) {
-  if (next < 1 || slab_size < 1 || item_bytes < 1 || item_bytes % unit != 0)
+                              const void* mask, void* counts, void* segpre, void* pos_out,
+                              void* new_sizes, int64_t narrays, int64_t m, int64_t slab_size,
+                              int64_t item_bytes, int unit, int threads, int64_t tiles,
+                              int64_t nseg64, int chunk, void* stream) {
+  if (next < 1 || slab_size < 1 || item_bytes < 1 || unit < 1 || item_bytes % unit != 0 ||
+      chunk < 1 || chunk > kMaxChunk || threads < 1 ||
+      tiles != (m + int64_t{threads} * kScanPer - 1) / (int64_t{threads} * kScanPer) ||
+      nseg64 != (m + kSegLanes - 1) / kSegLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (narrays <= 0 || m <= 0) return 0;
+  if (nseg64 >= INT_MAX || narrays > INT_MAX || n_slabs > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int nseg = static_cast<int>(nseg64);
   const auto* tbl = static_cast<const int64_t*>(table);
   const auto* own = static_cast<const int*>(owners);
   const auto* bas = static_cast<const int*>(bases);
   const auto* sz = static_cast<const int*>(sizes);
   const auto* mk = static_cast<const unsigned char*>(mask);
+  auto* cn = static_cast<int*>(counts);
+  auto* seg = static_cast<int*>(segpre);
   auto* pos = static_cast<int*>(pos_out);
   auto* ns = static_cast<int*>(new_sizes);
   auto s = static_cast<cudaStream_t>(stream);
+  int rc;
+  switch (threads) {
+    case 64: rc = launch_scan<64>(mk, sz, cn, pos, ns, seg, narrays, m, nseg, s); break;
+    case 128: rc = launch_scan<128>(mk, sz, cn, pos, ns, seg, narrays, m, nseg, s); break;
+    case 256: rc = launch_scan<256>(mk, sz, cn, pos, ns, seg, narrays, m, nseg, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0 || n_slabs == 0) return rc;
   switch (unit) {
-    case 16: return launch_append<uint4>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
-    case 4: return launch_append<uint32_t>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
-    case 2: return launch_append<uint16_t>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
-    case 1: return launch_append<unsigned char>(tbl, next, n_slabs, own, bas, sz, elems, mk, scratch, pos, ns, narrays, m, slab_size, item_bytes, s);
+    case 16: return launch_copy<uint4>(tbl, next, n_slabs, own, bas, sz, seg, mk, elems, narrays, m, nseg, slab_size, item_bytes, chunk, s);
+    case 4: return launch_copy<uint32_t>(tbl, next, n_slabs, own, bas, sz, seg, mk, elems, narrays, m, nseg, slab_size, item_bytes, chunk, s);
+    case 2: return launch_copy<uint16_t>(tbl, next, n_slabs, own, bas, sz, seg, mk, elems, narrays, m, nseg, slab_size, item_bytes, chunk, s);
+    case 1: return launch_copy<unsigned char>(tbl, next, n_slabs, own, bas, sz, seg, mk, elems, narrays, m, nseg, slab_size, item_bytes, chunk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,11 @@ a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
 * :func:`device_buffer`, the per-device scratch and ticket buffers of the
   split decode kernels (K14, K10/K11), made once and grown, never inside a
   CUDA-graph capture, and :func:`sm_count`, from which their split counts
-  and the paged gather's grid are sized.
+  and the paged gather's grid are sized;
+* the plan of the append kernels' tile-parallel row scan (K3, K12;
+  ``csrc/common.cuh``): :func:`scan_threads`, :func:`row_tiles`, and the
+  Python twins of what its passes compute, :func:`tile_counts` and
+  :func:`tile_ranks`.
 """
 from __future__ import annotations
 
@@ -47,6 +51,12 @@ __all__ = [
     "sm_count",
     "put_drop_",
     "scatter_levels_",
+    "SCAN_PER",
+    "SCAN_THREADS",
+    "scan_threads",
+    "row_tiles",
+    "tile_counts",
+    "tile_ranks",
 ]
 
 # Every CUDA kernel of the port, by the name its wrapper counts under.
@@ -273,3 +283,58 @@ def scatter_levels_(
     for b, level in enumerate(levels):
         li = pos - b0 * ((1 << b) - 1)  # level b starts at B0 (2^b - 1)
         put_drop_(level, (rows, li), valid & (li >= 0) & (li < (b0 << b)), elems)
+
+
+# The tile-parallel row scan of the append kernels (csrc/common.cuh): a row
+# of m mask lanes is cut into tiles of threads * SCAN_PER lanes, SCAN_PER
+# lanes a thread, and the grid is rows x tiles.
+SCAN_PER = 16  # kScanPer
+SCAN_THREADS = (64, 128, 256)  # the block sizes the kernels are built for
+
+
+def scan_threads(m: int, work: int) -> int:
+    """The block of an append kernel's scan pass: the fewest of
+    :data:`SCAN_THREADS` that hold a row's ``m`` lanes at SCAN_PER a thread
+    and ``work`` copy units (one a thread), at most 256.  So the Engine's
+    decode append (m = 1, k and v of 512 bytes in 16-byte units: 64 units)
+    is one block of 64 threads a row, and a wide wave 256."""
+    need = min(max(-(-m // SCAN_PER), work), SCAN_THREADS[-1])
+    return next(t for t in SCAN_THREADS if t >= need)
+
+
+def row_tiles(m: int, threads: int) -> int:
+    """Tiles a row of ``m`` lanes takes under blocks of ``threads``; where
+    it is more than one, a count pass writes each tile's live count first."""
+    return max(-(-m // (threads * SCAN_PER)), 1)
+
+
+def tile_counts(mask: np.ndarray, threads: int) -> np.ndarray:
+    """The count pass: ``mask`` (rows, m) → live lanes per tile, (rows, tiles)."""
+    rows, m = mask.shape
+    tiles = row_tiles(m, threads)
+    padded = np.zeros((rows, tiles * threads * SCAN_PER), bool)
+    padded[:, :m] = mask
+    return padded.reshape(rows, tiles, -1).sum(2).astype(np.int64)
+
+
+def tile_ranks(mask: np.ndarray, threads: int) -> tuple[np.ndarray, np.ndarray]:
+    """The write pass's ranks, as its blocks compute them: thread t of a
+    tile holds lanes t, t + threads, ..., t + 15·threads; row i of the tile
+    gives each warp a ballot, warp 0 scans the (row, warp) counts in lane
+    order from the sum of the row's earlier tile counts, and a lane adds
+    the live lanes below it in its warp's ballot → (rank of every lane
+    (rows, m), the row's exclusive tile prefix (rows, tiles + 1))."""
+    rows, m = mask.shape
+    counts = tile_counts(mask, threads)
+    tiles = counts.shape[1]
+    prefix = np.zeros((rows, tiles + 1), np.int64)
+    np.cumsum(counts, 1, out=prefix[:, 1:])
+    tl = threads * SCAN_PER
+    padded = np.zeros((rows, tiles * tl), np.int64)
+    padded[:, :m] = mask
+    lanes = padded.reshape(rows, tiles, SCAN_PER, threads // 32, 32)  # (row, tile, i, warp, lane)
+    warp_counts = lanes.sum(4).reshape(rows, tiles, -1)  # in (i, warp) order: lane order
+    warp_first = (np.cumsum(warp_counts, 2) - warp_counts).reshape(lanes.shape[:4])
+    below = np.cumsum(lanes, 4) - lanes
+    ranks = prefix[:, :tiles, None, None, None] + warp_first[..., None] + below
+    return ranks.reshape(rows, -1)[:, :m], prefix

@@ -13,7 +13,8 @@ aliased pool.  The gather and the attention take ``instrument=True``: they
 launch their counting instantiations (K15) and also return the ``(NSLOTS,)``
 int32 counter block (``obs/device.py``).
 
-The gather's plan (:func:`gather_plan`) and the attention's split count
+The gather's plan (:func:`gather_plan`), the append's
+(:func:`append_plan`) and the attention's split count
 (:func:`attend_splits`) are computed here from shapes (and, for the split,
 the SM count), never from data.  The attention is one launch: its blocks
 merge through a scratch of partial states and ticket counters that live
@@ -26,13 +27,15 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, common
 from repro_torch.obs import device as obs_device
 
 __all__ = ["paged_gather_cuda", "slab_append_cuda", "paged_attend_cuda", "gather_plan",
-           "attend_splits", "attend_buffers", "GatherPlan"]
+           "attend_splits", "attend_buffers", "GatherPlan", "append_plan", "AppendPlan",
+           "slab_window", "rank_segments"]
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -51,8 +54,9 @@ def _lib():
     if lib.rt_gather_block_pieces() != GATHER_BLOCK_PIECES:
         raise RuntimeError("paged_gather: the library's block size differs from gather_plan's")
     lib.rt_slab_append.argtypes = [
-        _c, _int, _i64, _c, _c, _c, _c, _c, _c, _c, _c,  # table .. new_sizes
-        _i64, _i64, _i64, _i64, _int, _c,  # narrays, m, T, item_bytes, unit, stream
+        _c, _int, _i64, _c, _c, _c, _c, _c, _c, _c, _c, _c,  # table .. new_sizes
+        _i64, _i64, _i64, _i64, _int,  # narrays, m, T, item_bytes, unit
+        _int, _i64, _i64, _int, _c,  # threads, tiles, nseg, chunk, stream
     ]
     lib.rt_slab_append.restype = _int
     lib.ready = True
@@ -96,6 +100,59 @@ def gather_plan(npages: int, slab_bytes: int, unit: int) -> GatherPlan:
     slab_units = slab_bytes // unit
     pieces = npages * slab_units
     return GatherPlan(slab_units, pieces, -(-pieces // GATHER_BLOCK_PIECES))
+
+
+# The append's plan (csrc/paged.cu): the row scan of csrc/common.cuh, whose
+# write pass publishes each row's rank at every APPEND_SEG_LANES lanes, then
+# a copy block per chunk of a slab's slots.
+APPEND_SEG_LANES = 1024  # kSegLanes
+APPEND_MAX_CHUNK = 2048  # kMaxChunk: slots a copy block, at most
+APPEND_CHUNK_BYTES = 32 << 10  # a copy block's item bytes, where the slab allows
+
+
+class AppendPlan(NamedTuple):
+    threads: int  # the scan pass's block: 64, 128 or 256
+    tiles: int  # tiles a row, of threads * 16 lanes
+    count_pass: bool  # a count pass runs before the scan pass
+    segments: int  # rank-search segments a row: ceil(m / APPEND_SEG_LANES)
+    chunk: int  # slots a copy block
+    chunks: int  # copy blocks a slab
+
+
+def append_plan(m: int, item_bytes: int, T: int) -> AppendPlan:
+    """K12's launch for a wave of ``m`` lanes a row of ``item_bytes`` items
+    into slabs of ``T`` slots: the scan pass's block from m alone (it copies
+    nothing), and copy blocks of the largest power-of-two chunk of slots
+    within APPEND_CHUNK_BYTES, at most APPEND_MAX_CHUNK and T — a whole
+    2048-slot slab of 4-byte items, 16 slots of a 2 KB KV item."""
+    threads = common.scan_threads(m, 0)
+    tiles = common.row_tiles(m, threads)
+    chunk = 1 << max(APPEND_CHUNK_BYTES // max(item_bytes, 1), 1).bit_length() - 1
+    chunk = max(min(chunk, APPEND_MAX_CHUNK, T), 1)
+    return AppendPlan(threads, tiles, tiles > 1, -(-m // APPEND_SEG_LANES), chunk, -(-T // chunk))
+
+
+def slab_window(c: int, chunk: int, T: int, base: int, size: int, count: int) -> tuple[int, int]:
+    """The slots ``[j_lo, j_hi)`` that copy block ``c`` of a slab fills (empty
+    where ``j_lo >= j_hi``): slot j holds rank ``base + j − size`` of its
+    owner's wave, live where ``0 ≤ rank < count``, cut to the chunk's
+    ``[c · chunk, (c + 1) · chunk) ∩ [0, T)``."""
+    j_lo = max(c * chunk, size - base)
+    j_hi = min(c * chunk + chunk, T, size + count - base)
+    return j_lo, j_hi
+
+
+def rank_segments(seg, r_lo: int, r_hi: int) -> tuple[int, int]:
+    """The copy block's search of its owner's segment prefix ``seg``
+    (``nseg + 1`` entries, non-decreasing, ``seg[0] = 0``, ``seg[nseg]`` the
+    count) for ranks ``[r_lo, r_hi)``, ``0 ≤ r_lo < r_hi ≤ seg[nseg]`` →
+    ``(g0, g1)``: g0 the last segment starting at or before ``r_lo`` (the
+    segments that do, less one), g1 the first after it starting at or past
+    ``r_hi`` (the entries below ``r_hi``); the ranks' lanes lie in segments
+    ``g0 .. g1 − 1``.  The block counts both in one round of loads."""
+    seg = np.asarray(seg)
+    nseg = len(seg) - 1
+    return int((seg[:nseg] <= r_lo).sum()) - 1, int((seg < r_hi).sum())
 
 
 ATTEND_HEAD_DIMS = (16, 32, 64, 128)
@@ -209,6 +266,9 @@ def slab_append_cuda(
     mask: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K12 → (new sizes, positions); the extents are written in place.
+    One call, counted once, issues up to three kernels (:func:`append_plan`);
+    beyond its outputs it allocates only the ``(N, tiles)`` tile counts and
+    the ``(N, m / 1024 + 1)`` segment prefixes.
 
     ``extents``: each ``(S_e, T, *item)`` in global slab-id order;
     ``owners``/``bases``: ``(n_slabs,)`` int32; ``sizes``: ``(N,)`` int32;
@@ -234,16 +294,19 @@ def slab_append_cuda(
         return new_sizes, pos
     live = tuple(e for e in extents if e.shape[0] > 0) or extents[:1]
     item_bytes = _item_bytes(elems, item)
-    scratch = torch.empty_like(elems)
-    unit = common.copy_unit(item_bytes, elems, scratch, *live)
+    unit = common.copy_unit(item_bytes, elems, *live)
+    plan = append_plan(m, item_bytes, T)
+    counts = torch.empty(N * plan.tiles, dtype=torch.int32, device=dev) if plan.count_pass else None
+    segpre = torch.empty((N, plan.segments + 1), dtype=torch.int32, device=dev)
     table = common.extent_table(live)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.rt_slab_append(
             table.data_ptr(), len(live), n_slabs, owners.data_ptr(), bases.data_ptr(),
-            sizes.data_ptr(), elems.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
-            pos.data_ptr(), new_sizes.data_ptr(), N, m, T, item_bytes, unit,
-            common.stream_of(dev),
+            sizes.data_ptr(), elems.data_ptr(), mask.data_ptr(),
+            counts.data_ptr() if counts is not None else None, segpre.data_ptr(),
+            pos.data_ptr(), new_sizes.data_ptr(), N, m, T, item_bytes, unit, plan.threads,
+            plan.tiles, plan.segments, plan.chunk, common.stream_of(dev),
         )
     common.check_status(rc, lib, "slab_append")
     common.count_launch("slab_append")

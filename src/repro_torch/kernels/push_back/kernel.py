@@ -9,10 +9,15 @@ mask (the KV cache's k and v), each with its own item size.
 
 ``instrument=True`` launches the counting instantiation (K15) and returns
 its ``(NSLOTS,)`` int32 counter block (``obs/device.py``) as a third output.
+
+The launch follows :func:`push_back_plan`, from shapes alone: the row scan's
+block size from m and the copy units a lane carries, the tiles a row takes,
+and whether a count pass runs first (a row of one tile is one launch).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,9 +25,10 @@ from repro_torch.core import indexing
 from repro_torch.kernels import _build, common
 from repro_torch.obs import device as obs_device
 
-__all__ = ["push_back_cuda", "push_back_cuda_multi", "PAYLOAD_DTYPES"]
+__all__ = ["push_back_cuda", "push_back_cuda_multi", "push_back_plan", "PushBackPlan",
+           "empty_launch_cuda", "PAYLOAD_DTYPES"]
 
-# Payloads are copied as 2- or 4-byte words.
+# Payloads are copied as bits, in units of 16, 4, 2 or 1 bytes.
 PAYLOAD_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.float16)
 MAX_LEVELS = 32
 MAX_GROUPS = 4  # csrc/push_back.cu kMaxGroups
@@ -33,13 +39,46 @@ _i64 = ctypes.c_int64
 
 def _lib():
     lib = _build.library("push_back")
+    if getattr(lib, "ready", False):  # argument types set once per library
+        return lib
     lib.rt_push_back.argtypes = [
-        _c, _c, _c, ctypes.c_int, ctypes.c_int,  # tables, ngroups, nlevels
-        _c, _c, _c, _c,  # mask, sizes, pos_out, new_sizes
-        _i64, _i64, _i64, _c, _c,  # nblocks, m, b0, ctr, stream
+        _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,  # tables, units, ngroups, nlevels
+        _c, _c, _c, _c, _c,  # mask, sizes, counts, pos_out, new_sizes
+        _i64, _i64, _i64, ctypes.c_int, _i64, _c, _c,  # nblocks, m, b0, threads, tiles, ctr, stream
     ]
     lib.rt_push_back.restype = ctypes.c_int
+    lib.rt_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, _c]
+    lib.rt_empty_launch.restype = ctypes.c_int
+    lib.ready = True
     return lib
+
+
+class PushBackPlan(NamedTuple):
+    threads: int  # the block: 64, 128 or 256
+    tiles: int  # tiles a row, of threads * 16 lanes
+    count_pass: bool  # a count pass runs before the write pass
+
+
+def push_back_plan(m: int, units: int) -> PushBackPlan:
+    """K3's launch for a wave of ``m`` lanes a row whose live lane carries
+    ``units`` copy units over all its groups: the block holds the row's
+    lanes or the units, at most 256 threads (``common.scan_threads``); a
+    row of more than one tile takes a count pass first.  The Engine's
+    decode append (m = 1, k and v of 32 16-byte units each) is one launch
+    of 64-thread blocks."""
+    threads = common.scan_threads(m, m * units)
+    tiles = common.row_tiles(m, threads)
+    return PushBackPlan(threads, tiles, tiles > 1)
+
+
+def empty_launch_cuda(dev: torch.device, blocks: int, threads: int) -> None:
+    """Launch an empty kernel of ``blocks`` x ``threads`` on ``dev``'s
+    current stream: the launch floor that K3's decode append is timed
+    against.  Not a port kernel, and not counted."""
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.rt_empty_launch(blocks, threads, common.stream_of(dev))
+    common.check_status(rc, lib, "empty_launch")
 
 
 def push_back_cuda(
@@ -95,7 +134,7 @@ def push_back_cuda_multi(
     common.check_tensor(sizes, "push_back sizes", device=dev, dtypes=(torch.int32,),
                         shape=(nblocks,))
     widths = indexing.bucket_sizes(b0, nlevels)
-    item_bytes = []
+    item_bytes, unit_bytes = [], []
     for g, (levels, elems) in enumerate(zip(level_groups, elem_groups)):
         common.check_tensor(elems, f"push_back elems[{g}]", device=dev, dtypes=PAYLOAD_DTYPES)
         if tuple(elems.shape[:2]) != (nblocks, m):
@@ -111,6 +150,7 @@ def push_back_cuda_multi(
         for d in item:
             nbytes *= d
         item_bytes.append(nbytes)
+        unit_bytes.append(common.copy_unit(nbytes, elems, *levels))
     pos = torch.empty((nblocks, m), dtype=torch.int32, device=dev)
     new_sizes = torch.empty_like(sizes)
     block = obs_device.new_block(dev) if instrument else None
@@ -119,17 +159,21 @@ def push_back_cuda_multi(
         return (new_sizes, pos) if block is None else (new_sizes, pos, block)
     lib = _lib()
     ngroups = len(level_groups)
+    plan = push_back_plan(m, sum(n // u for n, u in zip(item_bytes, unit_bytes)))
+    counts = (torch.empty(nblocks * plan.tiles, dtype=torch.int32, device=dev)
+              if plan.count_pass else None)
     level_ptrs = (ctypes.c_void_p * (ngroups * nlevels))(
         *(lv.data_ptr() for levels in level_groups for lv in levels))
     elem_ptrs = (ctypes.c_void_p * ngroups)(*(e.data_ptr() for e in elem_groups))
     nbytes = (ctypes.c_int64 * ngroups)(*item_bytes)
+    units = (ctypes.c_int * ngroups)(*unit_bytes)
     with torch.cuda.device(dev):
         rc = lib.rt_push_back(
             ctypes.cast(level_ptrs, _c), ctypes.cast(elem_ptrs, _c),
-            ctypes.cast(nbytes, _c), ngroups, nlevels,
-            mask.data_ptr(), sizes.data_ptr(), pos.data_ptr(), new_sizes.data_ptr(),
-            nblocks, m, b0, block.data_ptr() if block is not None else None,
-            common.stream_of(dev),
+            ctypes.cast(nbytes, _c), ctypes.cast(units, _c), ngroups, nlevels,
+            mask.data_ptr(), sizes.data_ptr(), counts.data_ptr() if counts is not None else None,
+            pos.data_ptr(), new_sizes.data_ptr(), nblocks, m, b0, plan.threads, plan.tiles,
+            block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
     # one launch either way; the multi-group launch (the KV cache's k and v)
     # is counted apart so a run shows which of the two it went through

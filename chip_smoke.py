@@ -2,14 +2,16 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch,append]   # two checkouts, in turns
+    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch,append,freeze]   # two checkouts, in turns
 
 Run from the root of the repository.  Phases, one JSON line each:
 
 1. device — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build — every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc``.
 3. kernels — K1 (row scan), K3 (push-back, one group and the KV cache's
-   two), K6 (compaction), K7 (segmented gather), K8/K9 (paged gather, one
+   two), K6 (compaction), K7 (segmented gather, from the plane and from
+   the bucket levels; the levels form also timed beside K6 then K7 on the
+   plane, a ``kernel.levels`` line), K8/K9 (paged gather, one
    extent / many) and K12 (slab append) against their plain PyTorch
    versions, bitwise; K13 (flash prefill) within the reference tests'
    attention tolerances and K10/K11 (paged decode attention) within 1e-4
@@ -23,7 +25,14 @@ Run from the root of the repository.  Phases, one JSON line each:
    Sq < Skv, two launches at the serving shape bitwise equal, and a bf16
    view off the 16-byte grid refused; timed in a CUDA graph.
    K2 (tensor-core scan) bitwise on int32 masks and full-range int32, f32
-   within rtol 1e-3 / atol 1e-4; K5a (dispatch) and K5b (combine) bitwise
+   within rtol 1e-3 / atol 1e-4, also at the edges of its chained tiles
+   (``freeze_edge_cases``: cols 1, 31, 32, 33 and around and past the tile
+   width, rows 1 and no multiple of 16, a status-buffer growth refused
+   under a CUDA-graph capture, 20 replays then an eager launch bitwise
+   equal in int32 and f32, the status words and ticket left zero), and K7
+   in both forms, counted and uncounted, at the edges of its ranges (many
+   owners a range, empty blocks at range edges, gaps, live items past cap,
+   cap = 1, ragged tails, 2-byte items, odd starts); K5a (dispatch) and K5b (combine) bitwise
    with unique positions, up to the freeze's 2.7e8 lanes (repeated
    positions: int32 bitwise, floats within 1e-5 / 2e-2); K14 (flash-decode)
    within 2 ulps (bf16) / 256 ulps (f32) of the output's largest magnitude,
@@ -67,9 +76,14 @@ Run from the root of the repository.  Phases, one JSON line each:
    (BatchEngine's steady decode steps) and ``append`` (K12 at the main and
    KV shapes, K3 at the main shape and at the decode append in CUDA-graph
    replays and from Python, with and without counters; the main path's
-   and arena.doubling's grow; a few Engine decode steps).
+   and arena.doubling's grow; a few Engine decode steps) and ``freeze``
+   (K2 on the last grow wave from Python and in CUDA-graph replays, K7 on
+   the freeze's plane with and without counters, ``flatten_segmented`` at
+   the main shape with its kernels' device times, main.freeze's and
+   main.mxu's grow and freeze).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
-   doubling waves to about 2.4e8 float32 elements, frozen, read at 2^24
+   doubling waves to about 2.4e8 float32 elements, frozen (K7 reading the
+   levels; no K6 launch, which the path checks), read at 2^24
    random indices and checked bitwise against a numpy expectation; thawed,
    grown by one more wave, refrozen and checked again; the same at one
    eighth of the size with ``method="tile"``; then 16 steady-state appends
@@ -208,7 +222,9 @@ KERNELS = {
                       "src/repro/kernels/common.py:214"),
 }
 
-SLICE1_KERNELS = ("row_scan", "push_back", "compact_blocks", "segmented_gather")
+# The main path's kernels: its segmented freezes read the levels (K7's
+# levels form), so K6 is not among them; main.mxu's dispatch freeze runs it.
+SLICE1_KERNELS = ("row_scan", "push_back", "segmented_gather")
 
 NBLOCKS, B0, NWAVES = 512, 2048, 8
 STEADY_M, STEADY_WAVES = 64, 16
@@ -336,6 +352,7 @@ def kernel_phase(card: str, gen) -> dict:
 
     from repro_torch.core import indexing
     from repro_torch.kernels.flatten import kernel as k_fl
+    from repro_torch.kernels.flatten import ops as fl_ops
     from repro_torch.kernels.flatten import ref as r_fl
     from repro_torch.kernels.push_back import kernel as k_pb
     from repro_torch.kernels.push_back import ref as r_pb
@@ -372,8 +389,11 @@ def kernel_phase(card: str, gen) -> dict:
         note("compact_blocks", [(ca, cb)])
         starts = indexing.block_starts(sizes)
         ends = starts + sizes
-        note("segmented_gather", [(k_fl.segmented_gather_cuda(ca, starts, ends),
-                                   r_fl.gather_global(ca, starts, ends))])
+        want = r_fl.gather_global(ca, starts, ends)
+        # K7's two source forms: the plane, and the levels (the GGArray freeze)
+        note("segmented_gather", [(k_fl.segmented_gather_cuda(ca, starts, ends), want),
+                                  (k_fl.segmented_gather_levels_cuda(levels, b0, starts, ends), want),
+                                  (fl_ops.flatten_segmented(levels, sizes, b0), want)])
 
     # Small ragged shapes: N a multiple of nothing, m = 1 and 130, one and
     # nine levels, three payload types, waves that overflow capacity, and
@@ -430,19 +450,27 @@ def kernel_phase(card: str, gen) -> dict:
         shape=f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32 -> ({NBLOCKS}, {cap})",
     )
     compact = k_fl.compact_blocks_cuda(written, B0)
-    del written
     starts = indexing.block_starts(final_sizes)
     ends = starts + final_sizes
     n_live = int(final_sizes.sum().item())
+    k7_bound = bound_ms(4 * n_live + 8 * NBLOCKS + plane_bytes,
+                        NBLOCKS * cap * (NBLOCKS.bit_length()), card)
     timing["segmented_gather"] = dict(
         ms=cuda_ms(lambda: k_fl.segmented_gather_cuda(compact, starts, ends), 10),
         plain_ms=cuda_ms(lambda: r_fl.gather_global(compact, starts, ends), 2),
         library_ms=None,
-        bound=bound_ms(4 * n_live + 8 * NBLOCKS + plane_bytes,
-                       NBLOCKS * cap * (NBLOCKS.bit_length()), card),
+        bound=k7_bound,
         shape=f"plane ({NBLOCKS}, {cap}) f32, {n_live} live",
     )
-    del compact
+    # K7's levels form: the GGArray freeze, beside the K6 + K7 it replaces
+    levels_ms = cuda_ms(lambda: k_fl.segmented_gather_levels_cuda(written, B0, starts, ends), 10)
+    emit({"phase": "kernel.levels", "name": "segmented_gather", "card": card, "ms": levels_ms,
+          "plain_ms": cuda_ms(lambda: r_fl.gather_levels(written, B0, starts, ends), 2),
+          "k6_then_k7_ms": cuda_ms(lambda: k_fl.segmented_gather_cuda(
+              k_fl.compact_blocks_cuda(written, B0), starts, ends), 10),
+          "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+          "shape": f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32, {n_live} live -> ({NBLOCKS * cap},)"})
+    del compact, written
     # K1 at the largest wave of the main path's tile run (one eighth size).
     x = (torch.rand((NBLOCKS, m_last // 8), generator=gen, device=dev) < 0.9).to(torch.int32)
     note("row_scan", [(k_st.row_scan_cuda(x), r_st.row_scan(x))])
@@ -461,6 +489,8 @@ def kernel_phase(card: str, gen) -> dict:
     append_edge_cases(card, note)
     torch.cuda.synchronize()
     serve_kernel_cases(card, res, timing)
+    torch.cuda.synchronize()
+    freeze_edge_cases(res)
     torch.cuda.synchronize()
     slice4_kernel_cases(card, res, timing)
     torch.cuda.synchronize()
@@ -1494,7 +1524,8 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
         plain_ms=cuda_ms(lambda: r_sm.row_scan(x), 20),
         library_ms=cuda_ms(lambda: torch.cumsum(x, 1, dtype=torch.int32), 20),
         bound=bound_ms(8 * x.numel(), x.numel(), card),
-        shape=f"{wide[-1]} int32 0/1 mask (the last grow wave)",
+        shape=f"{wide[-1]} int32 0/1 mask (the last grow wave), one launch; "
+              f"in CUDA-graph replays {graph_ms(lambda: k_sm.row_scan_mxu_cuda(x), 20)} ms",
     )
     del x, mask
 
@@ -1687,6 +1718,153 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def freeze_edge_cases(res: dict) -> None:
+    """K2's chained scan and K7's two source forms at the edges of their
+    plans (a generator of their own).  K2: cols of 1, 31, 32, 33 and around
+    and past the tile width W, rows not a multiple of 16 and 1; 0/1 masks
+    and full-range int32 bitwise, f32 within the reference's tolerance; a
+    launch that would grow the status buffer inside a CUDA-graph capture
+    refused, then grown by an eager launch; 20 replays of a captured launch,
+    then an eager launch, bitwise equal to the eager launch before them
+    (int32 and f32); the status words and the ticket left zero.  K7, plane
+    and levels, counted and uncounted, bitwise with ``ref.gather_global`` and
+    ``ref.gather_counters``: ranges that straddle many owners, empty blocks
+    at range edges, gaps between ``ends`` and the next start, live items
+    past cap, ragged tails, cap = 1, 2-byte items, misaligned starts."""
+    import torch
+
+    from repro_torch.kernels.scan_mxu import kernel as k_sm
+    from repro_torch.kernels.scan_mxu import ref as r_sm
+
+    dev = torch.empty(0, device=DEV).device  # with its index: the buffers are kept by device
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+
+    def note(name, pairs):
+        r = res[name]
+        for a, b in pairs:
+            mism, err = compare(a, b)
+            r["mismatches"] += mism
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"] += 1
+        r["edge_cases"] = r.get("edge_cases", 0) + 1
+
+    # K2
+    W = k_sm.TILE_COLS
+
+    def k2(rows, cols):
+        mask = (torch.rand((rows, cols), generator=gen, device=dev) < 0.5).to(torch.int32)
+        full = torch.randint(-2**31, 2**31 - 1, (rows, cols), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        note("row_scan_mxu", [(k_sm.row_scan_mxu_cuda(mask), r_sm.row_scan(mask)),
+                              (k_sm.row_scan_mxu_cuda(full), r_sm.row_scan(full))])
+        # normals where a row's sum stays small; past that, atol rules where it crosses 0
+        x = (torch.randn if cols <= 4096 else torch.rand)((rows, cols), generator=gen, device=dev)
+        close(res, "row_scan_mxu", k_sm.row_scan_mxu_cuda(x), r_sm.row_scan(x), SCAN_F32_ATOL,
+              rtol=SCAN_F32_RTOL)
+
+    for rows, cols in ([(17, c) for c in (1, 31, 32, 33, W - 1, W, W + 1, 3 * W, 5 * W + 7)]
+                       + [(1, c) for c in (1, 33, W + 1, 4 * W)] + [(16, W + 1), (5, 2 * W - 3)]):
+        k2(rows, cols)
+    status, _ = k_sm.scan_buffers(dev, 0)
+    # one status word more than the buffer holds: refused under a capture
+    rows, cols = 16 * (status.numel() // 16 + 1), 2 * W
+    x = (torch.rand((rows, cols), generator=gen, device=dev) < 0.9).to(torch.int32)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            k_sm.row_scan_mxu_cuda(x)
+        refused = False
+    except RuntimeError as e:
+        refused = "before a CUDA-graph capture" in str(e)
+    check(refused, "row_scan_mxu: the status buffer was grown inside a CUDA-graph capture")
+    del graph
+    note("row_scan_mxu", [(k_sm.row_scan_mxu_cuda(x), r_sm.row_scan(x))])
+    grown = k_sm.scan_buffers(dev, 0)[0].numel()
+    check(grown > status.numel() > 0 and grown >= k_sm.scan_plan(rows, cols).status_words,
+          f"row_scan_mxu: the status buffer did not grow ({status.numel()} -> {grown})")
+    for x in (x, torch.randn((33, 3 * W + 1), generator=gen, device=dev)):
+        fresh = k_sm.row_scan_mxu_cuda(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k_sm.row_scan_mxu_cuda(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = k_sm.row_scan_mxu_cuda(x)
+        for _ in range(20):
+            graph.replay()
+        torch.cuda.synchronize()
+        note("row_scan_mxu", [(replayed, fresh), (k_sm.row_scan_mxu_cuda(x), fresh)])
+        del graph, replayed
+    torch.cuda.synchronize()
+    status, ticket = k_sm.scan_buffers(dev, 0)
+    check(int(status.count_nonzero().item()) == 0 and int(ticket.count_nonzero().item()) == 0,
+          "row_scan_mxu: a status word or the ticket counter was left non-zero")
+    res["row_scan_mxu"]["status_words"] = status.numel()
+    k7_edge_cases(res, gen)
+
+
+def k7_edge_cases(res: dict, gen) -> None:
+    """K7's cases of :func:`freeze_edge_cases`."""
+    import torch
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.flatten import kernel as k_fl
+    from repro_torch.kernels.flatten import ref as r_fl
+    from repro_torch.obs import device as obs_device
+
+    dev = torch.device(DEV)
+
+    def note(name, pairs):
+        r = res[name]
+        for a, b in pairs:
+            r["mismatches"] += compare(a, b)[0]
+        r["cases"] += 1
+        r["edge_cases"] = r.get("edge_cases", 0) + 1
+
+    def k7(n, b0, nlev, dtype, sizes, live=None):
+        levels = tuple(torch.randn((n, w), generator=gen, device=dev).to(dtype)
+                       if dtype != torch.int32 else
+                       torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen, device=dev,
+                                     dtype=torch.int64).to(torch.int32)
+                       for w in indexing.bucket_sizes(b0, nlev))
+        sizes = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        starts = indexing.block_starts(sizes)
+        ends = starts + (sizes if live is None else torch.as_tensor(live, dtype=torch.int32, device=dev))
+        plane = r_fl.compact_blocks(levels, b0)
+        want = r_fl.gather_global(plane, starts, ends)
+        want_ctr = r_fl.gather_counters(starts, ends, n, plane.shape[1])
+        span = obs_device.pack(dev, **{"flatten.span_rows": (ends.long() - starts.long()).sum()})
+        for launch in (lambda **kw: k_fl.segmented_gather_cuda(plane, starts, ends, **kw),
+                       lambda **kw: k_fl.segmented_gather_levels_cuda(levels, b0, starts, ends, **kw)):
+            out_c, blk = launch(instrument=True)
+            note("segmented_gather", [(launch(), want), (out_c, want),
+                                      (obs_device.from_block(blk) + span, want_ctr)])
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        # many owners a range (cap 30), some empty, with and without gaps
+        sz = ints(0, 31, 300)
+        sz[::7] = 0
+        k7(300, 2, 4, dtype, sz)
+        k7(300, 2, 4, dtype, sz, live=(sz.float() * torch.rand(300, generator=gen, device=dev)).int())
+        # empty blocks where a range (4096 f32, 8192 bf16 items) or a tile starts, and first
+        k7(12, 512, 4, dtype, [4096, 0, 0, 4096, 0, 4000, 96, 0, 0, 7680, 0, 1])
+        k7(9, 512, 4, dtype, [0, 0, 4096, 0, 4096, 0, 7680, 0, 0])
+        # live items past cap (21): clamped to the row's last item
+        k7(3, 3, 3, dtype, [30, 5, 40])
+        # cap = 1; a ragged tail (105 items); odd starts over many ranges, with gaps
+        k7(1000, 1, 1, dtype, ints(0, 2, 1000))
+        k7(5, 3, 3, dtype, ints(0, 22, 5))
+        odd = ints(0, 15000, 64) * 2 + 1
+        k7(64, 1024, 5, dtype, odd, live=odd - ints(0, 3, 64))
+    check(res["segmented_gather"]["mismatches"] == 0, "segmented_gather: an edge case differs")
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main path.
 # --------------------------------------------------------------------------
@@ -1829,6 +2007,7 @@ def main_path(card: str, seed: int) -> dict:
           "peak_device_bytes": peak})
     for name in SLICE1_KERNELS:
         check(launches[name] >= 1, f"kernel {name} never launched on the main path")
+    check(launches["compact_blocks"] == 0, "the main path's segmented freeze launched K6")
     return launches
 
 
@@ -2349,10 +2528,12 @@ def arena_paths(card: str, seed: int) -> dict:
     need = {"doubling": ("slab_append", "paged_gather_extents", "segmented_gather"),
             "geometric": ("slab_append", "paged_gather", "segmented_gather"),
             "kv": ("slab_append", "paged_gather_extents"),
-            "packer": ("slab_append", "paged_gather", "segmented_gather", "compact_blocks")}
+            "packer": ("slab_append", "paged_gather", "segmented_gather")}
     for path, names in need.items():
         for name in names:
             check(runs[path][name] >= 1, f"kernel {name} never launched on the {path} arena path")
+    # the packer's pipeline backend freezes with K7 on the levels
+    check(runs["packer"]["compact_blocks"] == 0, "the packer's segmented freeze launched K6")
     emit({"phase": "arena.launches", "card": card, "launches": runs,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     total = {k: 0 for k in KERNELS}
@@ -2939,7 +3120,7 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
 AB_REPS = 5  # prefills a turn, after a warm-up
 AB_NEW = 16  # new tokens per BatchEngine request
 AB_ORDER = ("parent", "change", "change", "parent")
-AB_WHAT = ("prefill", "paged", "batch", "append")
+AB_WHAT = ("prefill", "paged", "batch", "append", "freeze")
 AB_DECODE_NEW = 24  # new tokens of the append turn's Engine run
 
 
@@ -3139,12 +3320,82 @@ def ab_append(card: str, seed: int, cfg, params) -> dict:
     return t
 
 
+def ab_freeze(card: str, seed: int) -> dict:
+    """K2 on the last grow wave's int32 0/1 mask (from Python and in
+    CUDA-graph replays, beside ``torch.cumsum``); K7 on the freeze's plane
+    without and with counters (plain, counted, counted, plain);
+    ``flatten_segmented`` at the main shape (each kernel's device time under
+    ``torch.profiler``); then main.freeze's and main.mxu's grow and freeze
+    (eight waves each, method auto and mxu; the freeze's median of three,
+    thawed between, and its first).  Entry points that the parent has too."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.flatten import kernel as k_fl
+    from repro_torch.kernels.flatten import ops as fl_ops
+    from repro_torch.kernels.scan_mxu import kernel as k_sm
+    from repro_torch.runtime import TwoPhasePipeline
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 20)
+    t = {}
+    x = (torch.rand((NBLOCKS, B0 << (NWAVES - 1)), generator=gen, device=DEV) < 0.9).to(torch.int32)
+    t["k2_ms"] = cuda_ms(lambda: k_sm.row_scan_mxu_cuda(x), 20)
+    t["k2_graph_ms"] = graph_ms(lambda: k_sm.row_scan_mxu_cuda(x), 20)
+    t["k2_cumsum_ms"] = cuda_ms(lambda: torch.cumsum(x, 1, dtype=torch.int32), 20)
+    del x
+    levels = tuple(torch.randn((NBLOCKS, w), generator=gen, device=DEV)
+                   for w in indexing.bucket_sizes(B0, NWAVES))
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** NWAVES - 1)), dtype=torch.int32, device=DEV)
+    sizes += torch.randint(-(B0 // 2), B0 // 2, (NBLOCKS,), generator=gen, device=DEV, dtype=torch.int32)
+    starts = indexing.block_starts(sizes)
+    ends = starts + sizes
+    compact = k_fl.compact_blocks_cuda(levels, B0)
+    t["k7_ms"], t["k7_counted_ms"] = _halves(
+        lambda: k_fl.segmented_gather_cuda(compact, starts, ends),
+        lambda: k_fl.segmented_gather_cuda(compact, starts, ends, instrument=True), cuda_ms, 10)
+    del compact
+    t["flatten_segmented_ms"] = cuda_ms(lambda: fl_ops.flatten_segmented(levels, sizes, B0), 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fl_ops.flatten_segmented(levels, sizes, B0)
+        torch.cuda.synchronize()
+    kern = {e.key[:90]: e.device_time_total / 1e3 / 5 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    t["flatten_segmented_kernels"] = kern
+    t["flatten_segmented_k6_k7_ms"] = sum(ms for name, ms in kern.items()
+                                          if "compact_kernel" in name or "segmented_gather" in name)
+    del levels
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 20)
+    for method, key in (("auto", "main"), ("mxu", "mxu")):
+        pipe = TwoPhasePipeline(nblocks=NBLOCKS, b0=B0, device=DEV)
+        t[f"{key}_grow_s"] = grow(pipe, rng, B0, method, card)[1]
+        runs = []
+        for i in range(3):
+            if i:
+                pipe.thaw()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.freeze()
+            runs.append(time.perf_counter() - t0)
+        t[f"{key}_freeze_s"], t[f"{key}_first_freeze_s"] = sorted(runs)[1], runs[0]
+        del pipe
+        torch.cuda.empty_cache()
+    return t
+
+
 def ab_turn(card: str, seed: int, what: list) -> dict:
     """One turn of ``--ab``: the timings named in ``what``, with whichever
     checkout's ``repro_torch`` this process imported."""
     t = {"phase": "ab.turn", "card": card}
     if "paged" in what:
         t.update(ab_paged(seed))
+    if "freeze" in what:
+        t.update(ab_freeze(card, seed))
     if "prefill" in what or "batch" in what or "append" in what:
         cfg, params = serve_model(seed)
         if "prefill" in what:

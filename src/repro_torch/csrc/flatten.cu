@@ -18,21 +18,43 @@
 // straddles two levels, and its level is floor(log2(u / B0u + 1)) with B0u
 // the level-0 width in units.  Loads and stores are both coalesced.
 //
-// K7 design: a grid-stride loop over output elements.  Every thread block
-// first stages the starts/ends tables in shared memory (2 x 4 bytes per
-// block row); each element then finds its owner by an upper-bound binary
-// search — owner = (the number of starts <= i) - 1, so an empty block,
-// whose start equals the next block's, never owns an element.  Reads of the
-// plane are contiguous within a block's segment, so they coalesce too.
+// K7 design: a thread block per output range of kRangeBytes (4096 f32 or
+// 8192 bf16 items), the grid covering the whole output.  A block finds the
+// owners of its first and last element by two upper-bound searches over
+// `starts` (owner = (the number of starts <= i) - 1, so an empty block,
+// whose start equals the next block's, never owns an element), then walks
+// those owners in order.  Owner o's region [starts[o], next) (next = the
+// following start, or the output's end) cut to the range gives at most
+// three pieces: the live items [starts[o], min(ends[o], next)), copied from
+// o's row with coalesced loads and stores; live items past cap (which a
+// consistent table never has) filled with o's last item, as the reference
+// clamps; and the gap up to next, zeros.  Only the owners' table entries
+// are read; nothing is staged in shared memory.  Copies are 4-byte (or
+// 2-byte) loads and stores on consecutive threads, 8 loads a thread in
+// flight: on the H100, 16-byte stores fed by aligned 16-byte loads and a
+// funnel shift by the owner's misalignment measured 12 % slower, and
+// ranges of 8, 32 or 64 KB 3 to 9 % slower (tools/freeze_variants.py).
 //
-// K7 counters (K15, kCount = true): one iteration of a thread block is one
-// 256-element tile of the output, the reference's DEFAULT_SEG_TILE, and its
-// thread 0 holds the tile's first index t0.  Thread 0 sums the tiles' block
-// spans hi - lo, with lo = max(#{starts <= t0} - 1, 0) (t0's owner) and
-// hi = #{starts <= t0 + 255}, as _seg_ctr_oracle (flatten/ops.py:36)
-// defines them — empty blocks and the ragged tail tile included — in a
-// register across the grid-stride loop; block 0 adds the launch; one
-// ctr_accum after the loop.  flatten.span_rows is added by the wrapper.
+// Two source forms of one kernel (a template over the source): the
+// (nblocks, cap) plane (PlaneSrc: the arena's freeze, after the paged
+// gather) and the bucket levels themselves (LevelSrc: the GGArray freeze,
+// kernels/flatten/ops.py::flatten_segmented).  In the levels, offset off of
+// a row lies in level b = floor(log2(off / B0 + 1)) at li = off - B0 (2^b -
+// 1), as in compact_kernel, so a live piece splits at the level boundaries
+// into runs contiguous in both source and output, and the freeze neither
+// writes nor reads a plane.
+//
+// K7 counters (K15, kCount = true): _seg_ctr_oracle (flatten/ops.py:36)
+// sums over the 256-element tiles of the output (the ragged tail tile too)
+// hi - lo, with lo = max(#{starts <= t0} - 1, 0) and hi = #{starts <= t0 +
+// 255}.  A range is a whole number of tiles, so a block's share is its
+// tiles, minus the tiles that lie before starts[0] (none for a prefix
+// table), plus its walked owners o >= #{starts <= r0} whose start is not
+// the first element of a tile: hi - lo - 1 of a tile counts the starts in
+// (t0, t0 + 255].  Thread 0 holds that sum from its walk, block 0 adds the
+// launch, one ctr_accum a block.  flatten.span_rows is added by the
+// wrapper.  kernels/flatten/kernel.py::gather_pieces, range_rows and
+// level_runs are the plan in Python (tests/test_torch_freeze_plan.py).
 #include "common.cuh"
 
 namespace {
@@ -41,7 +63,9 @@ constexpr int kMaxLevels = 32;
 constexpr int kCompactThreads = 256;
 constexpr int kCompactUnitsPerBlock = kCompactThreads * 4;
 constexpr int kGatherThreads = 256;
-constexpr int kGatherMaxGrid = 4096;
+constexpr int kRangeBytes = 16384;  // output bytes per block of K7
+constexpr int kGatherUnroll = 8;    // loads a thread issues before its stores
+constexpr int kSegTile = 256;       // the counters' tile (the reference's DEFAULT_SEG_TILE)
 
 struct LevelPtrs {
   const char* p[kMaxLevels];
@@ -63,50 +87,113 @@ compact_kernel(LevelPtrs lv, U* __restrict__ out, int64_t cap_units, int64_t b0_
   }
 }
 
-static_assert(kGatherThreads == 256, "K7's counters take one block iteration as one 256-wide tile");
+// K7's sources: row o's items from offset `off` (< cap) on, as a pointer
+// and the number of items contiguous there.
+template <typename T>
+struct PlaneSrc {  // the (nblocks, cap) plane
+  const T* plane;
+  int64_t cap;
+  __device__ __forceinline__ const T* run(int o, int64_t off, int64_t* len) const {
+    *len = cap - off;
+    return plane + static_cast<int64_t>(o) * cap + off;
+  }
+};
 
-// The number of k < nblocks with tables[k] <= i (tables sorted ascending).
-__device__ __forceinline__ int count_le(const int* tables, int nblocks, int64_t i) {
+template <typename T>
+struct LevelSrc {  // the bucket levels, level b shaped (nblocks, B0 2^b)
+  LevelPtrs lv;
+  int64_t b0;
+  int64_t cap;
+  __device__ __forceinline__ const T* run(int o, int64_t off, int64_t* len) const {
+    const int b = 63 - __clzll(off / b0 + 1);
+    const int64_t first = b0 * ((int64_t{1} << b) - 1), width = b0 << b;
+    *len = first + width - off;
+    return reinterpret_cast<const T*>(lv.p[b]) + static_cast<int64_t>(o) * width + (off - first);
+  }
+};
+
+// The number of k < nblocks with starts[k] <= i (starts sorted ascending).
+__device__ __forceinline__ int count_le(const int* __restrict__ starts, int nblocks, int64_t i) {
   int lo = 0, hi = nblocks;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(tables[mid]) <= i) lo = mid + 1; else hi = mid;
+    if (static_cast<int64_t>(__ldg(starts + mid)) <= i) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
-template <typename T, bool kCount>
-__global__ void __launch_bounds__(kGatherThreads)
-segmented_gather_kernel(const T* __restrict__ compact, const int* __restrict__ starts,
-                        const int* __restrict__ ends, T* __restrict__ out,
-                        int nblocks, int64_t cap, int64_t n_out, int* __restrict__ ctr) {
-  extern __shared__ int tables[];  // starts[0, nblocks) then ends[0, nblocks)
-  for (int k = threadIdx.x; k < nblocks; k += kGatherThreads) {
-    tables[k] = starts[k];
-    tables[nblocks + k] = ends[k];
+// out[a, b) = src[0, b - a): the block's threads on consecutive items,
+// kGatherUnroll loads issued before their stores.
+template <typename T>
+__device__ __forceinline__ void copy_piece(T* __restrict__ out, int64_t a, int64_t b,
+                                           const T* __restrict__ src) {
+  constexpr int64_t kStep = static_cast<int64_t>(kGatherThreads) * kGatherUnroll;
+  const int64_t n = b - a;
+  int64_t j = threadIdx.x;
+  for (; j + kStep - kGatherThreads < n; j += kStep) {
+    T v[kGatherUnroll];
+#pragma unroll
+    for (int k = 0; k < kGatherUnroll; ++k) v[k] = __ldcs(src + j + k * kGatherThreads);
+#pragma unroll
+    for (int k = 0; k < kGatherUnroll; ++k) __stcs(out + a + j + k * kGatherThreads, v[k]);
   }
+  for (; j < n; j += kGatherThreads) __stcs(out + a + j, __ldcs(src + j));
+}
+
+template <typename T>
+__device__ __forceinline__ void fill_piece(T* __restrict__ out, int64_t a, int64_t b, T v) {
+  for (int64_t i = a + threadIdx.x; i < b; i += kGatherThreads) __stcs(out + i, v);
+}
+
+template <typename T, bool kCount, typename Src>
+__global__ void __launch_bounds__(kGatherThreads)
+segmented_gather_kernel(Src src, const int* __restrict__ starts, const int* __restrict__ ends,
+                        T* __restrict__ out, int nblocks, int64_t n_out, int* __restrict__ ctr) {
+  constexpr int64_t kRange = kRangeBytes / static_cast<int64_t>(sizeof(T));
+  static_assert(kRange % kSegTile == 0, "a range is a whole number of counter tiles");
+  __shared__ int s_u[2];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRange;
+  const int64_t r1 = r0 + kRange < n_out ? r0 + kRange : n_out;
+  const int64_t ntiles = (r1 - r0 + kSegTile - 1) / kSegTile;
+  const int64_t r_end = r0 + ntiles * kSegTile - 1;  // the last tile's last index
+  if (threadIdx.x == 0) s_u[0] = count_le(starts, nblocks, r0);
+  if (threadIdx.x == 32) s_u[1] = count_le(starts, nblocks, r_end);
   __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kGatherThreads;
-  int64_t rows_touched = 0;  // kCount: thread 0's sum over this block's tiles
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kGatherThreads + threadIdx.x;
-       i < n_out; i += stride) {
-    const int lo = count_le(tables, nblocks, i);  // first k with starts[k] > i
-    const int owner = lo > 0 ? lo - 1 : 0;
-    if constexpr (kCount) {
-      if (threadIdx.x == 0)
-        rows_touched += count_le(tables, nblocks, i + kGatherThreads - 1) - owner;
+  const int u0 = s_u[0], u_end = s_u[1];
+  const int64_t s_first = __ldg(starts);
+  if (u0 == 0) fill_piece(out, r0, s_first < r1 ? s_first : r1, T(0));  // before starts[0]
+  int rows_touched = 0;  // kCount: thread 0's
+  for (int o = u0 > 0 ? u0 - 1 : 0; o < (u_end > 1 ? u_end : 1); ++o) {
+    const int64_t s = __ldg(starts + o);
+    const int64_t next = o + 1 < nblocks ? static_cast<int64_t>(__ldg(starts + o + 1)) : n_out;
+    const int64_t e = __ldg(ends + o);
+    if (kCount && o >= u0 && s % kSegTile != 0) ++rows_touched;
+    const int64_t live_end = e < s ? s : e < next ? e : next;
+    const int64_t copy_end = live_end < s + src.cap ? live_end : s + src.cap;
+    int64_t i = s > r0 ? s : r0;
+    const int64_t i_copy = copy_end < r1 ? copy_end : r1;
+    while (i < i_copy) {  // the live items, one contiguous source run at a time
+      int64_t len;
+      const T* p = src.run(o, i - s, &len);
+      const int64_t j = i + len < i_copy ? i + len : i_copy;
+      copy_piece(out, i, j, p);
+      i = j;
     }
-    T v = T(0);
-    if (i < static_cast<int64_t>(tables[nblocks + owner])) {
-      const int64_t off = i - static_cast<int64_t>(tables[owner]);
-      const int64_t pos = off < cap - 1 ? off : cap - 1;
-      v = compact[static_cast<int64_t>(owner) * cap + pos];
+    const int64_t i_live = live_end < r1 ? live_end : r1;
+    if (i < i_live) {
+      int64_t len;
+      fill_piece(out, i, i_live, *src.run(o, src.cap - 1, &len));
+      i = i_live;
     }
-    out[i] = v;
+    fill_piece(out, i, next < r1 ? next : r1, T(0));
   }
   if constexpr (kCount) {
+    if (threadIdx.x == 0) {
+      const int64_t before = s_first > r0 ? (s_first - r0 + kSegTile - 1) / kSegTile : 0;
+      rows_touched += static_cast<int>(ntiles - (before < ntiles ? before : ntiles));
+    }
     const int v[2] = {threadIdx.x == 0 && blockIdx.x == 0 ? 1 : 0,
-                      static_cast<int>(rows_touched)};
+                      threadIdx.x == 0 ? rows_touched : 0};
     constexpr int slots[2] = {kFlattenLaunches, kFlattenRowsTouched};
     ctr_accum<kGatherThreads>(ctr, slots, v);
   }
@@ -126,27 +213,25 @@ int launch_compact(const LevelPtrs& lv, void* out, int64_t nblocks, int64_t b0_b
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_gather(const void* compact, const void* starts, const void* ends, void* out,
-                  int64_t nblocks, int64_t cap, int* ctr, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(int) * static_cast<size_t>(nblocks);
-  auto kernel = ctr != nullptr ? segmented_gather_kernel<T, true> : segmented_gather_kernel<T, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t n_out = nblocks * cap;
-  const int64_t want = (n_out + kGatherThreads - 1) / kGatherThreads;
-  const unsigned grid = static_cast<unsigned>(want < kGatherMaxGrid ? want : kGatherMaxGrid);
-  kernel<<<grid, kGatherThreads, smem, stream>>>(
-      static_cast<const T*>(compact), static_cast<const int*>(starts),
-      static_cast<const int*>(ends), static_cast<T*>(out), static_cast<int>(nblocks), cap,
-      n_out, ctr);
+template <typename T, typename Src>
+int launch_gather(const Src& src, const void* starts, const void* ends, void* out,
+                  int64_t nblocks, int* ctr, cudaStream_t stream) {
+  const int64_t n_out = nblocks * src.cap;
+  const int64_t range = kRangeBytes / static_cast<int64_t>(sizeof(T));
+  const int64_t grid = (n_out + range - 1) / range;
+  if (grid > 0x7fffffffLL || nblocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = ctr != nullptr ? segmented_gather_kernel<T, true, Src>
+                               : segmented_gather_kernel<T, false, Src>;
+  kernel<<<static_cast<unsigned>(grid), kGatherThreads, 0, stream>>>(
+      src, static_cast<const int*>(starts), static_cast<const int*>(ends), static_cast<T*>(out),
+      static_cast<int>(nblocks), n_out, ctr);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+extern "C" int rt_gather_range_bytes() { return kRangeBytes; }
 
 // level_ptrs: nlevels device pointers, level b shaped (nblocks, b0 * 2^b).
 // out: (nblocks, cap) with cap = b0 (2^nlevels - 1).  esize: 2 or 4 bytes.
@@ -170,15 +255,38 @@ extern "C" int rt_compact_blocks(void* const* level_ptrs, int nlevels, void* out
   return launch_compact<uint16_t>(lv, out, nblocks, b0_bytes, cap_bytes, s);
 }
 
-// compact: (nblocks, cap); starts, ends: (nblocks,) int32; out: (nblocks * cap,).
-// ctr: a zeroed (kCtrSlots,) int32 counter block, or null for no counters.
+// compact: (nblocks, cap); starts, ends: (nblocks,) int32, starts sorted
+// from 0; out: (nblocks * cap,).  ctr: a zeroed (kCtrSlots,) int32 counter
+// block, or null for no counters.
 extern "C" int rt_segmented_gather(const void* compact, const void* starts, const void* ends,
                                    void* out, int64_t nblocks, int64_t cap, int esize,
                                    void* ctr, void* stream) {
   if (nblocks <= 0 || cap <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto* c = static_cast<int*>(ctr);
-  if (esize == 4) return launch_gather<uint32_t>(compact, starts, ends, out, nblocks, cap, c, s);
-  if (esize == 2) return launch_gather<uint16_t>(compact, starts, ends, out, nblocks, cap, c, s);
+  if (esize == 4)
+    return launch_gather<uint32_t>(PlaneSrc<uint32_t>{static_cast<const uint32_t*>(compact), cap},
+                                   starts, ends, out, nblocks, c, s);
+  if (esize == 2)
+    return launch_gather<uint16_t>(PlaneSrc<uint16_t>{static_cast<const uint16_t*>(compact), cap},
+                                   starts, ends, out, nblocks, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same gather straight from the bucket levels: level_ptrs as for
+// rt_compact_blocks, out (nblocks * cap,) with cap = b0 (2^nlevels - 1).
+extern "C" int rt_segmented_gather_levels(void* const* level_ptrs, int nlevels, int64_t b0,
+                                          const void* starts, const void* ends, void* out,
+                                          int64_t nblocks, int esize, void* ctr, void* stream) {
+  if (nlevels < 1 || nlevels > kMaxLevels || b0 < 1 || (esize != 2 && esize != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks <= 0) return 0;
+  LevelPtrs lv{};
+  for (int l = 0; l < nlevels; ++l) lv.p[l] = static_cast<const char*>(level_ptrs[l]);
+  const int64_t cap = b0 * ((int64_t{1} << nlevels) - 1);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<int*>(ctr);
+  if (esize == 4)
+    return launch_gather<uint32_t>(LevelSrc<uint32_t>{lv, b0, cap}, starts, ends, out, nblocks, c, s);
+  return launch_gather<uint16_t>(LevelSrc<uint16_t>{lv, b0, cap}, starts, ends, out, nblocks, c, s);
 }

@@ -1,10 +1,12 @@
 """Flatten wrappers: compaction (K6) + global ordering (K7) — port of ``flatten/ops.py``.
 
-``flatten(..., impl="segmented")`` (the default, the freeze path) compacts
-the bucket levels into ``(nblocks, cap)`` rows and orders them block-major
-by the ``block_starts`` prefix table — O(n).  ``impl="dispatch"`` is the
-reference's legacy ordering: compaction (K6), then the dispatch scatter (K5a)
-of every live element to its global position.
+``flatten(..., impl="segmented")`` (the default, the freeze path) orders
+the bucket levels' live items block-major by the ``block_starts`` prefix
+table — O(n).  The reference compacts the levels into ``(nblocks, cap)``
+rows first; on the card K7 reads the levels directly (its levels form), so
+no plane is written or read.  ``impl="dispatch"`` is the reference's legacy
+ordering: compaction (K6), then the dispatch scatter (K5a) of every live
+element to its global position.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises.  ``memory_space`` selects a TPU tiling in the reference; it is
@@ -48,9 +50,15 @@ def segmented_gather(
         if instrument:
             return out, _ref.gather_counters(starts, ends, *compact.shape)
         return out
+    return _with_span(_kernel.segmented_gather_cuda(compact, starts, ends, instrument=instrument),
+                      starts, ends, instrument)
+
+
+def _with_span(launched, starts: torch.Tensor, ends: torch.Tensor, instrument: bool):
+    """K7's output, or (output, its counters + ``flatten.span_rows``)."""
     if not instrument:
-        return _kernel.segmented_gather_cuda(compact, starts, ends)
-    out, block = _kernel.segmented_gather_cuda(compact, starts, ends, instrument=True)
+        return launched
+    out, block = launched
     span = (ends.to(torch.int64) - starts.to(torch.int64)).sum()
     return out, obs_device.from_block(block) + obs_device.pack(**{"flatten.span_rows": span})
 
@@ -69,11 +77,20 @@ def flatten_segmented(
     memory_space: str | None = None,
     instrument: bool = False,
 ):
-    """GGArray flatten: compact + linear-time segmented gather → ``(nblocks·cap,)``
-    (and the counter vector with ``instrument``)."""
-    compact = compact_blocks(levels, b0, memory_space=memory_space)
+    """GGArray flatten: the linear-time segmented gather of the levels' live
+    items → ``(nblocks·cap,)`` (and the counter vector with ``instrument``).
+    On the card one K7 launch reads the levels (no K6)."""
+    common.check_memory_space(memory_space)
     starts, ends = _prefix_tables(sizes)
-    return segmented_gather(compact, starts, ends, instrument=instrument)
+    if levels[0].device.type == "cpu":
+        out = _ref.gather_levels(levels, b0, starts, ends)
+        if instrument:
+            return out, _ref.gather_counters(starts, ends, levels[0].shape[0],
+                                             indexing.capacity(b0, len(levels)))
+        return out
+    return _with_span(
+        _kernel.segmented_gather_levels_cuda(levels, b0, starts, ends, instrument=instrument),
+        starts, ends, instrument)
 
 
 def flatten_dispatch(

@@ -7,9 +7,9 @@ from repro_torch.core import indexing
 from repro_torch.kernels import common
 from repro_torch.obs import device as obs_device
 
-__all__ = ["compact_blocks", "flatten_global", "gather_global", "gather_counters"]
+__all__ = ["compact_blocks", "flatten_global", "gather_global", "gather_levels", "gather_counters"]
 
-SEG_TILE = 256  # the reference's DEFAULT_SEG_TILE; K7's threads per block
+SEG_TILE = 256  # the reference's DEFAULT_SEG_TILE: the counters' tile
 
 
 def compact_blocks(levels: tuple[torch.Tensor, ...], b0: int) -> torch.Tensor:
@@ -44,6 +44,13 @@ def gather_global(
     vals = compact.reshape(-1)[blk * cap + torch.clamp(pos, max=cap - 1)]
     return torch.where(live, vals, torch.zeros_like(vals))
 
+
+def gather_levels(
+    levels: tuple[torch.Tensor, ...], b0: int, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of K7's levels form: :func:`gather_global` of the
+    levels' compaction (K6's plain version)."""
+    return gather_global(compact_blocks(levels, b0), starts, ends)
 
 
 def gather_counters(starts: torch.Tensor, ends: torch.Tensor, nblocks: int, cap: int) -> torch.Tensor:

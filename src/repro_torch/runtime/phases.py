@@ -5,7 +5,7 @@
   + the in-place ``gg.append`` — block-local, zero host reads in the steady
   state).
 * **freeze()** — one flatten into a contiguous, globally ordered
-  :class:`FrozenArray`: compaction (K6) and the segmented gather (K7).
+  :class:`FrozenArray`: the segmented gather (K7), reading the bucket levels.
 * **FROZEN** — reads are direct indexing; ``map_frozen`` runs static work
   over the contiguous buffer.
 * **thaw()** — back to GROW: zero-copy by default (the bucket chain is
@@ -138,8 +138,8 @@ class FreezeStats:
 class TwoPhasePipeline:
     """Owns one GGArray across its grow → frozen → (re-grow) lifecycle.
 
-    ``flatten_impl`` selects the freeze path: ``"segmented"`` (kernels K6 and
-    K7, the default), ``"dispatch"`` (the reference's legacy ordering:
+    ``flatten_impl`` selects the freeze path: ``"segmented"`` (kernel K7 on
+    the bucket levels, the default), ``"dispatch"`` (the reference's legacy ordering:
     K6, then the dispatch scatter K5a), or ``"core"`` (plain PyTorch scatter in
     ``core.ggarray`` — also the route whenever ``item_shape`` is non-scalar,
     which the kernels do not take).  ``memory_space`` selects a TPU tiling in

@@ -134,6 +134,35 @@ Run from the root of the repository.  Phases, one JSON line each:
    K14 (which no path of the reference calls) through its op on layer 0's
    captured contiguous cache, held against its plain version and
    ``kvcache.attend``.
+6b. the remaining model families, full width, random bf16 weights.
+   ``moe.route``: one dbrx-132b MoE layer (d_model 6144, 16 experts, top-4,
+   d_ff_expert 10752) on 4 x 1792 tokens under the insertion methods
+   ``scan``, ``tile`` (K1) and ``mxu`` (K2), and at an 8-slot decode step
+   (16 x 32 lanes) under those and ``atomic``: offsets, slots, packed
+   buffers and layer outputs bitwise equal across methods, K1 and K2
+   bitwise their plain versions on the assignment masks; K1, K2 and
+   ``torch.cumsum`` timed there in CUDA-graph replays, tokens dropped,
+   routing's time in the layer.  ``serve.moe``: dbrx-132b
+   cut to 8 layers, ``insertion_method="mxu"``: Engine(ggarray) on
+   serve.engine's prompt lengths with 320 new tokens (one growth, no bytes
+   copied), BatchEngine (chunked, doubling) on 16 requests; K2, K3, K10 or
+   K11 and K13 each launched (BatchEngine's K/V writes are plain scatters
+   in both packages: K12 is the arena's); routing's share of a steady
+   decode step.  ``serve.hybrid``: jamba-v0.1-52b whole: Engine on 4 x
+   1792, 64 new; BatchEngine on 16 ragged requests; the two prefills'
+   logits on the equal prompts.  ``serve.ssm``: mamba2-2.7b whole, Engine
+   on 4 x 1792, 64 new.  ``serve.encdec``: seamless-m4t-large-v2 whole:
+   ``encode`` on 4 x 1024 synthetic frames, prefill with that memory, 32
+   decode steps.  ``serve.vlm``: internvl2-26b at full width cut to 4
+   layers, 256 prefix embeddings before 1536 tokens, 32 decode steps.  The
+   last three hold the last decode step's logits against ``forward`` over
+   the whole sequence.  Those equivalence checks run the same model again
+   in f32 (8 decode steps) within relative L2 2e-3 (``FAMILY_TOL``): in
+   bf16, rounding alone moves Jamba's logits by about 0.12 between two
+   GEMM batchings, so the bf16 gaps are printed, not gated.  Every decode
+   step runs under the sync check; K13 and the two-group K3 (Engine) and
+   K10/K11 (BatchEngine) on the captured layer-0 inputs against their
+   plain versions.
 7. the device counter plane (K15).  ``obs.kernels`` (after the kernel
    phase): K3 (one group at the main path's last wave, two groups at
    m = 1, small ragged waves, empty masks), K7 (the freeze's plane, empty
@@ -2599,7 +2628,64 @@ def serve_model(seed: int):
 
 
 def kv_bytes_per_token(cfg) -> int:
-    return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2  # k and v, bf16
+    """K and V in bf16 in every attention layer (a Mamba layer holds none)."""
+    return cfg.n_periods * cfg.layout.count("attn") * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+
+
+def check_captured_engine(res: dict, cap_fa, cap_pb) -> None:
+    """Layer 0 of an Engine run's prefill (K13) and of its first decode
+    step (K3, two groups) against the plain versions on the captured
+    inputs."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.flash_attention import ref as r_fa
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    (q, k, v, o_), kw = cap_fa.args
+    got = k_fa.flash_attention_cuda(q, k, v, torch.empty_like(o_), **kw)
+    B, H, S, D = q.shape
+    want = r_fa.attention(q.reshape(B * H, S, D), k.reshape(-1, S, D), v.reshape(-1, S, D),
+                          group=kw["group"], causal=kw["causal"])
+    tol = ATTN_TOL["float32" if q.dtype == torch.float32 else "bfloat16"]
+    close(res, "flash_attention", got.reshape(B * H, S, D), want, tol)
+    (groups, sizes, b0, elems, mask), _ = cap_pb.args
+    work = clone_tree(groups)
+    ns, pos = k_pb.push_back_cuda_multi(work, sizes, b0, elems, mask)
+    r = res["push_back_multi"]
+    for g, e, w in zip(groups, elems, work):
+        _, ws, wp = r_pb.push_back(g, sizes, b0, e, mask)
+        for a, b in [*zip(w, g), (ns, ws), (pos, wp)]:
+            r["mismatches"] += compare(a, b)[0]
+    r["cases"] += 1
+
+
+def timed_prefill(params, cfg, prompts) -> tuple:
+    """Engine's prefill of ``prompts`` (right-padded, K13 in every layer)
+    and its first token, timed on the host clock around synchronised work
+    → (logits, caches, prefill seconds, TTFT seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import steps
+    from repro_torch.serving.sampler import sample
+
+    L = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), L), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d = torch.from_numpy(toks).to(DEV)
+    lens_d = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=L, policy="ggarray",
+                                   lengths=lens_d)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    sample(None, logits)
+    torch.cuda.synchronize()
+    return logits, caches, prefill_s, time.perf_counter() - t0
 
 
 def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
@@ -2609,12 +2695,9 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
 
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import kernel as k_fa
-    from repro_torch.kernels.flash_attention import ref as r_fa
     from repro_torch.kernels.push_back import kernel as k_pb
-    from repro_torch.kernels.push_back import ref as r_pb
     from repro_torch.serving import steps
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.sampler import sample
 
     lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
     lens[-1] = SERVE_LEN
@@ -2640,24 +2723,8 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
     for name in ("flash_attention", "push_back_multi"):
         check(launches[name] >= 1, f"kernel {name} never launched on the serve.engine path")
 
-    # layer 0 of the prefill (K13) and of the first decode step (K3, two
-    # groups), against the plain versions on the captured inputs
-    (q, k, v, o_), kw = cap_fa.args
-    got = k_fa.flash_attention_cuda(q, k, v, torch.empty_like(o_), **kw)
-    B, H, S, D = q.shape
-    want = r_fa.attention(q.reshape(B * H, S, D), k.reshape(-1, S, D), v.reshape(-1, S, D),
-                          group=kw["group"], causal=kw["causal"])
-    close(res, "flash_attention", got.reshape(B * H, S, D), want, ATTN_TOL["bfloat16"])
-    (groups, sizes, b0, elems, mask), _ = cap_pb.args
-    work = clone_tree(groups)
-    ns, pos = k_pb.push_back_cuda_multi(work, sizes, b0, elems, mask)
-    r = res["push_back_multi"]
-    for g, e, w in zip(groups, elems, work):
-        _, ws, wp = r_pb.push_back(g, sizes, b0, e, mask)
-        for a, b in [*zip(w, g), (ns, ws), (pos, wp)]:
-            r["mismatches"] += compare(a, b)[0]
-    r["cases"] += 1
-    del cap_fa, cap_pb, q, k, v, o_, got, want, groups, elems, work
+    check_captured_engine(res, cap_fa, cap_pb)
+    del cap_fa, cap_pb
 
     # the K/V the growth must carry (written before the first step after
     # it) and the prompts' K/V, for serve.policies
@@ -2670,19 +2737,7 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
 
     # timed: prefill (K13 in every layer) and the first token; the decode
     # steps are the generate run's, timed by CUDA events under the sync check
-    toks = np.zeros((SERVE_PROMPTS, SERVE_LEN), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, :len(p)] = p
-    toks_d = torch.from_numpy(toks).to(DEV)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=SERVE_LEN, policy="ggarray",
-                                   lengths=lens_d)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    sample(None, logits)
-    torch.cuda.synchronize()
-    ttft_s = time.perf_counter() - t0
+    logits, caches, prefill_s, ttft_s = timed_prefill(params, cfg, prompts)
     check(bool(torch.isfinite(logits).all().item()), "serve.engine: prefill logits not finite")
     step_ms = timer.step_ms()
     live_tokens = int(lens.sum()) + SERVE_PROMPTS * (SERVE_NEW - 1)
@@ -2736,10 +2791,11 @@ def drive_batch(be) -> tuple:
     return out, steady_ev, time.perf_counter() - t0
 
 
-def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict) -> tuple:
+def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: dict,
+                     what: str | None = None) -> tuple:
     """BatchEngine: 8 slots, ``nreq`` requests of 512-4096 prompt tokens and
     64 new tokens, chunked admission; steady decode steps under the sync
-    check → (launch counts, the prompts)."""
+    check → (launch counts, the prompts, the phase's line)."""
     import torch
 
     from repro_torch.kernels import common
@@ -2747,7 +2803,7 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
     from repro_torch.kernels.paged import ref as r_pg
     from repro_torch.serving.engine import BatchEngine
 
-    what = f"serve.batch.{grow_chunk}"
+    what = f"serve.batch.{grow_chunk}" if what is None else what
     lens = rng.integers(BATCH_MIN, BATCH_MAX + 1, nreq)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
     common.reset_launch_counts()
@@ -2795,7 +2851,7 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
     step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
     ttft = be.obs.registry.histogram("serve.ttft_ms")
     generated = sum(len(out[r]) - len(p) for r, p in zip(rids, prompts))
-    emit({"phase": what, "card": card, "arch": SERVE_ARCH, "requests": nreq, "slots": BATCH_SLOTS,
+    line = {"phase": what, "card": card, "arch": cfg.name, "requests": nreq, "slots": BATCH_SLOTS,
           "prompt_tokens": int(lens.sum()), "new_tokens": BATCH_NEW, "run_s": wall,
           "tokens_per_s": generated / wall, "prefill_tokens_per_s_overall": int(lens.sum()) / wall,
           "ttft_ms_median": ttft.quantile(0.5), "ttft_ms_max": ttft.quantile(1.0),
@@ -2805,11 +2861,12 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
           "pool_bound_tokens": bound,
           "pool_grow_events": st.pool_grow_events, "pool_copied_bytes": st.pool_copied_bytes,
           "reused_slabs": st.reused_slabs, "extents": extents, "host_syncs": run_syncs,
-          "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+            "launches": {k: v for k, v in launches.items() if v}, "ok": True}
+    emit(line)
     del be
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches, prompts
+    return launches, prompts, line
 
 
 def serve_cross_check(card: str, cfg, params, engine_run: dict) -> None:
@@ -2856,11 +2913,12 @@ class StepTimer:
     ``torch.cuda.set_sync_debug_mode("error")`` between two recorded CUDA
     events.  The logits of the first call are kept, and those of the first
     call whose cache capacity (read from shapes) differs from the first
-    call's — the first step after a growth — with that call's index."""
+    call's — the first step after a growth — with that call's index, and
+    the last call's.  A stack without attention slots has no capacity."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.orig = module, name, getattr(module, name)
-        self.events, self.first_logits = [], None
+        self.events, self.first_logits, self.last_logits = [], None, None
         self.grown_logits, self.grown_step, self.capacity = None, None, None
 
     def __enter__(self):
@@ -2869,7 +2927,7 @@ class StepTimer:
         from repro_torch.serving import kvcache
 
         def wrapper(*args, **kwargs):
-            cap = kvcache.capacity_of(args[2][0])
+            cap = next((kvcache.capacity_of(c) for c in args[2] if "ssd" not in c), None)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2879,6 +2937,7 @@ class StepTimer:
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             self.events.append((a, b))
+            self.last_logits = out[0]
             if self.first_logits is None:
                 self.first_logits, self.capacity = out[0].float().clone(), cap
             elif self.grown_logits is None and cap != self.capacity:
@@ -3084,9 +3143,9 @@ def serve_policies_path(card: str, cfg, params, engine_run: dict, res: dict) -> 
     return total
 
 
-def serve_paths(card: str, seed: int, res: dict) -> dict:
+def serve_paths(card: str, seed: int, res: dict) -> tuple:
     """The serving paths, launch counts zeroed before each and read after →
-    the counts summed over the paths."""
+    (the counts summed over the paths, serve.engine's prompt lengths)."""
     import numpy as np
     import torch
 
@@ -3096,7 +3155,7 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
     eng = serve_engine_path(card, cfg, params, rng, res)
     runs = {"engine": eng["launches"],
             "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res)[0]}
-    runs["batch.flat"], flat_prompts = serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)
+    runs["batch.flat"], flat_prompts, _ = serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)
     serve_cross_check(card, cfg, params, eng)
     runs["policies"] = serve_policies_path(card, cfg, params, eng, res)
     runs.update(obs_serve_paths(card, cfg, params, eng["prompts"], flat_prompts))
@@ -3110,6 +3169,498 @@ def serve_paths(card: str, seed: int, res: dict) -> dict:
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     del params
     torch.cuda.empty_cache()
+    total = {k: 0 for k in KERNELS}
+    for counts in runs.values():
+        for k, v in counts.items():
+            total[k] += v
+    return total, [len(p) for p in eng["prompts"]]
+
+
+# --------------------------------------------------------------------------
+# Phase 6b: the remaining model families (slice 10) at full width with
+# random bf16 weights from the seed: MoE routing by the insertion scan (K1,
+# K2), dbrx, the Jamba hybrid, Mamba-2, seamless and InternVL2.
+# --------------------------------------------------------------------------
+
+# dbrx-132b (src/repro/configs/dbrx_132b.py): d_model 6144, 48 heads over 8
+# KV heads of 128, 16 experts top-4 of d_ff 10752, vocab 100352, bf16.  Its
+# 40 layers (263 GB) do not fit one card: 8 layers, 27.3e9 parameters, 54.6 GB.
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 8
+# moe.route: one dbrx layer on 4 x 1792 tokens (16 experts x 28672 lanes,
+# K2's 16-row tiles) and at a decode step of 8 slots (16 x 32).
+ROUTE_B, ROUTE_S, ROUTE_DECODE_B, ROUTE_ITERS = 4, 1792, 8, 50
+# serve.hybrid / serve.ssm: Engine on 4 equal prompts of 1792 tokens (the
+# reference's Engine right-pads a ragged batch through the Mamba
+# recurrence), 64 new tokens.  jamba-v0.1-52b and mamba2-2.7b whole.
+HYBRID_ARCH, SSM_ARCH, FAMILY_B, FAMILY_LEN, FAMILY_NEW = "jamba-v0.1-52b", "mamba2-2.7b", 4, 1792, 64
+# serve.encdec: seamless-m4t-large-v2 whole; 4 x 1024 encoder frames,
+# 512-token decoder prompts, 32 decode steps.
+ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_LEN, ENCDEC_NEW = "seamless-m4t-large-v2", 1024, 512, 32
+# serve.vlm: internvl2-26b at full width, 48 layers cut to 4 (run time);
+# 256 prefix embeddings + 1536 tokens, 32 decode steps.
+VLM_ARCH, VLM_LAYERS, VLM_LEN, VLM_NEW = "internvl2-26b", 4, 1536, 32
+# The equivalence checks run the same model in f32: the last decode step
+# against forward over the whole sequence (plain blockwise attention, the
+# chunked SSD pass), and Engine's prefill logits against BatchEngine's
+# chunked prefill, each as the relative L2 of the logits, within the 2e-3
+# of tests/test_torch_models.py.  In bf16, rounding alone moves Jamba's
+# prefill logits by about 0.12 between two GEMM batchings of the same code
+# (Engine on the 4 prompts at once against one by one: serve.hybrid.
+# cross_check's engine_batch4_vs_one_by_one, PERF.md), so the bf16 runs
+# give the times and print their gaps beside that floor.
+FAMILY_TOL = 2e-3
+FAMILY_F32 = dict(dtype="float32", param_dtype="float32")
+CHECK_NEW = 8  # decode steps of an f32 check run
+
+
+def family_model(arch: str, seed: int, **over):
+    """``arch`` with the TPU-kernel settings (K13 prefill, K10/K11 paged
+    decode) and ``over``, random bf16 weights drawn on the card → (cfg,
+    params, parameter bytes, seconds to draw them)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get(arch), attention_impl="pallas", paged_attend_impl="pallas", **over)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    return cfg, params, tree_bytes(params), time.perf_counter() - t0
+
+
+def tree_bytes(x) -> int:
+    if isinstance(x, dict):
+        return sum(tree_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(tree_bytes(v) for v in x)
+    return x.numel() * x.element_size()
+
+
+def rel_logits(a, b, V: int) -> float:
+    """Relative L2 of two logits blocks over the live vocab columns."""
+    a, b = a[..., :V].float(), b[..., :V].float()
+    return float(((a - b).norm() / a.norm()).item())
+
+
+def moe_route_path(card: str, cfg, params, gen, res: dict) -> tuple[dict, dict]:
+    """One dbrx MoE layer (period 0's weights) on 4 x 1792 tokens under the
+    insertion methods ``scan``, ``tile`` (K1) and ``mxu`` (K2), and at a
+    decode step of 8 slots under those and ``atomic``: offsets, slots,
+    packed buffers and layer outputs bitwise equal across methods.  K1, K2
+    and ``torch.cumsum`` timed on the assignment masks in CUDA-graph
+    replays (K2 also from Python), and the routing's time in the layer →
+    (launch counts of the driven layers, the phase's line)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.scan_mxu import kernel as k_sm
+    from repro_torch.kernels.scan_mxu import ref as r_sm
+    from repro_torch.kernels.scan_tile import kernel as k_st
+    from repro_torch.kernels.scan_tile import ref as r_st
+    from repro_torch.models import moe, transformer
+
+    p = transformer.layer_params(params["layers"][0]["moe"], 0)
+    D = cfg.d_model
+    shapes = {
+        "prefill": (torch.randn((ROUTE_B, ROUTE_S, D), generator=gen, device=DEV).to(torch.bfloat16),
+                    ("scan", "tile", "mxu")),
+        "decode": (torch.randn((ROUTE_DECODE_B, 1, D), generator=gen, device=DEV).to(torch.bfloat16),
+                   ("scan", "atomic", "tile", "mxu")),
+    }
+
+    def with_method(m):
+        return dataclasses.replace(cfg, insertion_method=m)
+
+    # the driven path: the layer under each method, launch counts around it
+    common.reset_launch_counts()
+    outs = {(s, m): moe.moe_block(p, x, with_method(m)) for s, (x, ms) in shapes.items() for m in ms}
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    for name in ("row_scan", "row_scan_mxu"):
+        check(launches[name] >= 2, f"kernel {name} never launched on the moe.route path")
+
+    line = {"phase": "moe.route", "card": card, "arch": cfg.name, "experts": cfg.moe.n_experts,
+            "top_k": cfg.moe.top_k, "d_ff_expert": cfg.moe.d_ff_expert}
+    mism = 0
+    for s, (x, ms) in shapes.items():
+        xt = x.reshape(-1, D)
+        C = moe.expert_capacity(cfg.moe, xt.shape[0])
+        got = {}
+        for m in ms:
+            c = with_method(m)
+            _, gate, expert = moe.route(p, xt, c)
+            buf, slot, offsets, assign = moe.pack(xt, expert, c, C)
+            out, aux = outs[s, m]
+            got[m] = (offsets, slot, buf, out, aux.reshape(1))
+        for m in ms[1:]:
+            mism += sum(compare(a, b)[0] for a, b in zip(got[m], got["scan"]))
+        offsets, slot = got["scan"][:2]
+        mask = assign.to(torch.int32)
+        rows, cols = mask.shape
+        want = torch.cumsum(mask, dim=1, dtype=torch.int32)
+        for name, fn, ref in (("row_scan", k_st.row_scan_cuda, r_st.row_scan),
+                              ("row_scan_mxu", k_sm.row_scan_mxu_cuda, r_sm.row_scan)):
+            r = res[name]
+            r["mismatches"] += compare(fn(mask), ref(mask))[0] + compare(fn(mask), want)[0]
+            r["cases"] += 1
+        bms, by = bound_ms(2 * rows * cols * 4, rows * cols, card)
+        # the scans in CUDA-graph replays: at these shapes a launch from
+        # Python takes longer than the kernel
+        line[s] = {
+            "tokens": xt.shape[0], "lanes": cols, "capacity": C,
+            "dropped": int((slot < 0).sum().item()), "mask": [rows, cols],
+            "k1_ms": graph_ms(lambda: k_st.row_scan_cuda(mask), ROUTE_ITERS),
+            "k2_ms": graph_ms(lambda: k_sm.row_scan_mxu_cuda(mask), ROUTE_ITERS),
+            "cumsum_ms": graph_ms(lambda: torch.cumsum(mask, dim=1, dtype=torch.int32), ROUTE_ITERS),
+            "k2_from_python_ms": cuda_ms(lambda: k_sm.row_scan_mxu_cuda(mask), ROUTE_ITERS),
+            "bound_ms": bms, "bound_by": by,
+            "route_and_pack_ms": cuda_ms(lambda: moe._route_and_pack(p, xt, with_method("mxu"), C), 10),
+            "layer_ms": cuda_ms(lambda: moe.moe_block(p, x, with_method("mxu")), 5),
+        }
+    line.update({"mismatches_across_methods": mism, "launches": {k: v for k, v in launches.items() if v},
+                 "ok": mism == 0})
+    emit(line)
+    check(mism == 0, f"moe.route: {mism} elements differ between insertion methods")
+    del outs, shapes
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def family_engine(card: str, what: str, cfg, params, prompts, new: int, res: dict) -> dict:
+    """Engine(policy="ggarray") on ``prompts``, every decode step under the
+    sync check; one host sync, no bytes copied, tokens inside the vocab; in
+    an attention stack layer 0's K13 and two-group K3 held against their
+    plain versions on the captured inputs; the prefill timed on its own →
+    the run (outputs, prefill logits, steps, launches, line fields)."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.serving import steps
+    from repro_torch.serving.engine import Engine
+
+    common.reset_launch_counts()
+    eng = Engine(params, cfg, device=DEV)
+    with Capture(k_fa, "flash_attention_cuda") as cap_fa, Capture(k_pb, "push_back_cuda_multi") as cap_pb, \
+            StepTimer(steps, "decode_step") as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, new)
+        wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    st = eng.stats
+    check(st.host_syncs == 1, f"{what}: {st.host_syncs} host syncs, expected only the final token drain")
+    check(st.copied_bytes == 0, f"{what}: ggarray growth copied bytes")
+    for p, o in zip(prompts, out):
+        check(len(o) == len(p) + new and o[:len(p)] == p, f"{what}: output length / prompt")
+        check(all(0 <= t < cfg.vocab_size for t in o[len(p):]), f"{what}: token outside the vocab")
+    if "attn" in cfg.layout:
+        for name in ("flash_attention", "push_back_multi"):
+            check(launches[name] >= 1, f"kernel {name} never launched on the {what} path")
+        check_captured_engine(res, cap_fa, cap_pb)
+    del cap_fa, cap_pb, eng
+    logits, caches, prefill_s, ttft_s = timed_prefill(params, cfg, prompts)
+    check(bool(torch.isfinite(logits).all().item()), f"{what}: prefill logits not finite")
+    step_ms = timer.step_ms()
+    live = sum(len(p) for p in prompts) + len(prompts) * (new - 1)
+    fields = {"prompts": [len(p) for p in prompts], "new_tokens": new, "prefill_s": prefill_s,
+              "ttft_s": ttft_s, "prefill_tokens_per_s": sum(len(p) for p in prompts) / prefill_s,
+              "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_steps": len(step_ms),
+              "generate_s": wall, "tokens_per_s": len(prompts) * new / wall,
+              "grow_events": st.grow_events, "copied_bytes": st.copied_bytes,
+              "allocated_kv_bytes": st.allocated_bytes, "live_kv_bytes": live * kv_bytes_per_token(cfg),
+              "host_syncs": st.host_syncs, "launches": {k: v for k, v in launches.items() if v}}
+    run = {"out": out, "logits": logits.float(), "last_logits": timer.last_logits.float(),
+           "launches": launches, "fields": fields}
+    del caches
+    torch.cuda.empty_cache()
+    return run
+
+
+def batch_prefill_logits(cfg, params, prompts):
+    """BatchEngine's chunked prefill of ``prompts``: each one's final-chunk
+    logits, (len(prompts), V) f32."""
+    import torch
+
+    from repro_torch.serving.engine import BatchEngine
+
+    class Capturing(BatchEngine):
+        def _finish_prefill(self, req, slot, lg):
+            self.prefill_logits[req.rid] = lg[0].float()
+            super()._finish_prefill(req, slot, lg)
+
+    be = Capturing(params, cfg, max_batch=len(prompts), grow_chunk="doubling", device=DEV)
+    be.prefill_logits = {}
+    be.run_all(prompts, 2)
+    got = torch.stack([be.prefill_logits[r] for r in range(len(prompts))])
+    del be
+    torch.cuda.empty_cache()
+    return got
+
+
+def forward_rel(what: str, cfg, params, out, last_logits, **kw) -> float:
+    """The last decode step's logits against ``forward`` over every token
+    it had seen (plain blockwise attention: the Pallas tiles need lengths
+    that divide by 256) → relative L2."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer
+
+    toks = torch.tensor([o[:-1] for o in out], dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        logits, _ = transformer.forward(params, toks, dataclasses.replace(cfg, attention_impl="blockwise"),
+                                        **kw)
+    rel = rel_logits(logits[:, -1], last_logits, cfg.vocab_size)
+    check(bool(torch.isfinite(last_logits).all().item()), f"{what}: decode logits not finite")
+    del logits
+    torch.cuda.empty_cache()
+    return rel
+
+
+def serve_moe_paths(card: str, seed: int, lens, res: dict) -> dict:
+    """moe.route, then serve.moe: dbrx-132b at full width, 8 layers,
+    ``insertion_method="mxu"``: Engine(ggarray) on serve.engine's prompt
+    lengths with 320 new tokens (one growth), BatchEngine over doubling
+    extents with serve.batch's requests → launch counts by run."""
+    import numpy as np
+    import torch
+
+    cfg, params, nbytes, init_s = family_model(MOE_ARCH, seed + 500, n_layers=MOE_LAYERS,
+                                               insertion_method="mxu")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 501)
+    runs = {}
+    runs["moe.route"], route = moe_route_path(card, cfg, params, gen, res)
+    rng = np.random.default_rng(seed + 502)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    eng = family_engine(card, "serve.moe.engine", cfg, params, prompts, SERVE_NEW, res)
+    check(eng["fields"]["grow_events"] >= 1, "serve.moe: the cache never grew")
+    emit({"phase": "serve.moe.engine", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "param_bytes": nbytes, "init_s": init_s, **eng["fields"], "ok": True})
+    runs["moe.engine"] = eng["launches"]
+    runs["moe.batch"], _, bline = serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res,
+                                                   what="serve.moe.batch")
+    # BatchEngine's K/V writes are plain scatters in both packages (counted
+    # as slab_append waves by the counter plane, but K12 is the arena's)
+    both = {k: runs["moe.engine"][k] + runs["moe.batch"][k] for k in KERNELS}
+    for name in ("row_scan_mxu", "push_back_multi", "flash_attention"):
+        check(both[name] >= 1, f"kernel {name} never launched on the serve.moe path")
+    check(both["paged_attend"] + both["paged_attend_extents"] >= 1,
+          "kernel paged_attend never launched on the serve.moe path")
+    # routing's share of a steady BatchEngine decode step: one layer's route
+    # and pack at the 8-slot decode shape (moe.route), times the layers
+    per_layer = route["decode"]["route_and_pack_ms"]
+    emit({"phase": "serve.moe", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "routing_ms_per_layer": per_layer, "moe_layer_ms": route["decode"]["layer_ms"],
+          "steady_step_ms_median": bline["steady_step_ms_median"],
+          "routing_share_of_step": per_layer * cfg.n_layers / bline["steady_step_ms_median"],
+          "ok": True})
+    del params, eng
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_hybrid_paths(card: str, seed: int, res: dict) -> dict:
+    """serve.hybrid: jamba-v0.1-52b whole.  Engine(ggarray) on 4 equal
+    prompts, BatchEngine (chunked, doubling) on serve.batch's requests;
+    then the two prefills' logits on the equal prompts against each other,
+    in f32 (checked) and in bf16 (beside the bf16 rounding floor)."""
+    import numpy as np
+    import torch
+
+    cfg, params, nbytes, init_s = family_model(HYBRID_ARCH, seed + 600)
+    rng = np.random.default_rng(seed + 601)
+    prompts = [rng.integers(0, cfg.vocab_size, FAMILY_LEN).tolist() for _ in range(FAMILY_B)]
+    eng = family_engine(card, "serve.hybrid.engine", cfg, params, prompts, FAMILY_NEW, res)
+    emit({"phase": "serve.hybrid.engine", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "param_bytes": nbytes, "init_s": init_s, **eng["fields"], "ok": True})
+    runs = {"hybrid.engine": eng["launches"]}
+    runs["hybrid.batch"] = serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res,
+                                            what="serve.hybrid.batch")[0]
+    V = cfg.vocab_size
+    bf16 = {"engine_vs_batch": rel_logits(eng["logits"], batch_prefill_logits(cfg, params, prompts), V),
+            "engine_batch4_vs_one_by_one": rel_logits(
+                eng["logits"], torch.cat([timed_prefill(params, cfg, [p])[0] for p in prompts]), V)}
+    del params, eng
+    torch.cuda.empty_cache()
+    cfg, params, _, _ = family_model(HYBRID_ARCH, seed + 602, **FAMILY_F32)
+    logits = timed_prefill(params, cfg, prompts)[0]
+    rel = rel_logits(logits, batch_prefill_logits(cfg, params, prompts), V)
+    emit({"phase": "serve.hybrid.cross_check", "card": card, "arch": cfg.name,
+          "prompts": [len(p) for p in prompts], "f32_logits_rel_l2_err": rel,
+          "rel_l2_tolerance": FAMILY_TOL, "bf16_rel_l2": bf16, "ok": rel <= FAMILY_TOL})
+    check(rel <= FAMILY_TOL, f"serve.hybrid: f32 prefill logits differ by {rel} (relative L2) > {FAMILY_TOL}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_ssm_path(card: str, seed: int, res: dict) -> dict:
+    """serve.ssm: mamba2-2.7b whole, Engine(ggarray) on 4 x 1792 tokens with
+    64 new; the last decode step against forward over the whole sequence,
+    in f32 (a run of 8 new tokens, checked) and in bf16."""
+    import numpy as np
+    import torch
+
+    cfg, params, nbytes, init_s = family_model(SSM_ARCH, seed + 700)
+    rng = np.random.default_rng(seed + 701)
+    prompts = [rng.integers(0, cfg.vocab_size, FAMILY_LEN).tolist() for _ in range(FAMILY_B)]
+    eng = family_engine(card, "serve.ssm", cfg, params, prompts, FAMILY_NEW, res)
+    launches = eng["launches"]  # none: the SSD scan is plain PyTorch, as in the reference
+    bf16 = forward_rel("serve.ssm", cfg, params, eng["out"], eng["last_logits"])
+    fields = eng["fields"]
+    del params, eng
+    torch.cuda.empty_cache()
+    cfg, params, _, _ = family_model(SSM_ARCH, seed + 702, **FAMILY_F32)
+    eng = family_engine(card, "serve.ssm.f32", cfg, params, prompts, CHECK_NEW, res)
+    rel = forward_rel("serve.ssm", cfg, params, eng["out"], eng["last_logits"])
+    emit({"phase": "serve.ssm", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "param_bytes": nbytes, "init_s": init_s, **fields,
+          "f32_last_step_vs_forward_rel_l2": rel, "rel_l2_tolerance": FAMILY_TOL,
+          "bf16_last_step_vs_forward_rel_l2": bf16, "ok": rel <= FAMILY_TOL})
+    check(rel <= FAMILY_TOL, f"serve.ssm: f32 last decode step differs from forward by {rel}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return {"ssm": launches}
+
+
+def decode_loop(what: str, cfg, params, toks, new: int, **kw) -> dict:
+    """steps.prefill(**kw) then ``new`` greedy decode steps, each under the
+    sync check between CUDA events → outputs, the last step's logits, times."""
+    import torch
+
+    from repro_torch.serving import steps
+    from repro_torch.serving.sampler import sample
+
+    B, S = toks.shape
+    P = kw["prefix_embeds"].shape[1] if "prefix_embeds" in kw else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = steps.prefill(params, toks, cfg, capacity_hint=P + S + new, policy="ggarray", **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = sample(None, logits)
+    sampled, events = [tok], []
+    length = torch.full((B,), P + S, dtype=torch.int32, device=DEV)
+    for _ in range(new):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            logits, caches = steps.decode_step(params, tok, caches, length, cfg)
+            b.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        events.append((a, b))
+        tok = sample(None, logits)
+        sampled.append(tok)
+        length = length + 1
+    gen = torch.stack(sampled, dim=1).cpu()
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()), f"{what}: token outside the vocab")
+    out = [t + g for t, g in zip(toks.cpu().tolist(), gen.tolist())]
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    del caches
+    return {"out": out, "last_logits": logits.float(), "prefill_s": prefill_s,
+            "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_steps": len(step_ms)}
+
+
+def encdec_run(what: str, cfg, params, gen, new: int) -> dict:
+    """``encode`` on 4 x 1024 synthetic frames, prefill with that memory,
+    ``new`` decode steps; the last against forward → the run."""
+    import torch
+
+    from repro_torch.models import encdec, frontends
+
+    frames = frontends.synthetic_frames(gen, cfg, FAMILY_B, ENCDEC_FRAMES)
+    toks = torch.randint(0, cfg.vocab_size, (FAMILY_B, ENCDEC_LEN), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memory = encdec.encode(params["encoder"], frames, cfg)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    run = decode_loop(what, cfg, params, toks, new, memory=memory)
+    run["encode_s"] = encode_s
+    run["vs_forward"] = forward_rel(what, cfg, params, run.pop("out"), run.pop("last_logits"),
+                                    memory=memory)
+    return run
+
+
+def vlm_run(what: str, cfg, params, gen, new: int) -> dict:
+    """Prefill with 256 prefix embeddings before 1536 tokens, ``new`` decode
+    steps; the last against forward → the run."""
+    import torch
+
+    from repro_torch.models import frontends
+
+    prefix = frontends.synthetic_prefix_embeds(gen, cfg, FAMILY_B)
+    toks = torch.randint(0, cfg.vocab_size, (FAMILY_B, VLM_LEN), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    run = decode_loop(what, cfg, params, toks, new, prefix_embeds=prefix)
+    run["vs_forward"] = forward_rel(what, cfg, params, run.pop("out"), run.pop("last_logits"),
+                                    prefix_embeds=prefix)
+    return run
+
+
+def serve_prompted_path(card: str, seed: int, what: str, arch: str, run_fn, new: int,
+                        **over) -> dict:
+    """One encoder–decoder or prefix-embedding phase: ``run_fn`` on the bf16
+    model (times, launches, the bf16 gap to forward), then on the f32 model
+    with ``CHECK_NEW`` steps (the checked gap)."""
+    import torch
+
+    from repro_torch.kernels import common
+
+    cfg, params, nbytes, init_s = family_model(arch, seed, **over)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 1)
+    common.reset_launch_counts()
+    run = run_fn(what, cfg, params, gen, new)
+    launches = common.launch_counts()
+    for name in ("flash_attention", "push_back_multi"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the {what} path")
+    del params
+    torch.cuda.empty_cache()
+    cfg32, params, _, _ = family_model(arch, seed + 2, **over, **FAMILY_F32)
+    gen.manual_seed(seed + 1)
+    rel = run_fn(what, cfg32, params, gen, CHECK_NEW)["vs_forward"]
+    emit({"phase": what, "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "param_bytes": nbytes, "init_s": init_s, "batch": FAMILY_B, "new_tokens": new,
+          **{k: v for k, v in run.items() if k != "vs_forward"},
+          "f32_last_step_vs_forward_rel_l2": rel, "rel_l2_tolerance": FAMILY_TOL,
+          "bf16_last_step_vs_forward_rel_l2": run["vs_forward"],
+          "launches": {k: v for k, v in launches.items() if v}, "ok": rel <= FAMILY_TOL})
+    check(rel <= FAMILY_TOL, f"{what}: f32 last decode step differs from forward by {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_paths(card: str, seed: int, lens, res: dict) -> dict:
+    """Every slice-10 path, launch counts zeroed before each run and read
+    after → the counts summed over the runs."""
+    import torch
+
+    runs = serve_moe_paths(card, seed, lens, res)
+    runs.update(serve_hybrid_paths(card, seed, res))
+    runs.update(serve_ssm_path(card, seed, res))
+    runs["encdec"] = serve_prompted_path(card, seed + 800, "serve.encdec", ENCDEC_ARCH, encdec_run,
+                                         ENCDEC_NEW)
+    runs["vlm"] = serve_prompted_path(card, seed + 900, "serve.vlm", VLM_ARCH, vlm_run, VLM_NEW,
+                                      n_layers=VLM_LAYERS)
+    emit({"phase": "family.launches", "card": card, "launches": runs,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
     total = {k: 0 for k in KERNELS}
     for counts in runs.values():
         for k, v in counts.items():
@@ -3890,9 +4441,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. the serving paths
-    serve_launches = serve_paths(card, args.seed, res)
+    serve_launches, engine_lens = serve_paths(card, args.seed, res)
+    torch.cuda.empty_cache()
+    # 6b. the remaining model families
+    family_launches = family_paths(card, args.seed, engine_lens, res)
     launches = {k: launches[k] + core_launches[k] + arena_launches[k] + obs_arena_launches[k]
-                + serve_launches[k] for k in KERNELS}
+                + serve_launches[k] + family_launches[k] for k in KERNELS}
     check(launches["counter_plane"] >= 1, "kernel counter_plane never launched on the obs paths")
 
     # 7. the kernels line

@@ -153,29 +153,37 @@ def arena_from_numpy(
     return arena
 
 
+# Leaves the reference keeps in f32 whatever ``param_dtype`` says:
+# ``repro/models/moe.py:61`` and ``repro/models/ssm.py:54-56``.
+_F32_LEAVES = {("moe", "router"), ("mamba", "A_log"), ("mamba", "D"), ("mamba", "dt_bias")}
+
+
 def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" = None) -> Any:
     """The reference's parameter tree as numpy → the port's, on ``device``.
 
     ``tree`` is ``jax.tree.map(np.asarray, params)`` of the reference's
     ``transformer.init_params``: ``{"embed", "final_norm", "layers": [slot
-    dicts with leaves stacked over n_periods], ("unembed")}``.  The port
+    dicts with leaves stacked over n_periods], ("unembed"), ("encoder")}``.  The port
     keeps that structure leaf for leaf.  bf16 leaves may come as ml_dtypes
-    bfloat16 or as their ``uint16`` bits; every leaf must have
-    ``cfg.param_dtype``.
+    bfloat16 or as their ``uint16`` bits.  Every leaf must have the dtype
+    the reference gives it: ``cfg.param_dtype``, except the MoE router and
+    the SSM's ``A_log``, ``D`` and ``dt_bias``, which are f32 in any model
+    (``_F32_LEAVES``).
     """
     from repro_torch.models.transformer import DTYPES, check_supported
 
     check_supported(cfg)
-    want = DTYPES[cfg.param_dtype]
 
     def leaf(path: str, arr) -> torch.Tensor:
+        parent, name = path.split("/")[-2:]
+        want = torch.float32 if (parent, name) in _F32_LEAVES else DTYPES[cfg.param_dtype]
         arr = np.asarray(arr)
         if arr.dtype == np.uint16 and want == torch.bfloat16:
             t = tensor_from_numpy(arr.view(np.int16), device).view(torch.bfloat16)
         else:
             t = tensor_from_numpy(arr, device)
         if t.dtype != want:
-            raise TypeError(f"params_from_numpy: {path} is {t.dtype}, config says {want}")
+            raise TypeError(f"params_from_numpy: {path} is {t.dtype}, the reference's is {want}")
         return t
 
     def walk(path: str, node: Any) -> Any:

@@ -1,5 +1,5 @@
-"""Data pipelines on the two-phase runtime — port of ``repro.data``
-(so far the token packer; ``synthetic.py`` needs the model configs)."""
+"""Data pipelines on the two-phase runtime — port of ``repro.data``: the
+token packer and step-indexed synthetic batches (``data/synthetic.py``)."""
 from repro_torch.data.packing import Packer
 
 __all__ = ["Packer"]

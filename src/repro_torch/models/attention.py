@@ -28,6 +28,7 @@ __all__ = [
     "init_attention",
     "attention_block",
     "project_qkv",
+    "project_heads",
     "project_out",
     "inner_attention",
     "SoftmaxState",
@@ -226,10 +227,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *
     d, dh = cfg.d_model, cfg.head_dim
     dev = gen.device
     p: Param = {
-        "wq": dense_init(gen, (*lead, d, cfg.n_heads, dh), dtype, d),
-        "wk": dense_init(gen, (*lead, d, cfg.n_kv_heads, dh), dtype, d),
-        "wv": dense_init(gen, (*lead, d, cfg.n_kv_heads, dh), dtype, d),
-        "wo": dense_init(gen, (*lead, cfg.n_heads, dh, d), dtype, cfg.n_heads * dh),
+        "wq": dense_init(gen, (d, cfg.n_heads, dh), dtype, d, lead=lead),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads, dh), dtype, d, lead=lead),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads, dh), dtype, d, lead=lead),
+        "wo": dense_init(gen, (cfg.n_heads, dh, d), dtype, cfg.n_heads * dh, lead=lead),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((*lead, cfg.n_heads, dh), dtype=dtype, device=dev)
@@ -241,7 +242,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
@@ -249,7 +250,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def project_qkv(p: Param, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """x: (B, S, D) → q (B,S,H,Dh), k,v (B,S,KH,Dh) with bias/qk-norm/rope."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = project_heads(x, p["wq"]), project_heads(x, p["wk"]), project_heads(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -271,8 +272,16 @@ def attention_block(
     positions: torch.Tensor,
     *,
     causal: bool | None = None,
+    kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Self-attention.  Cross-attention (encoder–decoder) is not ported
-    (ROADMAP.md, Queue 1 item 16)."""
-    q, k, v = project_qkv(p, x, cfg, positions)
+    """Self-attention, or cross-attention (non-causal, no rope on q) when
+    ``kv`` brings the projected encoder K/V."""
+    if kv is None:
+        q, k, v = project_qkv(p, x, cfg, positions)
+    else:
+        q = project_heads(x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v = kv
+        causal = False
     return project_out(p, inner_attention(q, k, v, cfg, causal=causal))

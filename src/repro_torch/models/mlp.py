@@ -16,7 +16,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
              dtype: torch.dtype, *, lead: tuple[int, ...] = ()) -> Param:
     """``lead``: leading stacking dims (the period axis of a layer stack)."""
     def w(shape, fan_in):
-        return dense_init(gen, (*lead, *shape), dtype, fan_in)
+        return dense_init(gen, shape, dtype, fan_in, lead=lead)
 
     dev = gen.device
     if activation == "swiglu":

@@ -15,9 +15,11 @@ from typing import Any
 
 import torch
 
-__all__ = ["rms_norm", "rope", "apply_rope", "embed", "unembed", "dense_init", "Param"]
+__all__ = ["rms_norm", "rope", "apply_rope", "embed", "unembed", "dense_init", "Param", "DTYPES"]
 
 Param = dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def dense_init(
@@ -26,12 +28,23 @@ def dense_init(
     dtype: torch.dtype,
     fan_in: int | None = None,
     *,
+    lead: tuple[int, ...] = (),
     device: "torch.device | str | None" = None,
 ) -> torch.Tensor:
-    """Scaled normal init (1/sqrt(fan_in)) drawn from ``gen``."""
+    """Scaled normal init (1/sqrt(fan_in)) drawn from ``gen``, shape
+    ``(*lead, *shape)``.
+
+    ``lead`` holds stacking dims (periods, experts): each ``shape`` slice
+    is drawn in f32 in turn, row-major over ``lead``, and cast into the
+    ``dtype`` leaf, so the f32 temporary is one slice, never the leaf
+    (dbrx's ``w_gate`` at 8 layers would be a 34 GB f32 draw).
+    """
     fan_in = shape[0] if fan_in is None else fan_in
     dev = gen.device if device is None else device
-    return (torch.randn(shape, generator=gen, device=dev) * (fan_in ** -0.5)).to(dtype)
+    out = torch.empty((*lead, *shape), dtype=dtype, device=dev)
+    for piece in out.view(-1, *shape) if lead else (out,):
+        piece.copy_(torch.randn(shape, generator=gen, device=dev) * (fan_in ** -0.5))
+    return out
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

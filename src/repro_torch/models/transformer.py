@@ -1,14 +1,18 @@
-"""Decoder stack — port of ``repro/models/transformer.py``, attention-only
-layouts.
+"""Decoder stack: period-stacked heterogeneous layers — port of
+``repro/models/transformer.py``.
 
-The parameter tree is the reference's: ``{"embed", "final_norm",
-"layers": [slot params …], ("unembed")}`` with every layer leaf stacked
-along a leading period axis (``n_periods``), so ``convert.params_from_numpy``
-carries the reference's parameters over leaf for leaf.  Where the reference
+``cfg.layout`` lists the layer kinds of one period (dense: ``("attn",)``;
+Jamba: seven Mamba slots and one attention slot).  The parameter tree is
+the reference's: ``{"embed", "final_norm", "layers": [slot params …],
+("unembed"), ("encoder")}`` with every layer leaf stacked along a leading
+period axis (``n_periods``), so ``convert.params_from_numpy`` carries the
+reference's parameters over leaf for leaf.  A slot holds ``norm1`` and
+``mamba``, or ``norm1``, ``attn``, ``norm2`` and ``moe`` or ``mlp`` (and
+``cross_norm`` / ``cross`` in an encoder–decoder).  A Mamba slot has no
+MLP, so it never gets an MoE — the reference's rule, which leaves Jamba's
+MoE slots (1, 3, 5, 7: all Mamba) without experts.  Where the reference
 scans a period body, the port loops over periods and indexes each leaf
-(``layer_params``, a view, never a copy).  Mamba, MoE, encoder–decoder and
-multimodal prefix embeddings raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 16).
+(``layer_params``, a view, never a copy).
 """
 from __future__ import annotations
 
@@ -19,28 +23,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.modules import Param, embed, rms_norm, unembed
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.modules import DTYPES, Param, embed, rms_norm, unembed
 
 __all__ = ["init_params", "forward", "layer_params", "check_supported", "DTYPES"]
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
-
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the layouts the port does not serve yet."""
-    what = None
-    if any(kind != "attn" for kind in cfg.layout):
-        what = f"layout {cfg.layout} (Mamba / hybrid)"
-    elif cfg.moe is not None:
-        what = "MoE layers"
-    elif cfg.n_enc_layers:
-        what = "encoder–decoder stacks"
-    elif cfg.n_prefix_embeds:
-        what = "multimodal prefix embeddings"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} are not ported yet (ROADMAP.md, Queue 1 item 16)"
-        )
+    """Raise for configurations the port cannot serve: every layer kind of
+    the reference (``attn``, ``mamba``) is ported."""
+    bad = [kind for kind in cfg.layout if kind not in ("attn", "mamba")]
+    if bad:
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
+    if "mamba" in cfg.layout and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: a Mamba layout needs an ssm config")
 
 
 def layer_params(tree: Any, i: int) -> Any:
@@ -50,22 +47,38 @@ def layer_params(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _init_slot(gen: torch.Generator, slot: int, kind: str, cfg: ModelConfig,
+               dtype: torch.dtype) -> Param:
+    P, d, dev = cfg.n_periods, cfg.d_model, gen.device
+    lead = (P,)
+
+    def ones():
+        return torch.ones((P, d), dtype=dtype, device=dev)
+
+    p: Param = {"norm1": ones()}
+    if kind == "mamba":
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg, dtype, lead=lead)
+        return p
+    p["attn"] = attn_mod.init_attention(gen, cfg, dtype, lead=lead)
+    p["norm2"] = ones()
+    if cfg.is_moe_layer(slot):
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, lead=lead)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype, lead=lead)
+    if cfg.n_enc_layers:  # encoder–decoder: a cross-attention sub-block
+        p["cross_norm"] = ones()
+        p["cross"] = attn_mod.init_attention(gen, cfg, dtype, lead=lead)
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Param:
     """Random parameters on ``gen``'s device (the reference's initialiser:
-    scaled normals, unit norms, zero biases, embedding std 0.02)."""
+    scaled normals, unit norms, zero biases, embedding std 0.02), drawn
+    one period (and expert) slice at a time."""
     check_supported(cfg)
     dtype = DTYPES[cfg.param_dtype]
     dev = gen.device
-    P, d = cfg.n_periods, cfg.d_model
-    lead = (P,)
-    layers = []
-    for _slot in cfg.layout:
-        layers.append({
-            "norm1": torch.ones((P, d), dtype=dtype, device=dev),
-            "attn": attn_mod.init_attention(gen, cfg, dtype, lead=lead),
-            "norm2": torch.ones((P, d), dtype=dtype, device=dev),
-            "mlp": mlp_mod.init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype, lead=lead),
-        })
+    d = cfg.d_model
 
     def table():
         return (torch.randn((cfg.padded_vocab, d), generator=gen, device=dev) * 0.02).to(dtype)
@@ -73,19 +86,32 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Param:
     params: Param = {
         "embed": table(),
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
-        "layers": layers,
+        "layers": [_init_slot(gen, slot, kind, cfg, dtype) for slot, kind in enumerate(cfg.layout)],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = table()
+    if cfg.n_enc_layers:
+        from repro_torch.models import encdec
+
+        params["encoder"] = encdec.init_encoder(gen, cfg, dtype)
     return params
 
 
-def _apply_slot(sp: Param, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor) -> torch.Tensor:
+def _apply_slot(sp: Param, x: torch.Tensor, kind: str, slot: int, cfg: ModelConfig,
+                positions: torch.Tensor, memory_kv) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer → (x, its MoE aux loss or None)."""
     h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+    if kind == "mamba":
+        return x + ssm_mod.mamba_block(sp["mamba"], h, cfg), None
     x = x + attn_mod.attention_block(sp["attn"], h, cfg, positions)
+    if memory_kv is not None:
+        h = rms_norm(x, sp["cross_norm"], cfg.norm_eps)
+        x = x + attn_mod.attention_block(sp["cross"], h, cfg, positions, kv=memory_kv)
     h = rms_norm(x, sp["norm2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_block(sp["mlp"], h, cfg.activation)
+    if cfg.is_moe_layer(slot):
+        out, aux = moe_mod.moe_block(sp["moe"], h, cfg)
+        return x + out, aux
+    return x + mlp_mod.mlp_block(sp["mlp"], h, cfg.activation), None
 
 
 def forward(
@@ -96,22 +122,33 @@ def forward(
     prefix_embeds: torch.Tensor | None = None,
     memory: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B, S, V) f32, aux_loss = 0)."""
+    """Full-sequence forward → (logits (B, P + S, V) f32, aux_loss f32).
+
+    ``prefix_embeds``: (B, P, D) multimodal stub embeddings prepended to the
+    token embeddings.  ``memory``: (B, S_enc, D) encoder output, which each
+    attention slot projects with its own cross-attention weights.
+    """
     check_supported(cfg)
-    if prefix_embeds is not None or memory is not None:
-        raise NotImplementedError(
-            "prefix embeddings and encoder memory are not ported yet (ROADMAP.md, Queue 1 item 16)"
-        )
     x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_periods):
-        for slot in range(len(cfg.layout)):
-            x = _apply_slot(layer_params(params["layers"][slot], i), x, cfg, positions)
+        for slot, kind in enumerate(cfg.layout):
+            sp = layer_params(params["layers"][slot], i)
+            mkv = None
+            if memory is not None and kind == "attn":
+                mkv = (attn_mod.project_heads(memory, sp["cross"]["wk"]),
+                       attn_mod.project_heads(memory, sp["cross"]["wv"]))
+            x, a = _apply_slot(sp, x, kind, slot, cfg, positions, mkv)
+            if a is not None:
+                aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = unembed(x, table)
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding columns
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(live, logits, -1e30)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux

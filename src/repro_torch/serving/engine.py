@@ -33,9 +33,17 @@ a flight recorder (``obs.flight``): a quota failure, a failed step (dumped
 once) and a failed ``check_free_list`` write a postmortem bundle of the
 engine's host state before the exception propagates.
 
+Both serve every decoder layout of the reference: attention, Mamba
+(pure SSM or the Jamba hybrid) and MoE stacks.  Growth, freezing, the page
+tables and the pool touch attention slots only; a Mamba slot's cache is its
+recurrent state, sized by the batch.  ``Engine`` also serves encoder–decoder
+and prefix-embedding configs as decoder-only stacks (its ``generate``
+passes neither memory nor prefix, as the reference's); ``BatchEngine``
+refuses them, as the reference does.
+
 Not ported yet (ROADMAP.md, Queue 1), each raising
-``NotImplementedError``: int8 caches, monolithic admission, ``prefix_cache=True``
-and non-attention layouts.
+``NotImplementedError``: int8 caches, monolithic admission and
+``prefix_cache=True``.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.common import to_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import DTYPES, check_supported
 from repro_torch.obs import DeviceCounterPlane, ServingTimeline
 from repro_torch.serving import kvcache, scheduler as sched_mod, steps
@@ -58,7 +67,7 @@ __all__ = ["Engine", "EngineStats", "ENGINE_POLICIES", "BatchEngine", "BatchStat
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 items 14-17)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 items 14, 15 and 17)")
 
 
 def _params_device(params: dict, device) -> torch.device:
@@ -159,7 +168,10 @@ class Engine:
         return x.cpu().numpy()
 
     def _capacity(self, caches) -> int:
-        return kvcache.capacity_of(caches[0])
+        for c, kind in zip(caches, self.cfg.layout):
+            if kind == "attn":
+                return kvcache.capacity_of(c)
+        return 1 << 30  # attention-free: no cache capacity limit
 
     def _grow(self, caches) -> list:
         """The policy's growth event; counts allocated and copied bytes."""
@@ -168,7 +180,10 @@ class Engine:
         self.obs.event("grow", policy=self.policy)
         cfg = self.cfg
         out = []
-        for c in caches:
+        for c, kind in zip(caches, cfg.layout):
+            if kind != "attn":  # a Mamba state does not grow
+                out.append(c)
+                continue
             if self.policy == "ggarray":
                 grown = kvcache.grow_ggarray(c, cfg)
                 reg.counter("engine.allocated_bytes").inc(
@@ -223,10 +238,11 @@ class Engine:
             if ctr:
                 self.devctr.add(ctr[0])
         if self.policy == "two_phase":
-            caches = [kvcache.freeze_cache(c) for c in caches]
+            caches = [kvcache.freeze_cache(c) if kind == "attn" else c
+                      for c, kind in zip(caches, cfg.layout)]
             self.obs.registry.counter("engine.freeze_events").inc()
         self.obs.registry.counter("engine.allocated_bytes").inc(
-            sum(kvcache.cache_bytes(c) for c in caches))
+            sum(kvcache.cache_bytes(c) for c, kind in zip(caches, cfg.layout) if kind == "attn"))
         # host mirror of the longest live context: decode appends one slot
         # per step, so the growth check is pure host arithmetic
         max_len_host = Lp
@@ -333,11 +349,15 @@ class BatchEngine:
         from repro_torch.pool import PageBook, is_extent_schedule
 
         check_supported(cfg)
+        if cfg.n_enc_layers or cfg.n_prefix_embeds:
+            raise NotImplementedError("BatchEngine serves decoder-only stacks")
         if admission not in ("chunked", "monolithic"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if admission == "monolithic":
             raise _not_ported("monolithic admission")
         if prefix_cache:
+            # when ported, it refuses Mamba layouts as the reference does: a
+            # cached prefix carries no conv/SSD state to resume from
             raise _not_ported("prefix_cache=True (serving/prefix.py)")
         if instrument:
             cfg = dataclasses.replace(cfg, instrument=True)
@@ -370,12 +390,19 @@ class BatchEngine:
         self._next_rid = 0
         self._widths: set = set()
         C = cfg.attention_chunk if prefill_chunk is None else prefill_chunk
-        if C % cfg.attention_chunk:
+        hybrid = "mamba" in cfg.layout
+        # chunk boundaries land on the monolithic attention grid, and on the
+        # SSD chunk grid for Mamba layouts: chunked = monolithic, bit for bit
+        if "attn" in cfg.layout and C % cfg.attention_chunk:
             raise ValueError(
                 f"prefill_chunk={C} must be a multiple of attention_chunk={cfg.attention_chunk}"
             )
+        if hybrid and C % cfg.ssm.chunk_size:
+            raise ValueError(
+                f"prefill_chunk={C} must be a multiple of ssm.chunk_size={cfg.ssm.chunk_size}"
+            )
         self.sched = sched_mod.Scheduler(
-            self.book, slab_tokens=self.T, chunk=C, exact_tail=False,
+            self.book, slab_tokens=self.T, chunk=C, exact_tail=hybrid,
             max_chunks_per_step=max_chunks_per_step, obs=self.obs,
         )
         if max_pages_hint:
@@ -485,7 +512,10 @@ class BatchEngine:
         kh, dh = cfg.n_kv_heads, cfg.head_dim
         dt = DTYPES[cfg.dtype]
         caches = []
-        for _ in cfg.layout:
+        for kind in cfg.layout:
+            if kind == "mamba":  # the slots' recurrent states
+                caches.append(ssm_mod.init_mamba_state(cfg, self.B, dt, dev, lead=(P,))._asdict())
+                continue
             c = {key: torch.zeros((P, 0, self.T, kh, dh), dtype=dt, device=dev) for key in _POOL_KEYS}
             c["pages"] = torch.full((P, self.B, self.book.max_pages), -1, dtype=torch.int32, device=dev)
             if self._extent_mode:  # tuple-of-extents layout (one empty seed)
@@ -493,6 +523,11 @@ class BatchEngine:
                     c[key] = (c[key],)
             caches.append(c)
         return caches
+
+    def _attn_slots(self) -> list[dict]:
+        """The caches of the attention slots: the only ones with pools and
+        page tables."""
+        return [c for c, kind in zip(self.caches, self.cfg.layout) if kind == "attn"]
 
     # ---- pool / page-table management -----------------------------------
     def _grow_pool(self, extra: int, *, count: bool = True) -> None:
@@ -504,7 +539,7 @@ class BatchEngine:
             self._append_extents(plan_extents(tuple(self._extent_sizes), extra, self.grow_chunk),
                                  count=count)
             return
-        for c in self.caches:
+        for c in self._attn_slots():
             for key in _POOL_KEYS:
                 pool = c[key]
                 self.obs.registry.counter("pool.copied_bytes").inc(pool.numel() * pool.element_size())
@@ -519,7 +554,7 @@ class BatchEngine:
         if not sizes:
             return
         keep = [j for j, s in enumerate(self._extent_sizes) if s > 0]
-        for c in self.caches:
+        for c in self._attn_slots():
             for key in _POOL_KEYS:
                 exts = list(c[key])
                 proto = exts[0]
@@ -558,7 +593,7 @@ class BatchEngine:
         if widened is None:
             return
         old, new = widened
-        for c in self.caches:
+        for c in self._attn_slots():
             pad = torch.full((c["pages"].shape[0], self.B, new - old), -1, dtype=torch.int32,
                              device=self.device)
             c["pages"] = torch.cat([c["pages"], pad], dim=-1)
@@ -566,7 +601,7 @@ class BatchEngine:
     def _publish_pages(self, slot: int, page0: int, ids: np.ndarray) -> None:
         """Write ``ids`` into ``slot``'s device page rows from page ``page0``."""
         dev_ids = to_device(torch.from_numpy(np.asarray(ids, np.int32)), self.device)
-        for c in self.caches:
+        for c in self._attn_slots():
             c["pages"][:, slot, page0:page0 + len(ids)] = dev_ids
 
     def _mark(self, ids: np.ndarray, free: bool) -> None:
@@ -597,7 +632,7 @@ class BatchEngine:
         self._mark(ids, True)
         # fill_: assigning a Python value through an index copies it from the
         # host and synchronises
-        for c in self.caches:
+        for c in self._attn_slots():
             c["pages"][:, slot, :].fill_(-1)
         self._len_host[slot] = 0
         self.lengths[slot].fill_(0)
@@ -739,10 +774,17 @@ class BatchEngine:
                 self._grow_for(short)
             for slot in needy:
                 self._claim(slot, 1)
+        active_mask = None
+        if self.sched.prefilling:
+            # prefilling slots' Mamba rows must not move (their KV appends
+            # already drop through their −1 page rows)
+            act = np.zeros((self.B,), bool)
+            act[[r.slot for r in active]] = True
+            active_mask = to_device(torch.from_numpy(act), self.device)
         step_t0 = time.perf_counter()
         with self.obs.span("decode_step", step=len(self._stream), active=len(active)):
             logits, self.caches, *ctr = steps.decode_step(
-                self.params, self.cur_tok, self.caches, self.lengths, self.cfg)
+                self.params, self.cur_tok, self.caches, self.lengths, self.cfg, active=active_mask)
             if ctr:
                 self.devctr.add(ctr[0])  # a list append — no transfer
             sampled = sample(None, logits, 0.0)
@@ -836,7 +878,7 @@ class BatchEngine:
             raise self._violation(
                 "liveness_drift", f"slab freed while referenced (or live without references): {bad}",
                 {"check": "liveness", "offending_slabs": bad.tolist()})
-        for c in self.caches:
+        for c in self._attn_slots():
             pages = self._host_read(c["pages"], "free_list_debug")[0]
             claimed = pages[pages >= 0]
             if len(claimed) and free[claimed].any():

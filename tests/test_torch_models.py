@@ -15,18 +15,27 @@ import torch
 
 from repro import configs as rconfigs
 from repro.models import attention as rattn
+from repro.models import encdec as rencdec
 from repro.models import mlp as rmlp
 from repro.models import modules as rmod
 from repro.models import transformer as rtf
 from repro_torch import configs
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import attention, mlp, modules, transformer
+from repro_torch.models import attention, encdec, mlp, modules, transformer
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def _tree(tree, leaf):
+    if isinstance(tree, dict):
+        return {k: _tree(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, leaf) for v in tree]
+    return leaf(tree)
 
 
 def _close(ours, theirs, **tol):
@@ -155,8 +164,67 @@ def test_bf16_params_travel_as_bits():
         params_from_numpy(configs.reduced("qwen2.5-3b"), as_np, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mamba2-2.7b", "llama4-scout-17b-a16e",
-                                  "seamless-m4t-large-v2", "internvl2-26b"])
-def test_unported_layouts_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(configs.reduced(arch), torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_every_family_forward_matches_reference(arch):
+    """Every registered family — dense, MoE (routed by the insertion scan),
+    Mamba, the Jamba hybrid, encoder–decoder (memory from each package's
+    own ``encode``) and prefix embeddings — logits and aux loss against the
+    reference's ``forward`` on its own parameters and the same inputs."""
+    rcfg, cfg = rconfigs.reduced(arch), configs.reduced(arch)
+    rparams = rtf.init_params(jax.random.PRNGKey(0), rcfg)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, rparams), "cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    kw, rkw = {}, {}
+    if cfg.n_prefix_embeds:
+        pe = _np(rng, 2, cfg.n_prefix_embeds, cfg.d_model) * 0.02
+        kw["prefix_embeds"], rkw["prefix_embeds"] = torch.from_numpy(pe), jnp.asarray(pe)
+    if cfg.n_enc_layers:
+        frames = _np(rng, 2, 24, cfg.d_model) * 0.02
+        kw["memory"] = encdec.encode(params["encoder"], torch.from_numpy(frames), cfg)
+        rkw["memory"] = rencdec.encode(rparams["encoder"], jnp.asarray(frames), rcfg)
+        _close(kw["memory"], rkw["memory"])
+    ours, aux = transformer.forward(params, torch.from_numpy(toks), cfg, **kw)
+    theirs, raux = rtf.forward(rparams, jnp.asarray(toks), rcfg, **rkw)
+    assert ours.shape == (2, 32 + cfg.n_prefix_embeds, cfg.padded_vocab)
+    _close(ours, theirs)
+    np.testing.assert_allclose(float(aux), float(raux), **TOL)
+    assert (float(aux) > 0) == (cfg.moe is not None and "attn" in cfg.layout
+                                and any(cfg.is_moe_layer(i) and k == "attn"
+                                        for i, k in enumerate(cfg.layout)))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_init_params_tree_matches_reference_for_every_arch(arch):
+    """Slot trees (``mamba``; ``moe`` or ``mlp``; ``cross_norm``/``cross``),
+    the encoder, shapes and dtypes — f32 router and SSM leaves in bf16."""
+    cfg = configs.reduced(arch, dtype="bfloat16", param_dtype="bfloat16")
+    rcfg = rconfigs.reduced(arch, dtype="bfloat16", param_dtype="bfloat16")
+    ours = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    theirs = jax.eval_shape(lambda: rtf.init_params(jax.random.PRNGKey(0), rcfg))
+    assert _tree(ours, lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1])) == \
+        _tree(theirs, lambda a: (tuple(a.shape), str(a.dtype)))
+
+
+def test_f32_leaves_travel_inside_a_bf16_tree():
+    """The router and A_log / D / dt_bias are f32 in a bf16 model (the
+    reference's own dtypes); any other f32 leaf is refused."""
+    for arch, slot, sub, name in [("dbrx-132b", 0, "moe", "router"), ("jamba-v0.1-52b", 0, "mamba", "A_log"),
+                                  ("jamba-v0.1-52b", 0, "mamba", "dt_bias"), ("mamba2-2.7b", 0, "mamba", "D")]:
+        cfg = configs.reduced(arch, dtype="bfloat16", param_dtype="bfloat16")
+        rcfg = rconfigs.reduced(arch, dtype="bfloat16", param_dtype="bfloat16")
+        as_np = jax.tree.map(np.asarray, rtf.init_params(jax.random.PRNGKey(2), rcfg))
+        got = params_from_numpy(cfg, as_np, "cpu")
+        assert got["layers"][slot][sub][name].dtype == torch.float32
+        np.testing.assert_array_equal(got["layers"][slot][sub][name].numpy(), as_np["layers"][slot][sub][name])
+        assert got["embed"].dtype == torch.bfloat16
+        bad = jax.tree.map(lambda a: a, as_np)
+        bad["layers"][slot][sub][name] = as_np["layers"][slot][sub][name].astype(np.float16)
+        with pytest.raises(TypeError, match=name):
+            params_from_numpy(cfg, bad, "cpu")
+    cfg = configs.reduced("qwen2.5-3b", dtype="bfloat16", param_dtype="bfloat16")
+    as_np = jax.tree.map(np.asarray, rtf.init_params(jax.random.PRNGKey(3), rconfigs.reduced(
+        "qwen2.5-3b", dtype="bfloat16", param_dtype="bfloat16")))
+    as_np["final_norm"] = as_np["final_norm"].astype(np.float32)
+    with pytest.raises(TypeError, match="final_norm"):
+        params_from_numpy(cfg, as_np, "cpu")

@@ -65,7 +65,12 @@ Run from the root of the repository.  Phases, one JSON line each:
    items; K12 on fuzzed and arena-built owner tables with lanes past every
    slab and a sparse mask; all bitwise.  The two-group K3 is timed beside
    an empty kernel of its grid in the same CUDA-graph harness (the launch
-   floor, in its shape string).
+   floor, in its shape string).  The four-group K3 (``push_back_four``, an
+   int8 cache's append: int8 k and v (2, 128), bf16 scales (2,)) at the
+   Engine's decode append, on sizes at level edges and past the capacity,
+   with a dead lane, with groups whose items force 2- and 1-byte units,
+   and on ragged waves, bitwise; timed in CUDA-graph replays in turns with
+   the two-group form (``kernel.four_groups``).
    ``--ab PARENT``: one process per turn, importing the package of the
    checkout at PARENT or this one's (each builds its own kernels), in turns
    (parent, change, change, parent), timing what ``--what`` names:
@@ -134,6 +139,24 @@ Run from the root of the repository.  Phases, one JSON line each:
    K14 (which no path of the reference calls) through its op on layer 0's
    captured contiguous cache, held against its plain version and
    ``kvcache.attend``.
+   Slice 11, the same model: ``serve.quant.ggarray`` / ``.static``
+   (``cache_quant``: Engine on serve.engine's prompts, 320 / 64 new; int8
+   levels or buffers with bf16 scales, the codes stored at prompt
+   positions bitwise the quantiser applied to serve.engine's bf16 K/V,
+   ggarray's cache bytes over bf16 below 0.6, the four-group K3's layer-0
+   append held bitwise; logits and greedy agreement against bf16
+   printed), ``serve.quant.batch`` (BatchEngine over int8 pools on
+   serve.batch.1's requests: the page-group walk, no K10/K11).
+   ``serve.mono``: monolithic admission of serve.batch.1's requests cut to
+   a multiple of K13's 256-row tile (K13 prefills, K10 decode): free list,
+   the reference's pool bound, two host syncs; chunked admission of 4 of
+   them again, in bf16 (agreement printed) and in f32 (first-token logits
+   within 2e-3).  ``serve.prefix``: 16 requests sharing a 4096-token
+   system prompt, then 2 full-hit repeats, cold and with
+   ``prefix_cache=True``: the fleet's outputs identical, hits, reused
+   tokens and prefill chunks as planned, copy-on-write copies, refcounts
+   checked; ``serve.prefix.doubling`` a quarter of it over extents (K11),
+   no pool byte copied.  Every steady decode step under the sync check.
 6b. the remaining model families, full width, random bf16 weights.
    ``moe.route``: one dbrx-132b MoE layer (d_model 6144, 16 experts, top-4,
    d_ff_expert 10752) on 4 x 1792 tokens under the insertion methods
@@ -246,6 +269,9 @@ KERNELS = {
                 "src/repro/kernels/dispatch_mxu/kernel.py:116"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:64"),
+    # K3 of four groups: an int8 cache's k, v and their bf16 scales
+    "push_back_four": ("src/repro_torch/csrc/push_back.cu",
+                       "src/repro/kernels/push_back/kernel.py:255"),
     # K15: ctr_accum in every instrumented kernel (K3, K7, K8/K9, K10/K11)
     "counter_plane": ("src/repro_torch/csrc/common.cuh",
                       "src/repro/kernels/common.py:214"),
@@ -586,12 +612,14 @@ def decode_inputs(gen):
 
 def make_payload(gen):
     """→ payload(shape, dtype): random data drawn from ``gen`` (int32 in
-    [-1000, 1000), floats normal)."""
+    [-1000, 1000), int8 codes in [-127, 127], floats normal)."""
     import torch
 
     def payload(shape, dtype):
         if dtype == torch.int32:
             return torch.randint(-1000, 1000, shape, generator=gen, device=DEV, dtype=dtype)
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=dtype)
         return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
     return payload
@@ -846,7 +874,7 @@ def append_edge_cases(card: str, note) -> None:
             _, ws, wp = r_pb.push_back(want, sizes, b0, e, mask)
             pairs += [*zip(a[g], want), *zip(b[g], want), (sa, ws), (pa, wp), (sb, ws), (pb_, wp)]
         pairs.append((obs_device.from_block(blk), r_pb.counters(mask, sizes, b0, nlev)))
-        note("push_back" if len(groups) == 1 else "push_back_multi", pairs)
+        note(k_pb.launch_name(len(groups)), pairs)
         unit = [common.copy_unit(item_bytes(e, 2), e, *lv) for e, lv in zip(elems, levels)]
         seen["k3_plans"].add(tuple(k_pb.push_back_plan(m, sum(item_bytes(e, 2) // u for e, u in zip(elems, unit)))))
         seen["k3_units"].update(unit)
@@ -1378,8 +1406,103 @@ def serve_kernel_cases(card: str, res: dict, timing: dict) -> None:
               f"harness) {graph_ms(lambda: k_pb.empty_launch_cuda(torch.device(DEV), SERVE_PROMPTS, plan.threads), 50)} ms",
     )
     del groups, elems, mask
+    four_group_cases(card, res, timing)
     torch.cuda.empty_cache()
     attend_edge_cases(res)
+
+
+def groups_case(res, payload, n, b0, nlev, m, spec, sizes, mask) -> tuple:
+    """K3 over the payload groups of ``spec`` ((item, dtype), ...), one
+    launch, against the plain push-back group by group, bitwise, into the
+    entry of its launch name → (groups, elems, the groups' copy units)."""
+    from repro_torch.core import indexing
+    from repro_torch.kernels import common
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    groups = tuple(tuple(payload((n, w, *it), dt) for w in indexing.bucket_sizes(b0, nlev))
+                   for it, dt in spec)
+    elems = tuple(payload((n, m, *it), dt) for it, dt in spec)
+    got = clone_tree(groups)
+    ns, pos = k_pb.push_back_cuda_multi(got, sizes, b0, elems, mask)
+    r = res[k_pb.launch_name(len(spec))]
+    units = []
+    for g, (levels, e) in enumerate(zip(groups, elems)):
+        want = clone_tree(levels)
+        _, ws, wp = r_pb.push_back(want, sizes, b0, e, mask)
+        for a, b in [*zip(got[g], want), (ns, ws), (pos, wp)]:
+            mism, err = compare(a, b)
+            r["mismatches"] += mism
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        units.append(common.copy_unit(e[0, 0].numel() * e.element_size(), e, *levels))
+    r["cases"] += 1
+    return groups, elems, units
+
+
+def four_group_cases(card: str, res: dict, timing: dict) -> None:
+    """The four-group K3, an int8 cache's decode append (k and v int8 (2,
+    128), their scales bf16 (2,)): at the Engine's shape (4 sequences, B0 =
+    2048, two levels, m = 1) on sizes at the last slot of level 0, the
+    first of level 1, the last slot and past the capacity; with a dead
+    lane; with a group whose item forces 2-byte units (bf16 (1,)) and one
+    that forces 1-byte units (int8 (3,)); on ragged waves; each bitwise
+    against the plain version.  Then timed in CUDA-graph replays in turns
+    with the two-group form (bf16 k and v) of the same grid."""
+    import torch
+
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(213)
+    payload = make_payload(gen)
+    i8, bf = torch.int8, torch.bfloat16
+    KH, D, n, b0 = 2, 128, SERVE_PROMPTS, SERVE_SLAB
+    cache4 = (((KH, D), i8), ((KH, D), i8), ((KH,), bf), ((KH,), bf))
+    edge = torch.tensor([b0 - 1, b0, 3 * b0 - 1, 3 * b0], dtype=torch.int32, device=DEV)
+    live = torch.ones((n, 1), dtype=torch.bool, device=DEV)
+    dead = live.clone()
+    dead[2] = False
+    units = set()
+    for spec, mask in ((cache4, live), (cache4, dead), (cache4[:3] + (((1,), bf),), dead),
+                       (cache4[:3] + (((3,), i8),), live),
+                       ((((3,), i8), ((1,), bf), ((KH, D), i8), ((KH,), bf)), dead)):
+        units.update(groups_case(res, payload, n, b0, 2, 1, spec, edge, mask)[2])
+    for nb, bb, nlev, m in ((3, 2, 1, 1), (5, 2, 9, 7), (37, 4, 4, 130)):
+        sizes = torch.randint(0, bb * ((1 << nlev) - 1) + 1, (nb,), generator=gen, device=DEV,
+                              dtype=torch.int32)
+        mask = torch.rand((nb, m), generator=gen, device=DEV) < 0.6
+        units.update(groups_case(res, payload, nb, bb, nlev, m, cache4, sizes, mask)[2])
+    check(units >= {16, 4, 2, 1}, f"push_back_four: the cases missed a copy unit: {units}")
+    # timed: the Engine's decode append, both forms on sizes inside level 1
+    sizes = torch.randint(b0, 2 * b0, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    g4, e4, u4 = groups_case(res, payload, n, b0, 2, 1, cache4, sizes, live)
+    g2, e2, _ = groups_case(res, payload, n, b0, 2, 1, cache4[:2], sizes, live)
+    g2 = tuple(tuple(x.to(bf) for x in g) for g in g2)  # the bf16 cache's k and v
+    e2 = tuple(e.to(bf) for e in e2)
+
+    def four():
+        return k_pb.push_back_cuda_multi(g4, sizes, b0, e4, live)
+
+    def two():
+        return k_pb.push_back_cuda_multi(g2, sizes, b0, e2, live)
+
+    turns = [graph_ms(f, 50) for f in (two, four, four, two)]
+    item_bytes = 2 * KH * D + 2 * KH * 2
+    plan = k_pb.push_back_plan(1, sum(it // u for it, u in zip((KH * D, KH * D, 2 * KH, 2 * KH), u4)))
+    timing["push_back_four"] = dict(
+        ms=(turns[1] + turns[2]) / 2,
+        plain_ms=graph_ms(lambda: [r_pb.push_back(g, sizes, b0, e, live) for g, e in zip(g4, e4)], 20),
+        library_ms=None,
+        bound=bound_ms(n * (1 + 4 + 4 + 4 + 2 * item_bytes), 0, card),
+        shape=f"4 groups x 2 levels: k, v ({n}, {b0}*2^b, {KH}, {D}) int8, their scales "
+              f"({n}, {b0}*2^b, {KH}) bf16, wave ({n}, 1), units {u4}, {plan.threads} threads; "
+              f"CUDA-graph times in turns with the two-group bf16 form: two/four/four/two "
+              f"{turns} ms; one call from Python {cuda_ms(four, 50)} ms",
+    )
+    emit({"phase": "kernel.four_groups", "card": card, "units_seen": sorted(units),
+          "two_group_ms": (turns[0] + turns[3]) / 2, "four_group_ms": (turns[1] + turns[2]) / 2,
+          "cases": res["push_back_four"]["cases"], "mismatches": res["push_back_four"]["mismatches"]})
 
 
 def attend_edge_cases(res: dict) -> None:
@@ -2758,21 +2881,32 @@ def serve_engine_path(card: str, cfg, params, rng, res: dict) -> dict:
     torch.cuda.empty_cache()
     return {"prompts": prompts, "out": out, "logits": first, "launches": launches,
             "step_logits": timer.first_logits, "grown_logits": timer.grown_logits,
-            "grow_step": timer.grown_step, "kv_prompt": kv_prompt,
-            "kv_before_growth": kv_before_growth}
+            "last_logits": timer.last_logits.float(), "grow_step": timer.grown_step,
+            "kv_prompt": kv_prompt, "kv_before_growth": kv_before_growth,
+            "allocated_bytes": st.allocated_bytes, "step_ms": step_ms[len(step_ms) // 2],
+            "ttft_s": ttft_s}
 
 
-def drive_batch(be) -> tuple:
-    """Step ``be`` until it is idle, every steady step (no prompt pending or
-    prefilling) under ``torch.cuda.set_sync_debug_mode("error")`` between
-    two CUDA events, then drain it → (outputs, step events, wall seconds)."""
+def steady(be) -> bool:
+    """No admission can run in ``be``'s next step: nothing waits or
+    prefills (chunked), or nothing waits for a slot or every slot is busy
+    (monolithic: admissions run at a step's start, into idle slots)."""
+    if be.sched is None:
+        return not be._pending or all(r is not None for r in be._slots)
+    return not be.sched.pending and not be.sched.prefilling
+
+
+def drive_batch(be, drain: bool = True) -> tuple:
+    """Step ``be`` until it is idle, every steady step (``steady``) under
+    ``torch.cuda.set_sync_debug_mode("error")`` between two CUDA events,
+    then drain it → (outputs or None, step events, wall seconds)."""
     import torch
 
     steady_ev = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while True:
-        quiet = not be.sched.pending and not be.sched.prefilling
+        quiet = steady(be)
         if quiet:
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.set_sync_debug_mode("error")
@@ -2787,7 +2921,7 @@ def drive_batch(be) -> tuple:
             more = be.step()
         if not more:
             break
-    out = be.run()  # the two drains
+    out = be.run() if drain else None  # the two drains
     return out, steady_ev, time.perf_counter() - t0
 
 
@@ -2863,6 +2997,7 @@ def serve_batch_path(card: str, cfg, params, rng, grow_chunk, nreq: int, res: di
           "reused_slabs": st.reused_slabs, "extents": extents, "host_syncs": run_syncs,
             "launches": {k: v for k, v in launches.items() if v}, "ok": True}
     emit(line)
+    line["outputs"] = [out[r] for r in rids]  # for the paths compared with this one, not printed
     del be
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2965,9 +3100,10 @@ class StepTimer:
 ORDER_LOGITS_TOL = 3e-2
 
 
-def cache_kv(c: dict, name: str):
-    """A cache slot's K or V (``name``) as one tensor, (..., B, capacity,
-    KH, D): the contiguous cache's own, or a ggarray's levels in order."""
+def cache_seq(c: dict, name: str):
+    """A cache slot's ``name`` (k, v, or an int8 cache's scales ks, vs) as
+    one tensor (..., B, capacity, ...): the contiguous cache's own, or a
+    ggarray's levels concatenated along the sequence axis."""
     import torch
 
     if name in c:
@@ -2975,20 +3111,20 @@ def cache_kv(c: dict, name: str):
     levels = []
     while f"{name}{len(levels)}" in c:
         levels.append(c[f"{name}{len(levels)}"])
-    return torch.cat(levels, dim=-3)
+    return torch.cat(levels, dim=-3 if name in ("k", "v") else -2)
 
 
-def kv_written_before(caches, upto) -> list:
-    """Every cache slot's K and V at the positions below ``upto`` (B,) of
+def kv_written_before(caches, upto, names=("k", "v")) -> list:
+    """Every cache slot's ``names`` at the positions below ``upto`` (B,) of
     each sequence, gathered: the part written before a given step."""
     import torch
 
     out = []
     for c in caches:
-        for name in ("k", "v"):
-            x = cache_kv(c, name)
-            x = x.reshape(-1, *x.shape[-4:])
-            live = torch.arange(x.shape[-3], device=x.device)[None, :] < upto[:, None]
+        for name in names:
+            x = cache_seq(c, name)
+            x = x.reshape(-1, *x.shape[-(4 if name in ("k", "v") else 3):])
+            live = torch.arange(x.shape[2], device=x.device)[None, :] < upto[:, None]
             out.append(x[:, live])
     return out
 
@@ -3143,6 +3279,417 @@ def serve_policies_path(card: str, cfg, params, engine_run: dict, res: dict) -> 
     return total
 
 
+# serve.quant: the int8 cache (cache_quant) on serve.engine's prompts
+# (Engine under ggarray, 320 new, and static, 64 new) and serve.batch.1's
+# requests (BatchEngine, flat pool, 64 new).
+QUANT_STATIC_NEW = 64
+# serve.mono: the equivalence checks admit this many of serve.mono's requests
+# again by chunks (in bf16 and in f32) and compare the first tokens' logits.
+MONO_F32_REQS = 4
+# serve.prefix: 16 requests sharing a 4096-token system prompt (two full
+# 2048-token slabs); the first is the system prompt alone, each other one
+# adds 128-1024 tokens of its own; then 2 exact repeats of the first (full
+# hits); 64 new each, 8 slots, a flat pool.  The quarter-size repeat: 4
+# requests, 1 repeat, 2 slots, doubling extents, 16 new each (its two slots
+# decode one request after another: the depth is cut for run time).
+PREFIX_SYSTEM, PREFIX_OWN_MIN, PREFIX_OWN_MAX, PREFIX_REQS, PREFIX_REPEATS = 4096, 128, 1024, 16, 2
+
+
+def agree_prefix(a: list, b: list, prompts) -> list:
+    """Per request, the greedy tokens two runs share before they first differ."""
+    out = []
+    for x, y, p in zip(a, b, prompts):
+        n = 0
+        for s, t in zip(x[len(p):], y[len(p):]):
+            if s != t:
+                break
+            n += 1
+        out.append(n)
+    return out
+
+
+def serve_quant_paths(card: str, cfg, params, engine_run: dict, batch_prompts, batch_line: dict,
+                      res: dict) -> dict:
+    """The int8 cache.  ``serve.quant.{ggarray,static}``: Engine on
+    serve.engine's prompts; levels or buffers int8 with bf16 scales; the
+    codes and scales stored at prompt positions bitwise the plain quantiser
+    (``kvcache._quantize_kv``) applied to serve.engine's bf16 K/V there (the
+    prefills are the same computation); ggarray's cache bytes over the bf16
+    run's below 0.6; four-group K3 launched, its layer-0 first-step append
+    held bitwise against the plain version; decode steps under the sync
+    check.  ``serve.quant.batch``: BatchEngine over int8 pools on
+    serve.batch.1's requests (the page-group walk, no K10/K11)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+    from repro_torch.serving import kvcache, steps
+    from repro_torch.serving.engine import BatchEngine, Engine
+    from repro_torch.serving.sampler import sample
+
+    qcfg = dataclasses.replace(cfg, cache_quant=True)
+    prompts = engine_run["prompts"]
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    Lp = int(lens.max())
+    toks = np.zeros((len(prompts), Lp), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d, lens_d = torch.from_numpy(toks).to(DEV), torch.from_numpy(lens).to(DEV)
+    want_codes = [t for x in engine_run["kv_prompt"] for t in kvcache._quantize_kv(x)]
+    V = cfg.vocab_size
+    runs = {}
+    for policy, new in (("ggarray", SERVE_NEW), ("static", QUANT_STATIC_NEW)):
+        what = f"serve.quant.{policy}"
+        common.reset_launch_counts()
+        eng = Engine(params, qcfg, policy=policy, max_len=Lp + new, device=DEV)
+        with Capture(k_pb, "push_back_cuda_multi") as cap_pb, StepTimer(steps, "decode_step") as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.generate(prompts, new)  # ends in the token drain: synchronised
+            wall = time.perf_counter() - t0
+        launches = common.launch_counts()
+        st = eng.stats
+        check(st.host_syncs == 1, f"{what}: {st.host_syncs} host syncs, expected the token drain")
+        for p, o in zip(prompts, out):
+            check(len(o) == len(p) + new and o[:len(p)] == p, f"{what}: output length / prompt")
+            check(all(0 <= t < V for t in o[len(p):]), f"{what}: token outside the vocab")
+        check(launches["flash_attention"] >= 1, f"kernel flash_attention never launched on the {what} path")
+        for c in eng.caches:
+            for key, val in c.items():
+                want = torch.bfloat16 if key[1:2] == "s" else torch.int8
+                check(val.dtype == want, f"{what}: {key} is {val.dtype}, expected {want}")
+        got_codes = kv_written_before(eng.caches, lens_d, ("k", "ks", "v", "vs"))
+        code_mism = sum(compare(a, b)[0] for a, b in zip(got_codes, want_codes))
+        check(code_mism == 0, f"{what}: {code_mism} stored codes or scales differ from the quantiser "
+                              f"applied to the bf16 run's K/V")
+        del got_codes
+        extra = {}
+        if policy == "ggarray":
+            check(st.grow_events >= 1 and st.copied_bytes == 0, f"{what}: no growth, or growth copied")
+            check(launches["push_back_four"] >= 1, f"kernel push_back_four never launched on the {what} path")
+            check(launches["push_back_multi"] == 0, f"{what}: a two-group K3 ran on an int8 cache")
+            held = sum(kvcache.cache_bytes(c) for c in eng.caches)
+            check(held == st.allocated_bytes, f"{what}: cache holds {held} bytes, allocated {st.allocated_bytes}")
+            ratio = st.allocated_bytes / engine_run["allocated_bytes"]
+            check(ratio < 0.6, f"{what}: int8 cache bytes over bf16 {ratio} >= 0.6")
+            (groups, sizes, b0, elems, mask), _ = cap_pb.args
+            work = clone_tree(groups)
+            ns, pos = k_pb.push_back_cuda_multi(work, sizes, b0, elems, mask)
+            r = res["push_back_four"]
+            for g, e, w in zip(groups, elems, work):
+                _, ws, wp = r_pb.push_back(g, sizes, b0, e, mask)
+                for a, b in [*zip(w, g), (ns, ws), (pos, wp)]:
+                    r["mismatches"] += compare(a, b)[0]
+            r["cases"] += 1
+            extra = {"cache_bytes": st.allocated_bytes, "bf16_cache_bytes": engine_run["allocated_bytes"],
+                     "cache_bytes_ratio": ratio, "grow_events": st.grow_events,
+                     "last_step_logits_rel_l2_vs_bf16": rel_l2(engine_run["last_logits"],
+                                                               timer.last_logits.float(), V)}
+        else:
+            check(st.grow_events == 0, f"{what}: the static cache grew")
+        del cap_pb
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = steps.prefill(params, toks_d, qcfg, capacity_hint=Lp + new if policy == "static" else Lp,
+                                       policy=policy, lengths=lens_d)
+        sample(None, logits)
+        torch.cuda.synchronize()
+        ttft_s = time.perf_counter() - t0
+        del logits, caches
+        step_ms = timer.step_ms()
+        agree = agree_prefix(out, engine_run["out"], prompts)
+        emit({"phase": what, "card": card, "arch": SERVE_ARCH, "prompts": lens.tolist(), "new_tokens": new,
+              "ttft_s": ttft_s, "bf16_ttft_s": engine_run["ttft_s"],
+              "decode_step_ms_median": step_ms[len(step_ms) // 2], "decode_steps": len(step_ms),
+              "bf16_decode_step_ms_median": engine_run["step_ms"], "generate_s": wall,
+              "stored_code_mismatches_vs_quantiser": code_mism,
+              "first_step_logits_rel_l2_vs_bf16": rel_l2(engine_run["step_logits"], timer.first_logits, V),
+              "greedy_tokens_before_first_disagreement_vs_bf16": agree, **extra,
+              "host_syncs": st.host_syncs, "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+        runs[f"quant.{policy}"] = launches
+        del eng, out, timer
+        torch.cuda.empty_cache()
+
+    what = "serve.quant.batch"
+    common.reset_launch_counts()
+    be = BatchEngine(params, qcfg, max_batch=BATCH_SLOTS, grow_chunk=1, device=DEV)
+    for c in be._attn_slots():
+        for key in ("k_pool", "v_pool", "ks_pool", "vs_pool"):
+            want = torch.bfloat16 if key[1:2] == "s" else torch.int8
+            check(c[key].dtype == want, f"{what}: {key} is {c[key].dtype}, expected {want}")
+    rids = [be.submit(p, BATCH_NEW) for p in batch_prompts]
+    out, steady_ev, wall = drive_batch(be)
+    launches = common.launch_counts()
+    st = be.stats
+    run_syncs = st.host_syncs
+    check(run_syncs == 2, f"{what}: {run_syncs} host syncs, expected the two drains of run()")
+    be.check_free_list()
+    check(len(steady_ev) >= 1, f"{what}: no steady-state decode step")
+    check(launches["paged_attend"] == 0 and launches["paged_attend_extents"] == 0,
+          f"{what}: K10/K11 ran over an int8 pool (the reference walks the page groups)")
+    outs = [out[r] for r in rids]
+    for p, o in zip(batch_prompts, outs):
+        check(len(o) == len(p) + BATCH_NEW and o[:len(p)] == p, f"{what}: output length / prompt")
+        check(all(0 <= t < V for t in o[len(p):]), f"{what}: token outside the vocab")
+    pool_bytes = sum(kvcache.cache_bytes({k: c[k] for k in ("k_pool", "v_pool", "ks_pool", "vs_pool")})
+                     for c in be._attn_slots())
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
+    ttft = be.obs.registry.histogram("serve.ttft_ms")
+    emit({"phase": what, "card": card, "arch": SERVE_ARCH, "requests": len(batch_prompts),
+          "slots": BATCH_SLOTS, "new_tokens": BATCH_NEW, "run_s": wall,
+          "ttft_ms_median": ttft.quantile(0.5), "bf16_ttft_ms_median": batch_line["ttft_ms_median"],
+          "steady_steps": len(steady_ev), "steady_step_ms_median": step_ms[len(step_ms) // 2],
+          "bf16_steady_step_ms_median": batch_line["steady_step_ms_median"],
+          "pool_bytes_per_token": pool_bytes / be.pool_tokens, "bf16_bytes_per_token": kv_bytes_per_token(cfg),
+          "greedy_tokens_before_first_disagreement_vs_bf16": agree_prefix(outs, batch_line["outputs"],
+                                                                          batch_prompts),
+          "prefill_chunks": st.prefill_chunks, "peak_pool_tokens": st.peak_pool_tokens,
+          "host_syncs": run_syncs, "launches": {k: v for k, v in launches.items() if v}, "ok": True})
+    runs["quant.batch"] = launches
+    del be
+    torch.cuda.empty_cache()
+    return runs
+
+
+class PrefillLogits:
+    """Record the first-row logits of every ``steps.prefill`` call inside
+    the ``with`` block (monolithic admission's whole-prompt prefills)."""
+
+    def __enter__(self):
+        from repro_torch.serving import steps
+
+        self.steps, self.orig, self.logits = steps, steps.prefill, []
+
+        def wrapper(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.logits.append(out[0][0].float())
+            return out
+
+        steps.prefill = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.prefill = self.orig
+
+
+def serve_mono_path(card: str, cfg, params, seed: int, batch_prompts, batch_line: dict) -> dict:
+    """``BatchEngine(admission="monolithic")`` on serve.batch.1's requests,
+    each cut to a multiple of K13's 256-row tile (the reference's kernel,
+    and so the port's, refuses other lengths above one tile), 64 new, flat
+    pool: each prompt prefilled whole (K13), decode by K10; free list, the
+    reference's pool bound, two host syncs, steady steps under the sync
+    check; TTFT and steps printed beside serve.batch.1's.  Then chunked
+    admission of ``MONO_F32_REQS`` of the same cut prompts: in bf16 the
+    greedy agreement and the first tokens' logits are printed (the two
+    prefill paths, K13 on the whole prompt and ``chunk_attend`` chunk by
+    chunk, round apart); rerun in f32, the first tokens' logits must agree
+    within ``FAMILY_TOL`` (relative L2)."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving.engine import BatchEngine
+
+    what = "serve.mono"
+    tile = fa_ops.DEFAULT_BQ
+    prompts = [p[:len(p) - len(p) % tile] for p in batch_prompts]
+    common.reset_launch_counts()
+    be = BatchEngine(params, cfg, max_batch=BATCH_SLOTS, admission="monolithic", device=DEV)
+    rids = [be.submit(p, BATCH_NEW) for p in prompts]
+    with PrefillLogits() as rec:
+        out, steady_ev, wall = drive_batch(be)
+    launches = common.launch_counts()
+    st = be.stats
+    run_syncs = st.host_syncs
+    check(run_syncs == 2, f"{what}: {run_syncs} host syncs, expected the two drains of run()")
+    be.check_free_list()
+    bound = 2 * st.peak_live_tokens + be.T * be.B
+    check(st.peak_pool_tokens < bound, f"{what}: pool {st.peak_pool_tokens} >= bound {bound}")
+    check(st.prefills == len(prompts) and st.prefill_chunks == 0, f"{what}: admission was not monolithic")
+    check(len(steady_ev) >= 1, f"{what}: no steady-state decode step")
+    for name in ("flash_attention", "paged_attend"):
+        check(launches[name] >= 1, f"kernel {name} never launched on the {what} path")
+    outs = [out[r] for r in rids]
+    for p, o in zip(prompts, outs):
+        check(len(o) == len(p) + BATCH_NEW and o[:len(p)] == p, f"{what}: output length / prompt")
+        check(all(0 <= t < cfg.vocab_size for t in o[len(p):]), f"{what}: token outside the vocab")
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in steady_ev)
+    ttft = be.obs.registry.histogram("serve.ttft_ms")
+    mono_logits = torch.stack(rec.logits[:MONO_F32_REQS])
+    del be, rec
+    torch.cuda.empty_cache()
+
+    class Chunked(BatchEngine):
+        def _finish_prefill(self, req, slot, logits):
+            self.first_logits[req.rid] = logits[0].float()
+            super()._finish_prefill(req, slot, logits)
+
+    def chunked_run(p, c, sub, new):
+        be = Chunked(p, c, max_batch=BATCH_SLOTS, device=DEV)
+        be.first_logits = {}
+        got = be.run_all(sub, new)
+        return got, torch.stack([be.first_logits[r] for r in range(len(sub))])
+
+    sub = prompts[:MONO_F32_REQS]
+    got, chunk_logits = chunked_run(params, cfg, sub, BATCH_NEW)
+    same = sum(x == y for o, c, p in zip(outs, got, sub) for x, y in zip(o[len(p):], c[len(p):]))
+    bf16_rel = rel_logits(mono_logits, chunk_logits, cfg.vocab_size)
+    del chunk_logits, mono_logits
+    # f32: the first tokens' logits of both admissions on one f32 model
+    fcfg, fparams, _, _ = family_model(SERVE_ARCH, seed + 300, **FAMILY_F32)
+    mono = BatchEngine(fparams, fcfg, max_batch=BATCH_SLOTS, admission="monolithic", device=DEV)
+    with PrefillLogits() as rec:
+        mono.run_all(sub, 1)
+    a = torch.stack(rec.logits)
+    _, b = chunked_run(fparams, fcfg, sub, 1)
+    rel = rel_logits(a, b, cfg.vocab_size)
+    emit({"phase": what, "card": card, "arch": SERVE_ARCH, "requests": len(prompts), "slots": BATCH_SLOTS,
+          "prompt_tokens": sum(len(p) for p in prompts), "cut_to_multiple_of": tile,
+          "new_tokens": BATCH_NEW, "run_s": wall, "ttft_ms_median": ttft.quantile(0.5),
+          "serve_batch_1_ttft_ms_median": batch_line["ttft_ms_median"],
+          "steady_steps": len(steady_ev), "steady_step_ms_median": step_ms[len(step_ms) // 2],
+          "serve_batch_1_steady_step_ms_median": batch_line["steady_step_ms_median"],
+          "prefills": st.prefills, "decode_steps": st.decode_steps,
+          "peak_live_tokens": st.peak_live_tokens, "peak_pool_tokens": st.peak_pool_tokens,
+          "pool_bound_tokens": bound, "host_syncs": run_syncs, "check_requests": len(sub),
+          "bf16_token_agreement_vs_chunked": same / (len(sub) * BATCH_NEW),
+          "bf16_first_logits_rel_l2_vs_chunked": bf16_rel,
+          "f32_first_logits_rel_l2_vs_chunked": rel, "f32_tolerance": FAMILY_TOL,
+          "launches": {k: v for k, v in launches.items() if v}, "ok": rel <= FAMILY_TOL})
+    check(rel <= FAMILY_TOL, f"{what}: f32 first-token logits differ from chunked admission's by {rel}")
+    del mono, fparams, a, b, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefix_requests(rng, V: int, nreq: int) -> tuple:
+    """→ (the fleet: the system prompt alone, then ``nreq - 1`` requests of
+    the system prompt and 128-1024 tokens of their own; the system prompt)."""
+    system = rng.integers(0, V, PREFIX_SYSTEM).tolist()
+    own = rng.integers(PREFIX_OWN_MIN, PREFIX_OWN_MAX + 1, nreq - 1)
+    return [system] + [system + rng.integers(0, V, int(n)).tolist() for n in own], system
+
+
+def prefix_run(cfg, params, fleet, repeats, slots: int, grow_chunk, prefix_cache: bool,
+               new: int) -> tuple:
+    """Serve the fleet to the end, then the repeats, ``new`` tokens each →
+    (engine, outputs in submission order, steady step events, wall seconds)."""
+    from repro_torch.serving.engine import BatchEngine
+
+    be = BatchEngine(params, cfg, max_batch=slots, grow_chunk=grow_chunk, prefix_cache=prefix_cache,
+                     device=DEV)
+    rids = [be.submit(p, new) for p in fleet]
+    _, ev, wall = drive_batch(be, drain=False)
+    rids += [be.submit(p, new) for p in repeats]
+    out, ev2, wall2 = drive_batch(be)
+    return be, [out[r] for r in rids], ev + ev2, wall + wall2
+
+
+def serve_prefix_paths(card: str, cfg, params, rng) -> dict:
+    """``BatchEngine(prefix_cache=True)`` (8 slots, flat pool, K10) against
+    the same requests cold: the fleet's tokens identical (its hits alias the
+    system prompt's slabs, which a cold run computes with the same chunks:
+    bit for bit); hits, reused tokens and prefill chunks as planned; at
+    least one copy-on-write; refcounts conserved (``check_free_list``);
+    steady steps under the sync check.  The two full hits decode their last
+    prompt token again (K/V and logits by the decode path, not the
+    prefill's), so their tokens are compared, not gated.  Then a quarter
+    of it over doubling extents (K11): no pool byte copied."""
+    import torch
+
+    from repro_torch.kernels import common
+
+    V = cfg.vocab_size
+    C = cfg.attention_chunk
+    fleet, system = prefix_requests(rng, V, PREFIX_REQS)
+    repeats = [system] * PREFIX_REPEATS
+    runs, lines = {}, {}
+    for name, pc in (("cold", False), ("warm", True)):
+        common.reset_launch_counts()
+        be, out, ev, wall = prefix_run(cfg, params, fleet, repeats, BATCH_SLOTS, 1, pc, BATCH_NEW)
+        launches = common.launch_counts()
+        st = be.stats
+        check(st.host_syncs == 2, f"serve.prefix.{name}: {st.host_syncs} host syncs, expected two drains")
+        be.check_free_list()
+        check(len(ev) >= 1, f"serve.prefix.{name}: no steady-state decode step")
+        check(launches["paged_attend"] >= 1, f"kernel paged_attend never launched on serve.prefix.{name}")
+        torch.cuda.synchronize()
+        step_ms = sorted(a.elapsed_time(b) for a, b in ev)
+        ttft = be.obs.registry.histogram("serve.ttft_ms")
+        lines[name] = {"out": out, "prefill_chunks": st.prefill_chunks, "ttft_ms_median": ttft.quantile(0.5),
+                       "pool_slabs": be.alloc.n_slabs, "steady_step_ms_median": step_ms[len(step_ms) // 2],
+                       "run_s": wall, "prefix_hits": st.prefix_hits,
+                       "prefix_tokens_reused": st.prefix_tokens_reused, "cow_copies": st.cow_copies,
+                       "cached_slabs": len(be.prefix.cached_slabs()) if be.prefix is not None else 0}
+        runs[f"prefix.{name}"] = launches
+        del be
+        torch.cuda.empty_cache()
+    cold, warm = lines["cold"], lines["warm"]
+    n_fleet = len(fleet)
+    # hits: every fleet request admitted after the first completion (all but
+    # the first BATCH_SLOTS), and the repeats; each reuses the system prompt
+    hits = n_fleet - BATCH_SLOTS + PREFIX_REPEATS
+    chunks = (sum(-(-len(p) // C) for p in fleet[:BATCH_SLOTS])
+              + sum(-(-(len(p) - PREFIX_SYSTEM) // C) for p in fleet[BATCH_SLOTS:]))
+    fleet_same = sum(w == c for w, c in zip(warm["out"][:n_fleet], cold["out"][:n_fleet]))
+    repeat_agree = agree_prefix(warm["out"][n_fleet:], cold["out"][n_fleet:], repeats)
+    ok = (fleet_same == n_fleet and warm["prefix_hits"] == hits
+          and warm["prefix_tokens_reused"] == hits * PREFIX_SYSTEM and warm["prefill_chunks"] == chunks
+          and warm["cow_copies"] >= 1)
+    emit({"phase": "serve.prefix", "card": card, "arch": SERVE_ARCH, "requests": n_fleet,
+          "repeats": PREFIX_REPEATS, "system_tokens": PREFIX_SYSTEM, "slots": BATCH_SLOTS,
+          "new_tokens": BATCH_NEW, "fleet_outputs_identical": fleet_same,
+          "repeats_tokens_before_first_disagreement": repeat_agree,
+          "prefix_hits": warm["prefix_hits"], "expected_prefix_hits": hits,
+          "prefix_tokens_reused": warm["prefix_tokens_reused"], "cow_copies": warm["cow_copies"],
+          "cached_slabs_at_end": warm["cached_slabs"],
+          "prefill_chunks": {"cold": cold["prefill_chunks"], "warm": warm["prefill_chunks"],
+                             "warm_expected": chunks},
+          "ttft_ms_median": {"cold": cold["ttft_ms_median"], "warm": warm["ttft_ms_median"]},
+          "pool_slabs": {"cold": cold["pool_slabs"], "warm": warm["pool_slabs"]},
+          "steady_step_ms_median": {"cold": cold["steady_step_ms_median"],
+                                    "warm": warm["steady_step_ms_median"]},
+          "run_s": {"cold": cold["run_s"], "warm": warm["run_s"]}, "ok": ok})
+    check(fleet_same == n_fleet, f"serve.prefix: {n_fleet - fleet_same} fleet outputs differ from the cold run's")
+    check(warm["prefix_hits"] == hits and warm["prefix_tokens_reused"] == hits * PREFIX_SYSTEM,
+          f"serve.prefix: {warm['prefix_hits']} hits / {warm['prefix_tokens_reused']} tokens, expected "
+          f"{hits} / {hits * PREFIX_SYSTEM}")
+    check(warm["prefill_chunks"] == chunks, f"serve.prefix: {warm['prefill_chunks']} chunks, expected {chunks}")
+    check(warm["cow_copies"] >= 1, "serve.prefix: no copy-on-write")
+    check(cold["prefix_hits"] == 0, "serve.prefix: the cold run hit a prefix")
+
+    # a quarter of it over doubling extents: copy-on-write inside the extents
+    q_fleet, q_slots = fleet[:PREFIX_REQS // 4], BATCH_SLOTS // 4
+    common.reset_launch_counts()
+    be, out, ev, wall = prefix_run(cfg, params, q_fleet, [system], q_slots, "doubling", True,
+                                   BATCH_NEW // 4)
+    launches = common.launch_counts()
+    st = be.stats
+    be.check_free_list()
+    q_hits = len(q_fleet) - q_slots + 1
+    extents = sum(1 for s in be._extent_sizes if s > 0)
+    emit({"phase": "serve.prefix.doubling", "card": card, "requests": len(q_fleet), "repeats": 1,
+          "slots": q_slots, "new_tokens": BATCH_NEW // 4, "prefix_hits": st.prefix_hits, "expected_prefix_hits": q_hits,
+          "cow_copies": st.cow_copies, "pool_copied_bytes": st.pool_copied_bytes, "extents": extents,
+          "pool_slabs": be.alloc.n_slabs, "run_s": wall,
+          "launches": {k: v for k, v in launches.items() if v},
+          "ok": st.pool_copied_bytes == 0 and st.prefix_hits == q_hits and st.cow_copies >= 1})
+    check(st.pool_copied_bytes == 0, f"serve.prefix.doubling: extent growth copied {st.pool_copied_bytes} bytes")
+    check(st.prefix_hits == q_hits and st.cow_copies >= 1,
+          f"serve.prefix.doubling: {st.prefix_hits} hits, {st.cow_copies} copies")
+    check(launches["paged_attend_extents"] >= 1, "kernel paged_attend_extents never launched on serve.prefix.doubling")
+    runs["prefix.doubling"] = launches
+    del be
+    torch.cuda.empty_cache()
+    return runs
+
+
 def serve_paths(card: str, seed: int, res: dict) -> tuple:
     """The serving paths, launch counts zeroed before each and read after →
     (the counts summed over the paths, serve.engine's prompt lengths)."""
@@ -3155,13 +3702,16 @@ def serve_paths(card: str, seed: int, res: dict) -> tuple:
     eng = serve_engine_path(card, cfg, params, rng, res)
     runs = {"engine": eng["launches"],
             "batch.doubling": serve_batch_path(card, cfg, params, rng, "doubling", BATCH_REQS, res)[0]}
-    runs["batch.flat"], flat_prompts, _ = serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)
+    runs["batch.flat"], flat_prompts, flat_line = serve_batch_path(card, cfg, params, rng, 1, BATCH_REQS_FLAT, res)
     serve_cross_check(card, cfg, params, eng)
     runs["policies"] = serve_policies_path(card, cfg, params, eng, res)
     runs.update(obs_serve_paths(card, cfg, params, eng["prompts"], flat_prompts))
+    runs.update(serve_quant_paths(card, cfg, params, eng, flat_prompts, flat_line, res))
+    runs["mono"] = serve_mono_path(card, cfg, params, seed, flat_prompts, flat_line)
+    runs.update(serve_prefix_paths(card, cfg, params, rng))
     r = {k: {n: res[k][n] for n in ("mismatches", "max_abs_err", "cases")}
-         for k in ("flash_attention", "push_back_multi", "paged_attend", "paged_attend_extents",
-                   "decode_attention")}
+         for k in ("flash_attention", "push_back_multi", "push_back_four", "paged_attend",
+                   "paged_attend_extents", "decode_attention")}
     emit({"phase": "serve.captured", "card": card, "kernels": r})
     for name, v in r.items():
         check(v["mismatches"] == 0, f"{name}: the serving run's captured inputs disagree with the plain version")

@@ -64,7 +64,7 @@ KERNELS = (
     "row_scan", "push_back", "compact_blocks", "segmented_gather",
     "paged_gather", "paged_gather_extents", "slab_append",
     "flash_attention", "paged_attend", "paged_attend_extents", "push_back_multi",
-    "row_scan_mxu", "dispatch", "combine", "decode_attention",
+    "row_scan_mxu", "dispatch", "combine", "decode_attention", "push_back_four",
     # K15: every launch with the device counter plane on, whichever kernel
     "counter_plane",
 )

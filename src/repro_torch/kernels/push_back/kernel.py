@@ -5,7 +5,8 @@ tensors are written in place — the counterpart of the reference's
 ``input_output_aliases`` on the levels.  Items of any shape are carried as
 ``item_bytes`` of raw bits per lane.  The C side takes a [group][level]
 pointer table: one launch writes up to four payload groups that share the
-mask (the KV cache's k and v), each with its own item size.
+mask (the KV cache's k and v; an int8 cache's k, v and their two bf16
+scale groups), each with its own item size and copy unit.
 
 ``instrument=True`` launches the counting instantiation (K15) and returns
 its ``(NSLOTS,)`` int32 counter block (``obs/device.py``) as a third output.
@@ -26,12 +27,20 @@ from repro_torch.kernels import _build, common
 from repro_torch.obs import device as obs_device
 
 __all__ = ["push_back_cuda", "push_back_cuda_multi", "push_back_plan", "PushBackPlan",
-           "empty_launch_cuda", "PAYLOAD_DTYPES"]
+           "empty_launch_cuda", "launch_name", "PAYLOAD_DTYPES"]
 
 # Payloads are copied as bits, in units of 16, 4, 2 or 1 bytes.
-PAYLOAD_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.float16)
+PAYLOAD_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.float16, torch.int8)
 MAX_LEVELS = 32
 MAX_GROUPS = 4  # csrc/push_back.cu kMaxGroups
+
+
+def launch_name(ngroups: int) -> str:
+    """The name a launch of ``ngroups`` payload groups counts under: one
+    group (the GGArray append), two or three (the KV cache's k and v), or
+    four (an int8 cache's k, v and their scales), so a run shows which
+    form it went through."""
+    return "push_back" if ngroups == 1 else "push_back_four" if ngroups == 4 else "push_back_multi"
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -175,9 +184,7 @@ def push_back_cuda_multi(
             pos.data_ptr(), new_sizes.data_ptr(), nblocks, m, b0, plan.threads, plan.tiles,
             block.data_ptr() if block is not None else None, common.stream_of(dev),
         )
-    # one launch either way; the multi-group launch (the KV cache's k and v)
-    # is counted apart so a run shows which of the two it went through
-    name = "push_back" if ngroups == 1 else "push_back_multi"
+    name = launch_name(ngroups)
     common.check_status(rc, lib, name)
     common.count_launch(name)
     if block is None:

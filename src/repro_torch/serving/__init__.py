@@ -1,2 +1,3 @@
 """Serving of the port (``repro.serving``): KV-cache policies, prefill and
-decode steps, the admission scheduler, ``Engine`` and ``BatchEngine``."""
+decode steps, the admission scheduler, the prefix cache, ``Engine`` and
+``BatchEngine``."""

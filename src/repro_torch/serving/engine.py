@@ -7,17 +7,23 @@ until capacity, where the policy's growth event fires:
 
 - ``ggarray``    ``grow_ggarray`` appends the next geometric bucket — **no
                  copy** (decode appends are K3, k and v in one launch);
-- ``semistatic`` realloc: allocate 2x and copy every K/V byte;
+- ``semistatic`` realloc: allocate 2x and copy every K/V byte (and the
+                 scales of an int8 cache, which the reference's realloc
+                 leaves at the old capacity: it fails there, ROADMAP.md
+                 Queue 3);
 - ``static``     no growth: the cache is pre-allocated to ``max_len``;
 - ``two_phase``  prefill grows a ggarray cache, which is then frozen into
                  the contiguous layout; on capacity the engine thaws, adds a
                  bucket and refreezes (one O(n) copy per growth event).
 
 :class:`BatchEngine` serves the ``paged`` policy with continuous batching
-over one shared slab pool: chunked
-admission (``serving/scheduler``), batched decode, slab reclamation, flat
-pools grown by realloc (``grow_chunk`` 1 or ``"geometric"``) or extent
-pools grown copy-free (``"doubling"``, ``"tz"``).
+over one shared slab pool: chunked admission (``serving/scheduler``) or
+monolithic admission (one whole-prompt prefill per request), batched
+decode, slab reclamation, flat pools grown by realloc (``grow_chunk`` 1 or
+``"geometric"``) or extent pools grown copy-free (``"doubling"``,
+``"tz"``), and copy-on-write prefix caching (``prefix_cache=True``,
+``serving/prefix.py``).  Both engines serve int8 caches
+(``cfg.cache_quant``: int8 codes and bf16 scales, ``serving/kvcache.py``).
 
 Both follow the reference's host-sync-free protocol: the growth check is
 host arithmetic on a length mirror, sampled tokens stay on the device, and
@@ -40,13 +46,10 @@ recurrent state, sized by the batch.  ``Engine`` also serves encoder–decoder
 and prefix-embedding configs as decoder-only stacks (its ``generate``
 passes neither memory nor prefix, as the reference's); ``BatchEngine``
 refuses them, as the reference does.
-
-Not ported yet (ROADMAP.md, Queue 1), each raising
-``NotImplementedError``: int8 caches, monolithic admission and
-``prefix_cache=True``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any
@@ -60,14 +63,10 @@ from repro_torch.kernels.common import to_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import DTYPES, check_supported
 from repro_torch.obs import DeviceCounterPlane, ServingTimeline
-from repro_torch.serving import kvcache, scheduler as sched_mod, steps
+from repro_torch.serving import kvcache, prefix as prefix_mod, scheduler as sched_mod, steps
 from repro_torch.serving.sampler import sample
 
 __all__ = ["Engine", "EngineStats", "ENGINE_POLICIES", "BatchEngine", "BatchStats", "Request"]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 items 14, 15 and 17)")
 
 
 def _params_device(params: dict, device) -> torch.device:
@@ -144,8 +143,6 @@ class Engine:
             raise ValueError(f"unknown policy {self.policy!r}; options: {ENGINE_POLICIES}")
         if instrument:
             cfg = dataclasses.replace(cfg, instrument=True)
-        if cfg.cache_quant:
-            raise _not_ported("the int8 KV cache (cache_quant)")
         self.params = params
         self.cfg = cfg
         self.device = _params_device(params, device)
@@ -198,14 +195,17 @@ class Engine:
                 reg.counter("engine.freeze_events").inc()
             elif self.policy == "semistatic":
                 # the copy of realloc, which GGArray avoids
+                keys = [key for key in ("k", "v", "ks", "vs") if key in c]
                 grown = dict(c)
-                for key in ("k", "v"):
+                for key in keys:
                     old = c[key]
-                    cap = old.shape[-3]
-                    grown[key] = old.new_zeros((*old.shape[:-3], cap * 2, *old.shape[-2:]))
-                    grown[key][..., :cap, :, :] = old
+                    axis = old.ndim - (3 if key in ("k", "v") else 2)  # the sequence axis
+                    shape = list(old.shape)
+                    shape[axis] *= 2
+                    grown[key] = old.new_zeros(shape)
+                    grown[key].narrow(axis, 0, old.shape[axis]).copy_(old)
                 reg.counter("engine.allocated_bytes").inc(
-                    kvcache.cache_bytes({"k": grown["k"], "v": grown["v"]}))
+                    kvcache.cache_bytes({key: grown[key] for key in keys}))
                 reg.counter("engine.copied_bytes").inc(kvcache.cache_bytes(c))
             else:
                 raise RuntimeError("static cache cannot grow: pre-allocate max_len")
@@ -307,23 +307,42 @@ class BatchStats(_StatsView):
     grown_slabs = property(lambda s: s._ct("pool.grown_slabs"))
     reused_slabs = property(lambda s: s._ct("pool.reused_slabs"))
     released_slabs = property(lambda s: s._ct("pool.released_slabs"))
+    prefix_hits = property(lambda s: s._ct("serve.prefix_hits"))
+    prefix_tokens_reused = property(lambda s: s._ct("serve.prefix_tokens_reused"))
+    cow_copies = property(lambda s: s._ct("serve.cow_copies"))
     peak_live_tokens = property(lambda s: s._hwm("pool.live_tokens"))
     peak_pool_tokens = property(lambda s: s._hwm("pool.capacity_tokens"))
     host_syncs = property(lambda s: s._ct("serve.host_syncs"))
 
 
-_POOL_KEYS = ("k_pool", "v_pool")
+# an attention slot's pools: K and V, and the scales of an int8 cache
+_POOL_KEYS = ("k_pool", "v_pool", "ks_pool", "vs_pool")
+
+
+def _pool_keys(c: dict) -> list[str]:
+    return [key for key in _POOL_KEYS if key in c]
 
 
 class BatchEngine:
-    """Continuous-batch serving over one shared slab pool, chunked admission.
+    """Continuous-batch serving over one shared slab pool.
 
     ``max_batch`` decode slots run in lockstep; requests stream through
-    them: admit (the scheduler reserves the prompt's slabs) → prefill in
-    bucket-padded chunks interleaved with decode steps → batched decode
-    (idle and prefilling slots are inert: −1 page rows drop their appends,
-    length 0 masks their attention) → completion (slabs back to the free
-    list).  K/V pools are per period, one page table per sequence.  See the
+    them: admit → prefill → batched decode (idle and prefilling slots are
+    inert: −1 page rows drop their appends, length 0 masks their attention)
+    → completion (slabs back to the free list).  K/V pools are per period,
+    one page table per sequence.
+
+    ``admission="chunked"`` (the default): the scheduler reserves the
+    prompt's slabs, then prefills it in bucket-padded chunks interleaved
+    with decode steps; an int8 cache's chunks after the first attend the
+    *dequantised* prefix, so a multi-chunk quantised prompt is approximate
+    (its stored codes are exact).  ``"monolithic"``: one whole-prompt
+    prefill (``policy="static"``) at admission, scattered into the claimed
+    slabs.  ``prefix_cache=True`` (chunked, attention-only layouts):
+    completed prompts publish their full slabs into a host trie
+    (``serving/prefix.py``); a new request aliases the longest cached
+    prefix into its page table and prefills only the rest; an append into
+    a shared slab copies that slab first (``serve.cow_copies``).  See the
     reference's class docstring for the growth schedules and bounds.
     """
 
@@ -349,20 +368,17 @@ class BatchEngine:
         from repro_torch.pool import PageBook, is_extent_schedule
 
         check_supported(cfg)
+        if instrument:
+            cfg = dataclasses.replace(cfg, instrument=True)
         if cfg.n_enc_layers or cfg.n_prefix_embeds:
             raise NotImplementedError("BatchEngine serves decoder-only stacks")
         if admission not in ("chunked", "monolithic"):
             raise ValueError(f"unknown admission policy {admission!r}")
-        if admission == "monolithic":
-            raise _not_ported("monolithic admission")
-        if prefix_cache:
-            # when ported, it refuses Mamba layouts as the reference does: a
-            # cached prefix carries no conv/SSD state to resume from
-            raise _not_ported("prefix_cache=True (serving/prefix.py)")
-        if instrument:
-            cfg = dataclasses.replace(cfg, instrument=True)
-        if cfg.cache_quant:
-            raise _not_ported("the int8 KV cache (cache_quant)")
+        if prefix_cache and admission != "chunked":
+            raise ValueError("prefix_cache requires chunked admission")
+        if prefix_cache and "mamba" in cfg.layout:
+            # a cached prefix carries no conv/SSD state to resume from
+            raise ValueError("prefix_cache requires an attention-only layout")
         self.params = params
         self.cfg = cfg
         self.device = _params_device(params, device)
@@ -372,6 +388,7 @@ class BatchEngine:
         self._extent_mode = is_extent_schedule(grow_chunk)
         self._extent_sizes: list[int] = [0] if self._extent_mode else []
         self.stop_token = stop_token
+        self.admission = admission
         self.obs = obs if obs is not None else ServingTimeline()
         self.stats = BatchStats(self.obs.registry)
         # device counter plane (DESIGN.md §9.x): the steps hand their
@@ -385,26 +402,34 @@ class BatchEngine:
         self.lengths = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
         self.cur_tok = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
         self._slots: list[Request | None] = [None] * max_batch
+        self._pending: collections.deque[Request] = collections.deque()  # monolithic admission
         self._requests: dict[int, Request] = {}
         self._stream: list[torch.Tensor] = []  # sampled (B,) per decode step
         self._next_rid = 0
         self._widths: set = set()
-        C = cfg.attention_chunk if prefill_chunk is None else prefill_chunk
-        hybrid = "mamba" in cfg.layout
-        # chunk boundaries land on the monolithic attention grid, and on the
-        # SSD chunk grid for Mamba layouts: chunked = monolithic, bit for bit
-        if "attn" in cfg.layout and C % cfg.attention_chunk:
-            raise ValueError(
-                f"prefill_chunk={C} must be a multiple of attention_chunk={cfg.attention_chunk}"
+        self.sched: sched_mod.Scheduler | None = None
+        if admission == "chunked":
+            C = cfg.attention_chunk if prefill_chunk is None else prefill_chunk
+            hybrid = "mamba" in cfg.layout
+            # chunk boundaries land on the monolithic attention grid, and on
+            # the SSD chunk grid for Mamba layouts: chunked = monolithic, bit
+            # for bit
+            if "attn" in cfg.layout and C % cfg.attention_chunk:
+                raise ValueError(
+                    f"prefill_chunk={C} must be a multiple of attention_chunk={cfg.attention_chunk}"
+                )
+            if hybrid and C % cfg.ssm.chunk_size:
+                raise ValueError(
+                    f"prefill_chunk={C} must be a multiple of ssm.chunk_size={cfg.ssm.chunk_size}"
+                )
+            self.sched = sched_mod.Scheduler(
+                self.book, slab_tokens=self.T, chunk=C, exact_tail=hybrid,
+                max_chunks_per_step=max_chunks_per_step, obs=self.obs,
             )
-        if hybrid and C % cfg.ssm.chunk_size:
-            raise ValueError(
-                f"prefill_chunk={C} must be a multiple of ssm.chunk_size={cfg.ssm.chunk_size}"
-            )
-        self.sched = sched_mod.Scheduler(
-            self.book, slab_tokens=self.T, chunk=C, exact_tail=hybrid,
-            max_chunks_per_step=max_chunks_per_step, obs=self.obs,
-        )
+        # the prefix cache (DESIGN.md §10): a host trie over the allocator
+        self.prefix = (prefix_mod.PrefixCache(self.alloc, slab_tokens=self.T, obs=self.obs)
+                       if prefix_cache else None)
+        self._matched: dict[int, np.ndarray] = {}  # rid → pinned slab ids
         if max_pages_hint:
             self._ensure_table_width(max_pages_hint)
         if initial_slabs:
@@ -423,7 +448,9 @@ class BatchEngine:
     def _sample_live(self) -> None:
         """Refresh the pool occupancy gauges (host arithmetic only); live
         tokens include the prefilled prefix of in-flight admissions."""
-        live = self.live_tokens + sum(int(self.sched.t0[s]) for s in self.sched.prefilling)
+        live = self.live_tokens
+        if self.sched is not None:
+            live += sum(int(self.sched.t0[s]) for s in self.sched.prefilling)
         cap = self.pool_tokens
         self.obs.gauge_sample("pool.live_tokens", live)
         self.obs.gauge_sample("pool.capacity_tokens", cap)
@@ -437,12 +464,13 @@ class BatchEngine:
 
     def _flightrec_state(self) -> dict:
         """The engine's host bookkeeping for a postmortem bundle (allocator,
-        page tables, scheduler, slots); building it reads no device value."""
+        page tables, scheduler, slots, prefix cache, pins); building it reads
+        no device value."""
         alloc = self.alloc
         return {
             "n_slots": self.B,
             "slab_tokens": self.T,
-            "admission": "chunked",
+            "admission": self.admission,
             "extent_sizes": list(self._extent_sizes),
             "len_host": self._len_host.tolist(),
             "slots": [
@@ -459,11 +487,11 @@ class BatchEngine:
             },
             "page_tables": [[int(s) for s in self.book.pages_of[slot]] for slot in range(self.B)],
             "reserved_total": int(self.book.reserved_total),
-            "scheduler": self.sched.describe(),
-            "prefix": None,
-            "pinned": {},
+            "scheduler": self.sched.describe() if self.sched is not None else None,
+            "prefix": ({"cached_slabs": [int(s) for s in self.prefix.cached_slabs()]}
+                       if self.prefix is not None else None),
+            "pinned": {rid: ids.tolist() for rid, ids in self._matched.items()},
         }
-
     def _flight_dump(self, reason: str, error: BaseException | None = None,
                      invariant: dict | None = None) -> None:
         """Dump a postmortem bundle; never raises, never dumps twice for the
@@ -511,15 +539,20 @@ class BatchEngine:
         P, dev = cfg.n_periods, self.device
         kh, dh = cfg.n_kv_heads, cfg.head_dim
         dt = DTYPES[cfg.dtype]
+        kv_dt = torch.int8 if cfg.cache_quant else dt  # int8 codes + bf16 scales
         caches = []
         for kind in cfg.layout:
             if kind == "mamba":  # the slots' recurrent states
                 caches.append(ssm_mod.init_mamba_state(cfg, self.B, dt, dev, lead=(P,))._asdict())
                 continue
-            c = {key: torch.zeros((P, 0, self.T, kh, dh), dtype=dt, device=dev) for key in _POOL_KEYS}
+            c = {key: torch.zeros((P, 0, self.T, kh, dh), dtype=kv_dt, device=dev)
+                 for key in ("k_pool", "v_pool")}
+            if cfg.cache_quant:
+                for key in ("ks_pool", "vs_pool"):
+                    c[key] = torch.zeros((P, 0, self.T, kh), dtype=torch.bfloat16, device=dev)
             c["pages"] = torch.full((P, self.B, self.book.max_pages), -1, dtype=torch.int32, device=dev)
             if self._extent_mode:  # tuple-of-extents layout (one empty seed)
-                for key in _POOL_KEYS:
+                for key in _pool_keys(c):
                     c[key] = (c[key],)
             caches.append(c)
         return caches
@@ -540,7 +573,7 @@ class BatchEngine:
                                  count=count)
             return
         for c in self._attn_slots():
-            for key in _POOL_KEYS:
+            for key in _pool_keys(c):
                 pool = c[key]
                 self.obs.registry.counter("pool.copied_bytes").inc(pool.numel() * pool.element_size())
                 pad = torch.zeros((pool.shape[0], extra, *pool.shape[2:]), dtype=pool.dtype,
@@ -555,7 +588,7 @@ class BatchEngine:
             return
         keep = [j for j, s in enumerate(self._extent_sizes) if s > 0]
         for c in self._attn_slots():
-            for key in _POOL_KEYS:
+            for key in _pool_keys(c):
                 exts = list(c[key])
                 proto = exts[0]
                 exts = [exts[j] for j in keep]
@@ -578,9 +611,20 @@ class BatchEngine:
 
     def _grow_for(self, short: int) -> None:
         """Cover a free-list shortfall, sized by the growth schedule;
-        reserved-but-unclaimed slabs count as committed demand."""
+        reserved-but-unclaimed slabs count as committed demand.  With the
+        prefix cache, LRU cached slabs that nobody aliases go back to the
+        free list first, and only the rest is grown."""
         from repro_torch.pool import growth_amount, plan_extents
 
+        if self.prefix is not None:
+            freed = self.prefix.evict(short)
+            if len(freed):
+                self._mark(freed, True)
+                self.obs.registry.counter("pool.released_slabs").inc(len(freed))
+                short -= len(freed)
+                if short <= 0:
+                    self._sample_live()
+                    return
         reserved = self.book.reserved_total
         if self._extent_mode:
             self._append_extents(plan_extents(tuple(self._extent_sizes), short, self.grow_chunk,
@@ -659,13 +703,81 @@ class BatchEngine:
         self._requests[rid] = req
         self.obs.registry.counter("serve.submitted").inc()
         self.obs.event("submit", rid=rid, prompt_len=len(req.prompt))
-        self.sched.submit(rid, len(req.prompt))
+        if self.sched is not None:
+            self.sched.submit(rid, len(req.prompt))
+        else:
+            self._pending.append(req)
         return rid
+
+    # ---- monolithic admission -------------------------------------------
+    def _admit(self, req: Request, slot: int) -> None:
+        """Claim the prompt's slabs, prefill it whole (``policy="static"``,
+        K13 on a card), scatter its K/V into the slabs, arm decode."""
+        cfg = self.cfg
+        Lp = len(req.prompt)
+        self._note_admitted(req, slot)
+        self._claim(slot, max(-(-Lp // self.T), 1))
+        with self.obs.span("prefill", rid=req.rid, tokens=Lp):
+            toks = to_device(torch.from_numpy(np.asarray(req.prompt, np.int32)[None, :]), self.device)
+            # the monolithic prefill counts nothing (its counter vector, with
+            # cfg.instrument, is zeros): the reference's returns none
+            logits, pcaches, *_ = steps.prefill(self.params, toks, cfg, capacity_hint=Lp,
+                                                policy="static")
+        self.obs.registry.counter("serve.prefills").inc()
+        for c, pc, kind in zip(self.caches, pcaches, cfg.layout):
+            if kind == "mamba":  # the state row (a short prompt's conv window is left-padded)
+                for key in ("conv", "ssd"):
+                    c[key][:, slot].copy_(pc[key][:, 0])
+                continue
+            self._fill_slot_pages(c, slot, pc, Lp)
+        self.lengths[slot].fill_(Lp)
+        self._len_host[slot] = Lp
+        self._sample_live()
+        first = sample(None, logits, 0.0)[0]
+        req.first_tok = first
+        self._note_first_token(req)
+        self.cur_tok[slot] = first
+        req.slot = slot
+        req.admit_step = len(self._stream)
+        req.generated = 1
+        self._slots[slot] = req
+        if req.generated >= req.max_new_tokens:
+            self._complete(req)
+
+    def _set_slabs(self, pool, ids: np.ndarray, vals: torch.Tensor) -> None:
+        """``pool[:, ids] = vals`` in place across the flat or extent layout;
+        ``ids`` are host slab ids, so the extent routing is host arithmetic."""
+        if not self._extent_mode:
+            pool.index_copy_(1, to_device(torch.from_numpy(np.asarray(ids, np.int64)), self.device), vals)
+            return
+        base = 0
+        for ext, size in zip(pool, self._extent_sizes):
+            sel = np.flatnonzero((ids >= base) & (ids < base + size))
+            if len(sel):
+                local = to_device(torch.from_numpy((ids[sel] - base).astype(np.int64)), self.device)
+                ext.index_copy_(1, local, vals.index_select(1, to_device(torch.from_numpy(sel), self.device)))
+            base += size
+
+    def _fill_slot_pages(self, c: dict, slot: int, pcache: dict, Lp: int) -> None:
+        """Scatter a (P, 1, Lp, …) static prefill cache into ``slot``'s
+        claimed slabs (codes and scales of an int8 cache)."""
+        npages = int(self.book.npages[slot])
+        ids = self.book.pages_in_order(slot)
+        for key in _pool_keys(c):
+            x = pcache[key[:-len("_pool")]][:, 0]  # (P, Lp, …)
+            pad = x.new_zeros((x.shape[0], npages * self.T - Lp, *x.shape[2:]))
+            x = torch.cat([x, pad], dim=1).reshape(x.shape[0], npages, self.T, *x.shape[2:])
+            self._set_slabs(c[key], ids, x)
 
     def _complete(self, req: Request) -> None:
         req.done = True
+        if self.prefix is not None:
+            # publish before release: the trie's reference keeps the prompt's
+            # full slabs alive when the tenant's page references drop
+            self.prefix.publish(req.prompt, self.book.pages_of[req.slot])
         self._release(req.slot)
-        self.sched.complete(req.slot)
+        if self.sched is not None:
+            self.sched.complete(req.slot)
         self._slots[req.slot] = None
         self.obs.registry.counter("serve.completed").inc()
         if req.generated > 1:
@@ -730,21 +842,106 @@ class BatchEngine:
         if req.generated >= req.max_new_tokens:
             self._complete(req)
 
+    # ---- prefix caching (DESIGN.md §10) ----------------------------------
+    def _match_prefix(self, rid: int, length: int) -> int:
+        """Scheduler ``match`` hook: the longest cached prefix → its tokens.
+        The matched slabs are pinned (one ``addref`` each) before the
+        scheduler's grow hook can evict; the pins move into the page table
+        at admission (``book.adopt``) or are dropped."""
+        blocks, ids = self.prefix.match(self._requests[rid].prompt)
+        if not blocks:
+            return 0
+        self.alloc.addref(ids)
+        self._matched[rid] = ids
+        return blocks * self.T
+
+    def _drop_pins(self) -> None:
+        for ids in self._matched.values():
+            self.alloc.release(ids)
+        self._matched.clear()
+
+    def _adopt_prefix(self, req: Request, slot: int, need: int) -> None:
+        """Move the pinned match into the slot's page table."""
+        ids = self._matched.pop(req.rid)
+        cached = len(ids) * self.T
+        self._ensure_table_width(len(ids) + need)
+        self.book.adopt(slot, ids)
+        self.obs.registry.counter("serve.prefix_hits", "admissions that reused cached prefix slabs").inc()
+        self.obs.registry.counter("serve.prefix_tokens_reused", "prompt tokens served from cache").inc(cached)
+        self.obs.event("prefix_hit", rid=req.rid, tokens=cached, blocks=len(ids),
+                       full=cached >= len(req.prompt))
+
+    def _arm_full_hit(self, req: Request, slot: int) -> None:
+        """A fully cached prompt: no prefill chunk.  Publish the aliased
+        pages and arm decode on the last prompt token (its K/V rewrite
+        copies the shared tail slab first); the first token comes from the
+        first decode step, where TTFT is recorded."""
+        Lp = len(req.prompt)
+        self._publish_pages(slot, 0, self.book.pages_in_order(slot))
+        self.lengths[slot].fill_(Lp - 1)
+        self._len_host[slot] = Lp - 1
+        self.cur_tok[slot].fill_(req.prompt[-1])
+        req.generated = 0  # the first sample arrives from the first decode step
+        self._sample_live()
+
+    def _cow_if_shared(self, slot: int, page: int) -> None:
+        """Copy-on-write: make ``slot``'s slab at ``page`` private before an
+        append.  A shared slab (refcount > 1, read on the host) is copied,
+        one slab's bytes in every pool, into a fresh claim; the page table
+        repoints and one reference on the original drops, so every other
+        alias and the trie keep their bits."""
+        old = int(self.book.pages_of[slot][page])
+        if int(self.alloc.refcount[old]) <= 1:
+            return
+        short = self.book.shortfall(1)
+        if short:
+            self._grow_for(short)
+        before = self.alloc.reuse_claims
+        new = int(self.alloc.claim(slot, 1)[0])
+        self.obs.registry.counter("pool.reused_slabs").inc(self.alloc.reuse_claims - before)
+        self.book.replace(slot, page, new)
+        self.alloc.release(np.asarray([old], np.int32), tenant=slot)
+        publish = self.sched is None or self.sched.phase[slot] == "decode"
+        for c in self._attn_slots():
+            for key in _pool_keys(c):
+                kvcache.copy_slab(c[key], old, new, axis=1)
+            if publish:  # a prefilling slot's row stays −1 until its final chunk
+                c["pages"][:, slot, page].fill_(new)
+        self._mark(np.asarray([new]), False)
+        self.obs.registry.counter("serve.cow_copies", "shared slabs privately copied before append").inc()
+        self.obs.event("cow_copy", slot=slot, page=page, src=old, dst=new)
+
     # ---- the decode loop -------------------------------------------------
     def _admit_pending(self) -> None:
         from repro_torch.pool import QuotaExceeded
 
+        if self.sched is None:  # monolithic: fill the idle slots in order
+            for slot in range(self.B):
+                if not self._pending:
+                    return
+                if self._slots[slot] is None:
+                    self._admit(self._pending.popleft(), slot)
+            return
         try:
-            admits = self.sched.admit(self._ensure_free_slabs)
-        except QuotaExceeded as e:
-            self._flight_dump("quota_exceeded", e)
+            admits = self.sched.admit(self._ensure_free_slabs,
+                                      match=self._match_prefix if self.prefix is not None else None)
+        except BaseException as e:
+            self._drop_pins()
+            if isinstance(e, QuotaExceeded):
+                self._flight_dump("quota_exceeded", e)
             raise
         for rid, slot, need in admits:
             req = self._requests[rid]
             req.slot = slot
             self._slots[slot] = req
-            self._ensure_table_width(need)
+            if rid in self._matched:
+                self._adopt_prefix(req, slot, need)
+            else:
+                self._ensure_table_width(need)
             self._note_admitted(req, slot)
+            if self.sched.phase[slot] == "decode":  # a fully cached prompt
+                self._arm_full_hit(req, slot)
+        self._drop_pins()  # matched but not admitted this round
 
     def step(self) -> bool:
         """Admit, run prefill chunks, one batched decode step (interleaved).
@@ -759,10 +956,11 @@ class BatchEngine:
 
     def _step_inner(self) -> bool:
         self._admit_pending()
-        tasks = self.sched.next_chunks()
+        tasks = self.sched.next_chunks() if self.sched is not None else []
         for task in tasks:
             self._run_chunk(task)
-        active = [r for r in self._slots if r is not None and self.sched.phase[r.slot] == "decode"]
+        active = [r for r in self._slots
+                  if r is not None and (self.sched is None or self.sched.phase[r.slot] == "decode")]
         if not active:
             return bool(tasks)
         # claim the next slab before overflow, one growth for the batch
@@ -774,8 +972,14 @@ class BatchEngine:
                 self._grow_for(short)
             for slot in needy:
                 self._claim(slot, 1)
+        # copy-on-write: the slab each slot appends into must be private (a
+        # full hit decodes its last prompt token into the shared tail slab)
+        for req in active:
+            pos = int(self._len_host[req.slot])
+            if pos // self.T < int(self.book.npages[req.slot]):
+                self._cow_if_shared(req.slot, pos // self.T)
         active_mask = None
-        if self.sched.prefilling:
+        if self.sched is not None and self.sched.prefilling:
             # prefilling slots' Mamba rows must not move (their KV appends
             # already drop through their −1 page rows)
             act = np.zeros((self.B,), bool)
@@ -803,15 +1007,22 @@ class BatchEngine:
             # one (B,) read per step — the price of stop-token scheduling
             stops = self._host_read(sampled, "stop_drain")
         for req in active:
+            first_decode = req.generated == 0  # a full hit: its first token is here
             req.generated += 1
             req.decode_s += step_dt
+            if first_decode:
+                req.first_tok = sampled[req.slot]
+                req.admit_step = len(self._stream)
+                self._note_first_token(req)
             hit_stop = stops is not None and stops[req.slot] == self.stop_token
             if req.generated >= req.max_new_tokens or hit_stop:
                 self._complete(req)
         return True
 
     def _has_work(self) -> bool:
-        return any(r is not None for r in self._slots) or self.sched.busy
+        if any(r is not None for r in self._slots):
+            return True
+        return self.sched.busy if self.sched is not None else bool(self._pending)
 
     def run(self) -> dict[int, list[int]]:
         """Drain every submitted request → {rid: prompt + generated tokens}.
@@ -843,7 +1054,8 @@ class BatchEngine:
     def check_free_list(self) -> None:
         """Device bitmap ⇔ host allocator ⇔ page tables ⇔ refcounts; raises
         ``AssertionError`` on drift, after a flight-recorder bundle that names
-        the offending slab ids."""
+        the offending slab ids.  Every reference on a slab is one page-table
+        entry, one prefix-cache node or one admission pin."""
         try:
             self._check_free_list_inner()
         except AssertionError as e:
@@ -866,10 +1078,16 @@ class BatchEngine:
         for slot in range(self.B):
             for s in self.book.pages_of[slot]:
                 refs[s] += 1
+        if self.prefix is not None:
+            for s in self.prefix.cached_slabs():
+                refs[s] += 1
+        for ids in self._matched.values():
+            for s in ids:
+                refs[s] += 1
         bad = np.flatnonzero(refs != self.alloc.refcount)
         if len(bad):
             raise self._violation(
-                "refcount_mismatch", f"refcounts drift from page tables: {bad}",
+                "refcount_mismatch", f"refcounts drift from page tables + prefix cache: {bad}",
                 {"check": "refcount_conservation", "offending_slabs": bad.tolist(),
                  "expected_refcount": refs[bad].tolist(),
                  "actual_refcount": np.asarray(self.alloc.refcount)[bad].tolist()})
@@ -886,7 +1104,7 @@ class BatchEngine:
             for slot in range(self.B):
                 npg = int(self.book.npages[slot])
                 row = pages[slot]
-                if self.sched.phase[slot] == "prefill":
+                if self.sched is not None and self.sched.phase[slot] == "prefill":
                     if not (row == -1).all():
                         raise AssertionError(f"slot {slot}: published early")
                 else:

@@ -28,8 +28,17 @@ reference's keys and shapes.  Where the reference returns a new dict, the
 port writes the tensors **in place** and returns the same dict (growth
 returns a new dict that shares the old levels, so nothing is copied).  Every
 function here is free of host syncs: indices and masks stay on the device,
-host values are Python ints.  The int8 caches (``cache_quant``) raise
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+host values are Python ints.
+
+``cfg.cache_quant`` stores K/V as int8 codes with one bf16 scale per
+(token, kv head): ``ks``/``vs`` beside a static buffer, ``ks{lvl}``/
+``vs{lvl}`` beside each ggarray level, ``ks_pool``/``vs_pool`` beside the
+paged pools.  Every write quantises (:func:`_quantize_kv`, the reference's
+arithmetic, so codes and scales are bitwise the reference's); every read
+dequantises a segment before the softmax pass, and a quantised paged cache
+takes the page-group walk, never K10/K11 (as the reference,
+``kvcache.py:618``).  The ggarray append writes k, v and the two scale
+groups in one K3 launch of four groups.
 
 With ``cfg.instrument`` the ops record device counter vectors (K15,
 ``obs/device.py``) on the serving step's tape at the reference's sites:
@@ -78,10 +87,6 @@ POLICIES = ("static", "semistatic", "ggarray", "paged", "two_phase")
 _F32 = torch.float32
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
-
-
 def _check_policy(policy: str) -> None:
     if policy not in POLICIES:
         raise ValueError(f"unknown cache policy {policy!r}; options: {POLICIES}")
@@ -119,41 +124,68 @@ def init_cache(
     """Empty cache slot sized for ``length_hint`` under ``policy``.
 
     ``stack``: leading periods dim (the layer stack).  ``dtype`` defaults to
-    ``cfg.dtype``.  ``device=None`` means the card (``device.resolve``).
+    ``cfg.dtype``, or int8 under ``cfg.cache_quant`` (codes, with bf16
+    scales beside them).  ``device=None`` means the card (``device.resolve``).
     """
     from repro_torch.models.transformer import DTYPES
 
     device = resolve(device)
     policy = cfg.cache_policy if policy is None else policy
     _check_policy(policy)
-    if cfg.cache_quant:
-        raise _not_ported("the int8 KV cache (cache_quant)")
-    dtype = DTYPES[cfg.dtype] if dtype is None else dtype
+    quant = cfg.cache_quant
+    if dtype is None:
+        dtype = torch.int8 if quant else DTYPES[cfg.dtype]
     lead = (stack,) if stack else ()
     kh, dh = cfg.n_kv_heads, cfg.head_dim
 
     def z(*shape):
         return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
+    def zs(*shape):  # per-(token, head) dequantisation scales
+        return torch.zeros((*lead, *shape), dtype=torch.bfloat16, device=device)
+
     if policy in ("static", "semistatic"):
         cap = cache_capacity(cfg, policy, length_hint)
-        return {"k": z(batch, cap, kh, dh), "v": z(batch, cap, kh, dh)}
+        out = {"k": z(batch, cap, kh, dh), "v": z(batch, cap, kh, dh)}
+        if quant:
+            out["ks"], out["vs"] = zs(batch, cap, kh), zs(batch, cap, kh)
+        return out
     if policy == "paged":
         # standalone slot: sequence b owns slabs [b·maxp, (b+1)·maxp)
         T = cfg.slab_tokens
         maxp = max(-(-length_hint // T), 1)
         n_slabs = batch * maxp
         base = torch.arange(n_slabs, dtype=torch.int32, device=device).reshape(batch, maxp)
-        return {
+        out = {
             "k_pool": z(n_slabs, T, kh, dh),
             "v_pool": z(n_slabs, T, kh, dh),
             "pages": base.expand(*lead, batch, maxp).clone(),
         }
+        if quant:
+            out["ks_pool"], out["vs_pool"] = zs(n_slabs, T, kh), zs(n_slabs, T, kh)
+        return out
     cache: Cache = {}
     for lvl, size in enumerate(indexing.bucket_sizes(cfg.cache_b0, needed_levels(cfg.cache_b0, length_hint))):
         cache[f"k{lvl}"] = z(batch, size, kh, dh)
         cache[f"v{lvl}"] = z(batch, size, kh, dh)
+        if quant:
+            cache[f"ks{lvl}"], cache[f"vs{lvl}"] = zs(batch, size, kh), zs(batch, size, kh)
     return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, L, KH, Dh) → int8 codes + (…, L, KH) bf16 scales — the reference's
+    arithmetic step for step (f32 absmax floored at 1e-8, divided by 127,
+    round half to even, clipped to ±127), so codes and scales are bitwise
+    its own.  The two divisions stay divisions: their order decides ties."""
+    x32 = x.to(_F32)
+    scale = torch.clamp(torch.amax(torch.abs(x32), dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(_F32) * scale[..., None].to(_F32)
 
 
 def period_view(cache: Cache, i: int) -> Cache:
@@ -174,6 +206,16 @@ def _is_ggarray(cache: Cache) -> bool:
 
 def _is_paged(cache: Cache) -> bool:
     return "k_pool" in cache
+
+
+def _is_quant(cache: Cache) -> bool:
+    return "ks0" in cache or "ks" in cache or "ks_pool" in cache
+
+
+def _kv_of(quant: bool, k, v, ks, vs):
+    """A segment's K and V as attention reads them: dequantised when the
+    cache is quantised, else as stored."""
+    return (_dequant(k, ks), _dequant(v, vs)) if quant else (k, v)
 
 
 # ---- pools: one tensor (flat) or a tuple of extents -----------------------
@@ -209,6 +251,13 @@ def _scatter_slab(pool, slab: torch.Tensor, vals: torch.Tensor) -> None:
     for ext, s0 in zip(exts, _extent_starts(exts)):
         local = slab - s0
         common.put_drop_(ext, (local,), (slab >= 0) & (local >= 0) & (local < ext.shape[0]), vals)
+
+
+def _gather_kv(cache: Cache, grp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Page group ``grp``'s K and V gathered from the pools (and dequantised
+    through the scale pools of an int8 cache) → (B, w·T, KH, Dh) each."""
+    return _kv_of("ks_pool" in cache, *(_gather_pool(cache[key], grp) if key in cache else None
+                                        for key in ("k_pool", "v_pool", "ks_pool", "vs_pool")))
 
 
 def _gather_pool(pool, grp: torch.Tensor) -> torch.Tensor:
@@ -265,14 +314,21 @@ def capacity_of(cache: Cache) -> int:
 
 def grow_ggarray(cache: Cache, cfg: ModelConfig, levels: int = 1) -> Cache:
     """Copy-free growth: a new dict with the next geometric level(s) appended
-    as zeros; the existing levels are the same tensors."""
+    as zeros (scale levels too, when quantised); the existing levels are the
+    same tensors."""
     n = _levels(cache)
     proto = cache["k0"]
+    quant = _is_quant(cache)
     out = dict(cache)
     for lvl in range(n, n + levels):
-        shape = (*proto.shape[:-3], cfg.cache_b0 * (1 << lvl), *proto.shape[-2:])
+        size = cfg.cache_b0 * (1 << lvl)
+        shape = (*proto.shape[:-3], size, *proto.shape[-2:])
         out[f"k{lvl}"] = torch.zeros(shape, dtype=proto.dtype, device=proto.device)
         out[f"v{lvl}"] = torch.zeros(shape, dtype=proto.dtype, device=proto.device)
+        if quant:
+            sshape = (*proto.shape[:-3], size, proto.shape[-2])
+            out[f"ks{lvl}"] = torch.zeros(sshape, dtype=torch.bfloat16, device=proto.device)
+            out[f"vs{lvl}"] = torch.zeros(sshape, dtype=torch.bfloat16, device=proto.device)
     return out
 
 
@@ -294,7 +350,11 @@ def cache_bytes(cache: Cache) -> int:
 # untouched.
 # --------------------------------------------------------------------------
 
-_SEQ_AXIS = -3
+_KEY_AXIS = {"k": -3, "v": -3, "ks": -2, "vs": -2}  # the sequence axis of each base
+
+
+def _bases(cache: Cache) -> list[str]:
+    return ["k", "v"] + (["ks", "vs"] if _is_quant(cache) else [])
 
 
 def freeze_cache(cache: Cache) -> Cache:
@@ -303,10 +363,11 @@ def freeze_cache(cache: Cache) -> Cache:
     if not _is_ggarray(cache):
         return dict(cache)
     n = _levels(cache)
+    bases = _bases(cache)
     out = {key: val for key, val in cache.items()
-           if not (key[:1] in ("k", "v") and key[1:].isdigit())}
-    for base in ("k", "v"):
-        out[base] = torch.cat([cache[f"{base}{lvl}"] for lvl in range(n)], dim=_SEQ_AXIS)
+           if not any(key.startswith(b) and key[len(b):].isdigit() for b in bases)}
+    for base in bases:
+        out[base] = torch.cat([cache[f"{base}{lvl}"] for lvl in range(n)], dim=_KEY_AXIS[base])
     return out
 
 
@@ -328,15 +389,16 @@ def thaw_cache(cache: Cache, b0: int) -> Cache:
     chain covering the frozen buffer, its last level zero-padded past it."""
     if _is_ggarray(cache):
         return dict(cache)
-    cap = cache["k"].shape[_SEQ_AXIS]
+    cap = cache["k"].shape[_KEY_AXIS["k"]]
     nlev = max(indexing.min_buckets_for(b0, cap), 1)
     starts = indexing.bucket_starts(b0, nlev)
     sizes = indexing.bucket_sizes(b0, nlev)
-    out = {key: val for key, val in cache.items() if key not in ("k", "v")}
-    for base in ("k", "v"):
+    bases = _bases(cache)
+    out = {key: val for key, val in cache.items() if key not in bases}
+    for base in bases:
         for lvl in range(nlev):
             out[f"{base}{lvl}"] = _slice_level(cache[base], int(starts[lvl]), int(sizes[lvl]),
-                                               _SEQ_AXIS)
+                                               _KEY_AXIS[base])
     return out
 
 
@@ -348,13 +410,18 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
     """Write one decode step at ``pos`` in place → ``cache``.
 
     ggarray: one fused push-back (K3 on a card) with two payload groups, k
-    and v, sharing the mask.  The reference picks its plain scan path for
+    and v, sharing the mask — four when quantised (the int8 k and v and
+    their bf16 scales).  The reference picks its plain scan path for
     one-lane waves from a TPU crossover (``kvcache.py:456``); that choice has
     no counterpart here.  ``cfg.kernel_memory_space`` is checked and inert.
     """
     B = k.shape[0]
     dev = k.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
+    quant = _is_quant(cache)
+    if quant:
+        k, k_s = _quantize_kv(k)
+        v, v_s = _quantize_kv(v)
     if _is_paged(cache):
         T = _pool_first(cache["k_pool"]).shape[-3]
         maxp = cache["pages"].shape[-1]
@@ -372,6 +439,9 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
             }))
         _scatter_pool(cache["k_pool"], slab, slot, k[:, 0])
         _scatter_pool(cache["v_pool"], slab, slot, v[:, 0])
+        if quant:
+            _scatter_pool(cache["ks_pool"], slab, slot, k_s[:, 0])
+            _scatter_pool(cache["vs_pool"], slab, slot, v_s[:, 0])
         return cache
     if not _is_ggarray(cache):  # static: writes at or past the capacity drop
         cap = cache["k"].shape[-3]
@@ -379,14 +449,19 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
         ok = (pos >= 0) & (pos < cap)
         common.put_drop_(cache["k"], (rows, pos), ok, k[:, 0])
         common.put_drop_(cache["v"], (rows, pos), ok, v[:, 0])
+        if quant:
+            common.put_drop_(cache["ks"], (rows, pos), ok, k_s[:, 0])
+            common.put_drop_(cache["vs"], (rows, pos), ok, v_s[:, 0])
         return cache
     from repro_torch.kernels.push_back import ops as push_back_ops
 
     n = _levels(cache)
-    groups = tuple(tuple(cache[f"{base}{lvl}"] for lvl in range(n)) for base in ("k", "v"))
+    bases = _bases(cache)
+    groups = tuple(tuple(cache[f"{base}{lvl}"] for lvl in range(n)) for base in bases)
+    payloads = (k, v, k_s, v_s) if quant else (k, v)
     inst = cfg is not None and cfg.instrument
     outs = push_back_ops.push_back_fused_multi(
-        groups, pos, cache["k0"].shape[-3], (k, v),
+        groups, pos, cache["k0"].shape[-3], payloads,
         torch.ones((B, 1), dtype=torch.bool, device=dev),
         memory_space=cfg.kernel_memory_space if cfg is not None else None,
         instrument=inst,
@@ -433,6 +508,7 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
         torch.zeros((B, kh, g), dtype=_F32, device=dev),
         torch.zeros((B, kh, g, Dh), dtype=_F32, device=dev),
     )
+    quant = _is_quant(cache)
     if _is_paged(cache):
         out = _attend_paged(cache, qf, length, cfg, state)
         return out.reshape(B, 1, H, Dh).to(q.dtype)
@@ -440,25 +516,26 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
         n = _levels(cache)
         starts = indexing.bucket_starts(cache["k0"].shape[-3], n)
         for lvl in range(n):
-            kk = cache[f"k{lvl}"]
+            kk, vv = _kv_of(quant, cache[f"k{lvl}"], cache[f"v{lvl}"],
+                            cache.get(f"ks{lvl}"), cache.get(f"vs{lvl}"))
             kpos = int(starts[lvl]) + torch.arange(kk.shape[-3], device=dev)
-            state = _partial_scores(qf, kk, cache[f"v{lvl}"], kpos, length, state)
+            state = _partial_scores(qf, kk, vv, kpos, length, state)
     else:  # static or frozen: one segment, one softmax pass
-        kpos = torch.arange(cache["k"].shape[-3], device=dev)
-        state = _partial_scores(qf, cache["k"], cache["v"], kpos, length, state)
+        kk, vv = _kv_of(quant, cache["k"], cache["v"], cache.get("ks"), cache.get("vs"))
+        kpos = torch.arange(kk.shape[-3], device=dev)
+        state = _partial_scores(qf, kk, vv, kpos, length, state)
     m, l, acc = state
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
-def _levels_walk_ctr(pages: torch.Tensor, length: torch.Tensor, T: int) -> torch.Tensor:
+def _levels_walk_ctr(pages: torch.Tensor, length: torch.Tensor, T: int, npools: int) -> torch.Tensor:
     """Device counters of the geometric page-group walk — port of the
     reference's ``_levels_walk_ctr`` (``serving/kvcache.py:579``): every
     group is gathered at its padded power-of-two width (−1 pages included:
     the walk masks them, it does not skip them), so ``masked_lanes`` is the
-    over-read this path pays against the gated K10/K11.  Two pools are
-    gathered, k and v (the int8 caches' scale pools are not ported)."""
-    npools = 2
+    over-read this path pays against the gated K10/K11.  ``npools`` pools
+    are gathered: k and v, and the two scale pools of an int8 cache."""
     B = pages.shape[0]
     tiles = lanes = 0
     live_pages = masked = torch.zeros((), dtype=torch.int64, device=pages.device)
@@ -481,10 +558,12 @@ def _levels_walk_ctr(pages: torch.Tensor, length: torch.Tensor, T: int) -> torch
 
 
 def _attend_paged(cache, qf, length, cfg, state):
-    """The paged walk: geometric page groups, or the flash-decode kernel."""
+    """The paged walk: geometric page groups, or the flash-decode kernel
+    (never over an int8 cache: the reference walks the groups there)."""
     pages = cache["pages"]
     T = _pool_first(cache["k_pool"]).shape[-3]
-    if cfg.paged_attend_impl == "pallas":
+    quant = _is_quant(cache)
+    if cfg.paged_attend_impl == "pallas" and not quant:
         from repro_torch.kernels.paged import ops as paged_ops
 
         out = paged_ops.paged_attend(
@@ -496,16 +575,16 @@ def _attend_paged(cache, qf, length, cfg, state):
             obs_device.record(vec)
         return out
     if cfg.instrument:
-        obs_device.record(_levels_walk_ctr(pages, length, T))
+        obs_device.record(_levels_walk_ctr(pages, length, T, 4 if quant else 2))
     for lo, hi in geometric_page_groups(pages.shape[-1]):
         width = hi - lo
         full = 1 << max(width - 1, 0).bit_length()
         grp = pages[:, lo:hi]
         if width < full:  # pad to the ggarray level width (exact no-op lanes)
             grp = torch.cat([grp, grp.new_full((grp.shape[0], full - width), -1)], dim=1)
+        kk, vv = _gather_kv(cache, grp)
         kpos = lo * T + torch.arange(full * T, device=qf.device)
-        state = _partial_scores(qf, _gather_pool(cache["k_pool"], grp),
-                                _gather_pool(cache["v_pool"], grp), kpos, length, state)
+        state = _partial_scores(qf, kk, vv, kpos, length, state)
     m, l, acc = state
     return acc / torch.clamp(l[..., None], min=1e-30)
 
@@ -548,6 +627,8 @@ def chunk_attend(
     t0, after a first chunk that holds position 0: every lane of them is
     dead, their update is an exact no-op in the reference, and skipping
     them changes no bit.  ``first`` (t0 == 0) skips the walk, as there.
+    An int8 cache's prefix is dequantised; the chunk attends its own K/V
+    unquantised, as in the reference.
     """
     B, Sq, H, Dh = q.shape
     kh = cfg.n_kv_heads
@@ -562,22 +643,23 @@ def chunk_attend(
     )
     T = _pool_first(cache["k_pool"]).shape[-3]
     Skv = pages_row.shape[0] * T
+    quant = _is_quant(cache)
     if Skv and not first and cfg.instrument:
-        # the reference's fixed-width prefix gather: every page slot of k
-        # and v walked, −1 = waste (counted as the reference walks it)
+        # the reference's fixed-width prefix gather: every page slot of each
+        # pool walked, −1 = waste (counted as the reference walks it)
+        np_ = 4 if quant else 2
         live_p = (pages_row >= 0).sum()
         obs_device.record(obs_device.pack(dev, **{
-            "paged_gather.launches": 2,
-            "paged_gather.tiles": 2 * live_p,
-            "paged_gather.masked_tiles": 2 * (pages_row.shape[0] - live_p),
+            "paged_gather.launches": np_,
+            "paged_gather.tiles": np_ * live_p,
+            "paged_gather.masked_tiles": np_ * (pages_row.shape[0] - live_p),
         }))
     if Skv and not first and t0 > 0:
         cc = min(c, Skv)
         nch = math.ceil(min(t0, Skv) / cc)  # prefix chunks with a live lane
         npg = min(pages_row.shape[0], math.ceil(nch * cc / T))
         grp = pages_row[None, :npg]
-        pk = _pad1(_gather_pool(cache["k_pool"], grp), nch * cc)
-        pv = _pad1(_gather_pool(cache["v_pool"], grp), nch * cc)
+        pk, pv = (_pad1(x, nch * cc) for x in _gather_kv(cache, grp))
         for ci in range(nch):
             kpos = ci * cc + torch.arange(cc, device=dev)
             live_m = (kpos < t0)[None, None, None, None, :]
@@ -608,11 +690,17 @@ def scatter_chunk(
     cfg: ModelConfig,
 ) -> Cache:
     """Write a chunk's live K/V into the slot's claimed slabs, in place →
-    ``cache``.  Dead lanes (padding, unclaimed page) drop."""
+    ``cache``.  Dead lanes (padding, unclaimed page) drop.  Quantisation is
+    per token, so an int8 cache stores the codes a monolithic fill would."""
     T = _pool_first(cache["k_pool"]).shape[-3]
     maxp = pages_row.shape[0]
     Cb = k_chunk.shape[1]
     dev = k_chunk.device
+    k, v = k_chunk[0], v_chunk[0]
+    quant = _is_quant(cache)
+    if quant:
+        k, k_s = _quantize_kv(k)
+        v, v_s = _quantize_kv(v)
     lane = torch.arange(Cb, device=dev)
     pos = t0 + lane
     slab = pages_row[torch.clamp(pos // T, 0, maxp - 1)]
@@ -625,8 +713,11 @@ def scatter_chunk(
             "slab_append.lanes": Cb,
             "slab_append.active_lanes": ok.sum(),
         }))
-    _scatter_pool(cache["k_pool"], slab, slot, k_chunk[0])
-    _scatter_pool(cache["v_pool"], slab, slot, v_chunk[0])
+    _scatter_pool(cache["k_pool"], slab, slot, k)
+    _scatter_pool(cache["v_pool"], slab, slot, v)
+    if quant:
+        _scatter_pool(cache["ks_pool"], slab, slot, k_s)
+        _scatter_pool(cache["vs_pool"], slab, slot, v_s)
     return cache
 
 
@@ -640,21 +731,25 @@ def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) 
     static: the first min(S, capacity) positions.
     ggarray: bucket b receives the contiguous slice [start_b, start_b+len_b).
     paged: page p takes positions [p·T, (p+1)·T); rows whose page is
-    unclaimed drop.
+    unclaimed drop.  An int8 cache takes the codes and their scales.
     """
     S = k_full.shape[1]
+    full = {"k": k_full, "v": v_full}
+    if _is_quant(cache):
+        full["k"], full["ks"] = _quantize_kv(k_full)
+        full["v"], full["vs"] = _quantize_kv(v_full)
     if _is_paged(cache):
         T = _pool_first(cache["k_pool"]).shape[-3]
         maxp = cache["pages"].shape[-1]
         for p in range(min(-(-S // T), maxp)):
             slab = cache["pages"][:, p]  # −1 unclaimed ⇒ drop
-            _scatter_slab(cache["k_pool"], slab, _pad1(k_full[:, p * T:(p + 1) * T], T))
-            _scatter_slab(cache["v_pool"], slab, _pad1(v_full[:, p * T:(p + 1) * T], T))
+            for base, x in full.items():
+                _scatter_slab(cache[f"{base}_pool"], slab, _pad1(x[:, p * T:(p + 1) * T], T))
         return cache
     if not _is_ggarray(cache):  # static: the first min(S, cap) positions
         n = min(S, cache["k"].shape[-3])
-        cache["k"][:, :n] = k_full[:, :n]
-        cache["v"][:, :n] = v_full[:, :n]
+        for base, x in full.items():
+            cache[base][:, :n] = x[:, :n]
         return cache
     nlev = _levels(cache)
     b0 = cache["k0"].shape[-3]
@@ -664,6 +759,6 @@ def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) 
         if lo >= S:
             break
         n = min(int(size), S - lo)
-        cache[f"k{lvl}"][:, :n] = k_full[:, lo:lo + n]
-        cache[f"v{lvl}"][:, :n] = v_full[:, lo:lo + n]
+        for base, x in full.items():
+            cache[f"{base}{lvl}"][:, :n] = x[:, lo:lo + n]
     return cache

@@ -207,11 +207,16 @@ def test_free_list_check_catches_drift(model):
         be.check_free_list()
 
 
-def test_unported_options_raise_naming_the_roadmap(model):
+def test_serving_options_are_accepted(model):
+    """Every serving option of the reference is ported: monolithic
+    admission, the prefix cache, the counter plane, the contiguous
+    policies and the int8 cache construct as the reference's do; the paged
+    policy belongs to BatchEngine."""
     _, cfg, _, params = model
-    for kwargs in (dict(admission="monolithic"), dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BatchEngine(params, cfg, device="cpu", **kwargs)
+    be = BatchEngine(params, cfg, device="cpu", admission="monolithic")
+    assert be.admission == "monolithic" and be.sched is None and be.prefix is None
+    be = BatchEngine(params, cfg, device="cpu", prefix_cache=True)
+    assert be.prefix is not None and be.stats.prefix_hits == 0
     # instrument=True (the device counter plane, K15) is ported: accepted
     for make in (Engine, BatchEngine):
         eng = make(params, cfg, device="cpu", instrument=True)
@@ -220,8 +225,8 @@ def test_unported_options_raise_naming_the_roadmap(model):
         assert Engine(params, cfg, policy=policy, device="cpu").policy == policy
     with pytest.raises(ValueError, match="BatchEngine"):
         Engine(params, cfg, policy="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchEngine(params, dataclasses.replace(cfg, cache_quant=True), device="cpu")
+    be = BatchEngine(params, dataclasses.replace(cfg, cache_quant=True), device="cpu")
+    assert be.caches[0]["k_pool"].dtype == torch.int8 and be.caches[0]["ks_pool"].dtype == torch.bfloat16
 
 
 def test_engines_need_a_card_unless_asked_for_cpu(model):

@@ -187,14 +187,14 @@ def test_copy_slab_matches_reference(layout, axis):
 
 
 @pytest.mark.parametrize("what", ["static", "semistatic", "two_phase", "quant"])
-def test_unported_policies_raise_naming_the_roadmap(what):
-    """int8 caches still raise naming ROADMAP.md; the static, semistatic and
-    two_phase policies are ported and build the reference's cache."""
+def test_policies_and_int8_caches_build_the_reference_cache(what):
+    """The static, semistatic and two_phase policies and the int8 cache
+    (``cache_quant``, here a ggarray one: int8 levels with bf16 scale
+    levels) build the reference's cache: the same keys, shapes and dtypes."""
     rcfg, cfg = _cfgs(cache_quant=what == "quant")
-    if what == "quant":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kv.init_cache(cfg, 1, 4, "ggarray", device="cpu")
-        return
-    ours, theirs = kv.init_cache(cfg, 2, 11, what, device="cpu"), rkv.init_cache(rcfg, 2, 11, what)
+    policy = "ggarray" if what == "quant" else what
+    ours, theirs = kv.init_cache(cfg, 2, 11, policy, device="cpu"), rkv.init_cache(rcfg, 2, 11, policy)
     assert {k: tuple(v.shape) for k, v in ours.items()} == {k: v.shape for k, v in theirs.items()}
-    assert kv.capacity_of(ours) == rkv.capacity_of(theirs) == kv.cache_capacity(cfg, what, 11)
+    assert {k: str(v.dtype).split(".")[-1] for k, v in ours.items()} == {
+        k: np.asarray(v).dtype.name for k, v in theirs.items()}
+    assert kv.capacity_of(ours) == rkv.capacity_of(theirs) == kv.cache_capacity(cfg, policy, 11)

@@ -216,3 +216,57 @@ def test_multi_group_launcher_checks_groups_before_the_card():
         k_pb.push_back_cuda_multi((lv,) * 5, sizes, 2, (e,) * 5, mask)
     with pytest.raises(ValueError, match="equal counts"):
         k_pb.push_back_cuda_multi((lv, lv), sizes, 2, (e,), mask)
+
+
+@pytest.mark.parametrize("nblocks,b0,nlev,m", [(4, 8, 2, 1), (3, 2, 4, 5), (5, 3, 1, 9)])
+def test_four_groups_int8_and_bf16_scales_match_reference(nblocks, b0, nlev, m):
+    """An int8 cache's append: int8 k and v of (KH, D) and their bf16
+    scales of (KH,), four payload groups sharing one mask, against the
+    reference's multi-group plain path (``use_ref=True``), bitwise —
+    levels, sizes and positions."""
+    rng = np.random.default_rng(nblocks * 1000 + m)
+    widths = [b0 << b for b in range(nlev)]
+    kh, d = 2, 8
+
+    def codes(*shape):
+        return rng.integers(-127, 128, shape).astype(np.int8)
+
+    def scales(*shape):
+        return np.asarray(jnp.asarray(rng.random(shape), jnp.bfloat16))
+
+    make = (codes, codes, scales, scales)
+    items = ((kh, d), (kh, d), (kh,), (kh,))
+    levels = [[f(nblocks, w, *it) for w in widths] for f, it in zip(make, items)]
+    elems = [f(nblocks, m, *it) for f, it in zip(make, items)]
+    sizes = rng.integers(0, b0 * ((1 << nlev) - 1) + 1, nblocks).astype(np.int32)
+    mask = rng.random((nblocks, m)) < (1.0 if m == 1 else 0.6)
+    theirs = ref_pb.push_back_fused_multi(
+        tuple(tuple(jnp.asarray(x) for x in g) for g in levels), jnp.asarray(sizes), b0,
+        tuple(jnp.asarray(e) for e in elems), jnp.asarray(mask), use_ref=True)
+    groups = tuple(tuple(_t(x) for x in g) for g in levels)
+    ours = pb.push_back_fused_multi(groups, torch.from_numpy(sizes), b0,
+                                    tuple(_t(e) for e in elems), torch.from_numpy(mask))
+    assert ours[0] is groups  # written in place
+    assert [g[0].dtype for g in groups] == [torch.int8, torch.int8, torch.bfloat16, torch.bfloat16]
+    for g_ours, g_theirs in zip(ours[0], theirs[0]):
+        for a, b in zip(g_ours, g_theirs):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(theirs[1]))
+    np.testing.assert_array_equal(ours[2].numpy(), np.asarray(theirs[2]))
+
+
+def test_int8_payloads_are_admitted_and_four_groups_count_apart():
+    from repro_torch.kernels import common
+    from repro_torch.kernels.push_back import kernel as k_pb
+
+    assert torch.int8 in k_pb.PAYLOAD_DTYPES
+    assert [k_pb.launch_name(n) for n in (1, 2, 3, 4)] == [
+        "push_back", "push_back_multi", "push_back_multi", "push_back_four"]
+    assert {"push_back", "push_back_multi", "push_back_four"} <= set(common.KERNELS)
+    meta = torch.device("meta")
+    lv = (torch.zeros((2, 2, 3), dtype=torch.int8, device=meta),)
+    e = torch.zeros((2, 1, 3), dtype=torch.int8, device=meta)
+    sizes = torch.zeros(2, dtype=torch.int32, device=meta)
+    mask = torch.ones((2, 1), dtype=torch.bool, device=meta)
+    with pytest.raises(ValueError, match="expected cuda"):  # past the dtype check
+        k_pb.push_back_cuda_multi((lv,) * 4, sizes, 2, (e,) * 4, mask)

@@ -186,6 +186,31 @@ Run from the root of the repository.  Phases, one JSON line each:
    step runs under the sync check; K13 and the two-group K3 (Engine) and
    K10/K11 (BatchEngine) on the captured layer-0 inputs against their
    plain versions.
+6c. training (slice 12).  ``train.step``: qwen2.5-3b whole (36 layers,
+   bf16, remat, blockwise attention), ``train_step`` 6 times on one batch
+   of 4 x 1024: the loss falls, parameters finite and bf16, moments f32,
+   one step under the sync check; median step (CUDA events), tokens/s, the
+   bound, peak memory against the state's bytes; one more step under
+   ``torch.profiler`` (kernel time, idle share, top kernels).
+   ``train.packed``: Packer packs seeded documents of 64-2048 tokens into
+   4 x 1024 with a loss mask, freezing by K7 (it appends by ``scan``, as
+   the reference's, so K3 is not on this path), the same pack as a Packer
+   on the CPU; an all-ones mask gives the loss of no mask; one step on it.
+   ``train.resume``: the same width at 2 layers, the loop of 8 steps with
+   a checkpoint every 3: a crash at step 5, then a restart from step 3,
+   repeats the uninterrupted losses bitwise (blocking and async
+   checkpoints, 4.65 GB each, under build/ and deleted); save, async save
+   and restore timed; the restored parameters served by Engine under
+   ggarray and static, the same 16 new tokens.  ``train.moe``:
+   llama4-scout at 1 layer, full width, 3 steps under ``scan``, ``tile``
+   (K1) and ``mxu`` (K2) from one seed, on Zipf-distributed tokens:
+   losses, grad norms and parameters bitwise equal, tokens dropped > 0,
+   peak memory.  ``train.card_cpu``:
+   reduced qwen2.5-3b, dbrx (``mxu``) and mamba2 in f32, one step on the
+   card against the CPU: the loss within 1e-5, each gradient within 1e-4
+   relative L2.  The bitwise phases run under
+   ``torch.use_deterministic_algorithms(True)``, for which the script sets
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (if unset) for the whole run.
 7. the device counter plane (K15).  ``obs.kernels`` (after the kernel
    phase): K3 (one group at the main path's last wave, two groups at
    m = 1, small ragged waves, empty masks), K7 (the freeze's plane, empty
@@ -4218,6 +4243,551 @@ def family_paths(card: str, seed: int, lens, res: dict) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 6c: training (slice 12) — qwen2.5-3b at full width, its packed
+# batches, the fault-tolerant loop, llama4's routed experts, card against
+# CPU.
+# --------------------------------------------------------------------------
+
+# train.step: qwen2.5-3b whole (36 layers, bf16, remat, blockwise
+# attention: the reference's training setting), one repeated batch of 4 x
+# 1024 tokens; the first step warms up, the median of the rest is reported,
+# and step TRAIN_SYNC_STEP runs under the sync check.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_SYNC_STEP = (
+    "qwen2.5-3b", 4, 1024, 6, 3e-4, 2)
+# train.resume: the same width cut to 2 layers (a 4.65 GB checkpoint), the
+# reference test's loop (8 steps, a checkpoint every 3, a crash at step 5)
+# at batch 2 x 512; checkpoints under the git-ignored build/, deleted after.
+RESUME_LAYERS, RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 2, 2, 512, 8
+RESUME_EVERY, RESUME_FAIL, RESUME_NEW = 3, 5, 16
+# train.packed: documents of 64-2048 tokens packed by Packer into one 4 x
+# 1024 batch with its loss mask, filled to at most PACKED_FILL of it (the
+# rest is padding); appended by scan, as the reference's Packer, frozen by K7.
+PACKED_MIN, PACKED_MAX, PACKED_BLOCKS, PACKED_B0, PACKED_FILL = 64, 2048, 8, 256, 15 / 16
+# train.moe: llama4-scout cut to 1 layer at full width (16 experts of 5120 x
+# 8192, top-1: 4.145e9 parameters, 49.7 GB with grads and moments), batch
+# 2 x 1024 (capacity 160 an expert), a few steps under each method.  Its
+# tokens follow a Zipf law of exponent MOE_TRAIN_ZIPF over the vocab, as
+# text's token frequencies do: uniform tokens on random weights spread
+# evenly over the experts (about 128 ± 11 each) and overflow none.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = (
+    "llama4-scout-17b-a16e", 1, 2, 1024, 3)
+MOE_TRAIN_ZIPF = 1.1
+# train.card_cpu: one f32 step of each reduced config on the card and on
+# the CPU (arch, insertion method): the loss within CARD_CPU_LOSS
+# (relative), each parameter's gradient within CARD_CPU_GRAD (relative L2).
+CARD_CPU_ARCHS = (("qwen2.5-3b", "scan"), ("dbrx-132b", "mxu"), ("mamba2-2.7b", "scan"))
+CARD_CPU_BATCH, CARD_CPU_SEQ, CARD_CPU_LOSS, CARD_CPU_GRAD = 2, 64, 1e-5, 1e-4
+
+
+def train_step_bound(cfg, batch: int, seq: int, params, card: str) -> tuple[float, str, dict]:
+    """The least time one train step could take on the card → (ms, what
+    bounds it, the counts).  Operations at the peak of their type, summed:
+    the layer GEMMs in bf16 (forward, the remat recompute and a backward of
+    two forwards: four forwards under remat), the attention's products and
+    the unembedding in f32 (TF32 is off; the unembedding is outside remat:
+    three forwards).  Causal attention needs S(S+1)/2 query-key pairs a
+    head, whatever the blockwise algorithm computes and masks away.  Bytes: the weights read by every pass, the gradients
+    written, AdamW's read of parameters, gradients and both moments and its
+    write of parameters and moments."""
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.tree import leaves
+
+    T = batch * seq
+    passes = 4 if cfg.remat else 3
+    d, dh, H, KH = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    per_token = 0.0  # GEMM multiply-adds a token, one forward
+    for slot, kind in enumerate(cfg.layout):
+        per_token += d * dh * (H + 2 * KH) + H * dh * d
+        if cfg.is_moe_layer(slot):  # the expert FFN runs on its full capacity buffers
+            m = cfg.moe
+            per_token += 3 * d * m.d_ff_expert * m.n_experts * expert_capacity(m, T) / T
+        else:
+            per_token += 3 * d * cfg.d_ff
+    bf16 = 2.0 * per_token * cfg.n_periods * T * passes
+    f32 = (2 * 2.0 * batch * (seq * (seq + 1) / 2) * H * dh * cfg.n_layers * passes
+           + 2.0 * T * d * cfg.padded_vocab * 3)
+    ops_ms = (bf16 / PEAK_BF16_FLOPS + f32 / PEAK_OPS_PER_S) * 1e3
+    n = sum(p.numel() for p in leaves(params))
+    pbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    # weights each pass, gradients written, AdamW's reads (p, g, m, v), its writes (p, m, v)
+    nbytes = pbytes * passes + pbytes + (2 * pbytes + 8 * n) + (pbytes + 8 * n)
+    bytes_ms = nbytes / peak_bytes_per_s(card) * 1e3
+    counts = {"bf16_flops": bf16, "f32_flops": f32, "bytes": nbytes}
+    return (ops_ms, "operations", counts) if ops_ms >= bytes_ms else (bytes_ms, "bytes", counts)
+
+
+def state_bytes(state) -> dict:
+    """Bytes of the parameters, their gradients (one each) and the moments."""
+    from repro_torch.tree import leaves
+
+    p = sum(t.numel() * t.element_size() for t in leaves(state.params))
+    m = sum(t.numel() * t.element_size() for t in leaves(state.opt.m) + leaves(state.opt.v))
+    return {"params": p, "grads": p, "moments": m, "total": 2 * p + m}
+
+
+def timed_steps(state, cfg, batches, opt, sync_step: int | None = None) -> tuple:
+    """``train_step`` once a batch → (state, losses, grad norms, device ms
+    a step by CUDA events); step ``sync_step`` under the sync check."""
+    import torch
+
+    from repro_torch.train import step as tstep
+
+    losses, norms, ms = [], [], []
+    for i, batch in enumerate(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i == sync_step:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, m = tstep.train_step(state, batch, cfg, opt)
+            end.record()
+        finally:
+            if i == sync_step:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms, ms
+
+
+def profiled(fn, step_ms: float) -> tuple:
+    """``fn()`` once under ``torch.profiler`` (CUDA activity only) → (its
+    result, {wall ms under the profiler, kernel ms, the device's idle share,
+    the top kernels by device time}).  The idle share is taken against
+    ``step_ms``, the CUDA-event time of the same step unprofiled: tracing
+    stretches the profiled call's own wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])
+    total = sum(t for _, t, _ in kern)
+    return out, {"profiled_wall_ms": wall_ms, "kernel_ms": total, "step_ms": step_ms,
+                 "device_idle_share": 1 - total / step_ms,
+                 "kernel_launches": sum(c for _, _, c in kern),
+                 "top": [{"kernel": n[:90], "device_ms": t, "calls": c} for n, t, c in kern[:12]]}
+
+
+def all_finite(tensors) -> bool:
+    import torch
+
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all().item())
+
+
+def train_step_path(card: str, seed: int) -> tuple:
+    """train.step: qwen2.5-3b whole on one repeated batch → (launches,
+    state, cfg): the loss falls, parameters stay finite and bf16, moments
+    f32, one step under the sync check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = get(TRAIN_ARCH)
+    check(cfg.remat and cfg.attention_impl == "blockwise", "train.step: not the training setting")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = tstep.init_train_state(seed + 1200, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = state_bytes(state)
+    dtypes = [p.dtype for p in leaves(state.params)]
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed, step=0, device=DEV)
+    common.reset_launch_counts()
+    state, losses, norms, ms = timed_steps(state, cfg, [batch] * TRAIN_STEPS,
+                                           adamw.AdamWConfig(lr=TRAIN_LR), TRAIN_SYNC_STEP)
+    launches = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(ms[1:]))
+    bms, by, counts = train_step_bound(cfg, TRAIN_BATCH, TRAIN_SEQ, state.params, card)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    (state, _), prof = profiled(lambda: tstep.train_step(state, batch, cfg, opt), med)
+    finite = all_finite(leaves(state.params))
+    kept = ([p.dtype for p in leaves(state.params)] == dtypes
+            and all(t.dtype == torch.float32 for t in leaves(state.opt.m) + leaves(state.opt.v)))
+    ok = (losses[-1] < losses[0] and all(np.isfinite(losses)) and finite and kept
+          and int(state.opt.step) == TRAIN_STEPS + 1)
+    n = sum(p.numel() for p in leaves(state.params))
+    emit({"phase": "train.step", "card": card, "arch": cfg.name, "layers": cfg.n_layers,
+          "params": n, "remat": cfg.remat, "attention_impl": cfg.attention_impl,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR, "init_s": init_s,
+          "step_ms": ms, "median_step_ms": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+          "bound_ms": bms, "bound_by": by, "bound_over_step": bms / med, **counts,
+          "state_bytes": sizes, "peak_device_bytes": peak, "peak_over_state": peak / sizes["total"],
+          "losses": losses, "grad_norms": norms, "sync_checked_step": TRAIN_SYNC_STEP,
+          "profiled_step": prof, "params_finite": finite, "dtypes_kept": kept, "ok": ok})
+    check(ok, f"train.step: losses {losses}, finite {finite}, dtypes kept {kept}")
+    return launches, state, cfg
+
+
+def train_packed_path(card: str, seed: int, state, cfg) -> dict:
+    """train.packed: Packer packs documents drawn from the seed into one
+    batch with a loss mask, freezing with K7; the pack equals the same
+    Packer's on the CPU (plain versions); an all-ones mask gives the loss of
+    no mask; one train step on the packed batch → launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import Packer
+    from repro_torch.kernels import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    rng = np.random.default_rng(seed + 1300)
+    need = TRAIN_BATCH * TRAIN_SEQ
+    fill = int(need * PACKED_FILL)
+    docs, total = [], 0
+    while fill - total >= PACKED_MIN:  # draw until no document length fits the rest
+        n = int(rng.integers(PACKED_MIN, PACKED_MAX + 1))
+        if total + n <= fill:
+            docs.append(rng.integers(1, cfg.vocab_size, n).astype(np.int32))
+            total += n
+    common.reset_launch_counts()
+    packer = Packer(nblocks=PACKED_BLOCKS, b0=PACKED_B0, device=DEV)
+    for d in docs:
+        packer.add_document(d)
+    t0 = time.perf_counter()
+    batch = packer.pack(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    pack_s = time.perf_counter() - t0
+    launches = common.launch_counts()
+    plain = Packer(nblocks=PACKED_BLOCKS, b0=PACKED_B0, device="cpu")
+    for d in docs:
+        plain.add_document(d)
+    want = plain.pack(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    same_pack = all(torch.equal(batch[k].cpu(), want[k]) for k in want)
+    mask = batch["loss_mask"]
+    packed = batch["tokens"][mask].cpu().numpy()
+    same_tokens = bool(np.array_equal(np.sort(packed), np.sort(np.concatenate(docs))))
+    with torch.no_grad():
+        nomask, _ = tstep.loss_fn(state.params, {"tokens": batch["tokens"]}, cfg)
+        ones, _ = tstep.loss_fn(state.params, {"tokens": batch["tokens"],
+                                               "loss_mask": torch.ones_like(mask)}, cfg)
+    ones_rel = abs(float(ones) - float(nomask)) / abs(float(nomask))
+    state, losses, norms, ms = timed_steps(state, cfg, [batch], adamw.AdamWConfig(lr=TRAIN_LR))
+    ok = (same_pack and same_tokens and ones_rel <= 1e-6 and np.isfinite(losses[0])
+          and int(mask.sum()) == total < need)
+    emit({"phase": "train.packed", "card": card, "documents": len(docs), "tokens": total,
+          "padding": need - total, "nblocks": PACKED_BLOCKS, "b0": PACKED_B0, "pack_s": pack_s,
+          "packer_host_syncs": packer.stats.host_syncs, "same_pack_as_cpu": same_pack,
+          "token_multiset_kept": same_tokens, "all_ones_mask_vs_no_mask_rel": ones_rel,
+          "loss": losses[0], "grad_norm": norms[0], "step_ms": ms[0],
+          "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+    check(ok, f"train.packed: same pack {same_pack}, tokens kept {same_tokens}, "
+              f"all-ones mask rel {ones_rel}")
+    check(launches["segmented_gather"] >= 1, "kernel segmented_gather never launched on the train.packed path")
+    return launches
+
+
+def dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_resume_path(card: str, seed: int) -> dict:
+    """train.resume: the fault-tolerant loop at full width, 2 layers, under
+    deterministic algorithms: a crash at step 5, then a restart from the
+    step-3 checkpoint, gives the uninterrupted run's losses bitwise, with
+    blocking and with async checkpoints; checkpoint write and restore
+    timed; the restored parameters served by Engine under ggarray and
+    static, the same tokens → launch counts."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get
+    from repro_torch.kernels import common
+    from repro_torch.serving.engine import Engine
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def loop(d, **kw):
+        return loop_mod.LoopConfig(steps=RESUME_STEPS, batch=RESUME_BATCH, seq=RESUME_SEQ, seed=seed,
+                                   ckpt_dir=d, ckpt_every=RESUME_EVERY, log_every=100, **kw)
+
+    common.reset_launch_counts()
+    line = {"phase": "train.resume", "card": card, "arch": cfg.name, "layers": cfg.n_layers,
+            "batch": [RESUME_BATCH, RESUME_SEQ], "steps": RESUME_STEPS, "ckpt_every": RESUME_EVERY,
+            "fail_at_step": RESUME_FAIL, "deterministic_algorithms": True}
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        ref = loop_mod.run(cfg, loop(None), device=DEV)["losses"]
+        line["uninterrupted_s"] = time.perf_counter() - t0
+        line["losses"] = ref
+        for mode in ("sync", "async"):
+            d = str(root / mode)
+            try:
+                loop_mod.run(cfg, loop(d, fail_at_step=RESUME_FAIL, async_ckpt=mode == "async"),
+                             device=DEV)
+                crashed = False
+            except RuntimeError as e:
+                crashed = "injected failure" in str(e)
+            at_crash = ckpt.latest_step(d)
+            out = loop_mod.run(cfg, loop(d, async_ckpt=mode == "async"), device=DEV)
+            same = out["losses"] == ref[out["start_step"]:]
+            line[mode] = {"crashed": crashed, "checkpoint_at_crash": at_crash,
+                          "start_step": out["start_step"], "losses_bitwise": same,
+                          "final_checkpoint": ckpt.latest_step(d)}
+            check(crashed and at_crash == RESUME_EVERY and out["start_step"] == RESUME_EVERY and same,
+                  f"train.resume {mode}: {line[mode]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(root / "async", ignore_errors=True)
+    d, last = str(root / "sync"), RESUME_STEPS // RESUME_EVERY * RESUME_EVERY
+    fresh = tstep.init_train_state(seed + 7, cfg, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, meta = ckpt.restore(d, last, fresh)
+    torch.cuda.synchronize()
+    line["restore_s"] = time.perf_counter() - t0
+    del fresh
+    check(meta == {"next_step": last}, f"train.resume: metadata {meta}")
+    t0 = time.perf_counter()
+    ckpt.save(str(root / "timed"), last, restored, metadata=meta)
+    line["save_s"] = time.perf_counter() - t0
+    line["checkpoint_bytes"] = dir_bytes(root / "timed")
+    t0 = time.perf_counter()
+    ckpt.save_async(str(root / "timed_async"), last, restored, metadata=meta)
+    line["save_async_return_s"] = time.perf_counter() - t0
+    ckpt.wait_pending()
+    line["save_async_total_s"] = time.perf_counter() - t0
+    check(dir_bytes(root / "timed_async") == line["checkpoint_bytes"], "train.resume: async bytes differ")
+    again, _ = ckpt.restore(str(root / "timed_async"), last, restored)
+    line["async_roundtrip_mismatches"] = sum(compare(a.detach(), b.detach())[0]
+                                             for a, b in zip(leaves(again), leaves(restored)))
+    del again
+    shutil.rmtree(root, ignore_errors=True)
+    # serve the restored parameters (which require grad) under two policies
+    rng = np.random.default_rng(seed + 1350)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37, 250)]
+    outs = {}
+    for policy in ("ggarray", "static"):
+        eng = Engine(restored.params, cfg, policy=policy, max_len=cfg.cache_b0, device=DEV)
+        outs[policy] = eng.generate(prompts, max_new_tokens=RESUME_NEW)
+    line["served_identical"] = outs["ggarray"] == outs["static"]
+    line["served_lengths_ok"] = all(len(o) == len(p) + RESUME_NEW for o, p in zip(outs["ggarray"], prompts))
+    line["launches"] = {k: v for k, v in common.launch_counts().items() if v}
+    line["ok"] = (line["served_identical"] and line["served_lengths_ok"]
+                  and line["async_roundtrip_mismatches"] == 0)
+    emit(line)
+    check(line["ok"], f"train.resume: served identical {line['served_identical']}, "
+                      f"async round trip {line['async_roundtrip_mismatches']}")
+    del restored
+    torch.cuda.empty_cache()
+    return common.launch_counts()
+
+
+def zipf_batch(cfg, batch: int, seq: int, seed: int, step: int) -> dict:
+    """Tokens of Zipf-distributed ranks (MOE_TRAIN_ZIPF) mapped through one
+    seeded permutation of the vocab; a function of (seed, step)."""
+    import numpy as np
+    import torch
+
+    perm = np.random.default_rng(seed).permutation(cfg.vocab_size)
+    ranks = np.random.default_rng([seed, step]).zipf(MOE_TRAIN_ZIPF, (batch, seq))
+    tokens = perm[(ranks - 1) % cfg.vocab_size].astype(np.int32)
+    return {"tokens": torch.from_numpy(tokens).to(DEV)}
+
+
+def moe_drops(cfg, params, batch) -> tuple[int, int, int]:
+    """Layer 0's routing on ``batch`` (attention, then the MoE input) →
+    (dropped assignments, capacity, assignments)."""
+    import torch
+
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.modules import embed, rms_norm
+
+    with torch.no_grad():
+        sp = transformer.layer_params(params["layers"][0], 0)
+        x = embed(params["embed"], batch["tokens"]).to(transformer.DTYPES[cfg.dtype])
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = x + attention_block(sp["attn"], rms_norm(x, sp["norm1"], cfg.norm_eps), cfg, pos)
+        h = rms_norm(x, sp["norm2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        C = moe.expert_capacity(cfg.moe, h.shape[0])
+        _, _, expert = moe.route(sp["moe"], h, cfg)
+        _, slot, _, _ = moe.pack(h, expert, cfg, C)
+        return int((slot < 0).sum().item()), C, slot.numel()
+
+
+def train_moe_path(card: str, seed: int) -> dict:
+    """train.moe: llama4 (1 layer, full width) trained a few steps under
+    ``scan``, ``tile`` (K1) and ``mxu`` (K2) from one seed, under
+    deterministic algorithms: losses, grad norms and final parameters
+    bitwise equal across the methods → launch counts."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    base = dataclasses.replace(get(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    line = {"phase": "train.moe", "card": card, "arch": base.name, "layers": base.n_layers,
+            "experts": base.moe.n_experts, "top_k": base.moe.top_k,
+            "batch": [MOE_TRAIN_BATCH, MOE_TRAIN_SEQ], "steps": MOE_TRAIN_STEPS,
+            "token_zipf_exponent": MOE_TRAIN_ZIPF,
+            "deterministic_algorithms": True}
+    total = {k: 0 for k in KERNELS}
+    first, runs = None, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for method in ("scan", "tile", "mxu"):
+            cfg = dataclasses.replace(base, insertion_method=method)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = tstep.init_train_state(seed + 1400, cfg, device=DEV)
+            sizes = state_bytes(state)
+            batches = [zipf_batch(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed, i)
+                       for i in range(MOE_TRAIN_STEPS)]
+            common.reset_launch_counts()
+            state, losses, norms, ms = timed_steps(state, cfg, batches, adamw.AdamWConfig(lr=TRAIN_LR))
+            launches = common.launch_counts()
+            for k, v in launches.items():
+                total[k] += v
+            peak = torch.cuda.max_memory_allocated()
+            params = [p.detach() for p in leaves(state.params)]
+            if first is None:
+                first = {"losses": losses, "norms": norms, "params": [p.cpu() for p in params]}
+                mism = 0
+            else:
+                mism = sum(compare(p, r.to(DEV))[0] for p, r in zip(params, first["params"]))
+            dropped, C, assigned = moe_drops(cfg, state.params, batches[0])
+            bms, by, _ = train_step_bound(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, state.params, card)
+            med = float(np.median(ms[1:]))
+            runs[method] = {
+                "losses": losses, "grad_norms": norms, "step_ms": ms, "median_step_ms": med,
+                "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / med * 1e3,
+                "bound_ms": bms, "bound_by": by, "peak_device_bytes": peak, "state_bytes": sizes,
+                "dropped": dropped, "capacity": C, "assignments": assigned,
+                "losses_bitwise_scan": losses == first["losses"],
+                "grad_norms_bitwise_scan": norms == first["norms"],
+                "param_mismatches_vs_scan": mism,
+                "launches": {k: v for k, v in launches.items() if v}}
+            del state, params, batches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    line.update(runs)
+    line["ok"] = all(r["losses_bitwise_scan"] and r["grad_norms_bitwise_scan"]
+                     and r["param_mismatches_vs_scan"] == 0 and r["dropped"] > 0
+                     and all(np.isfinite(r["losses"])) for r in runs.values())
+    emit(line)
+    check(line["ok"], "train.moe: methods differ or no token dropped")
+    check(runs["tile"]["launches"].get("row_scan", 0) >= 1, "kernel row_scan never launched on train.moe")
+    check(runs["mxu"]["launches"].get("row_scan_mxu", 0) >= 1,
+          "kernel row_scan_mxu never launched on train.moe")
+    return total
+
+
+def train_card_cpu_path(card: str, seed: int) -> dict:
+    """train.card_cpu: one f32 step of reduced qwen2.5-3b, dbrx (``mxu``,
+    K2) and mamba2 on the card and on the CPU from the same state and
+    batch: the loss within CARD_CPU_LOSS, each gradient within
+    CARD_CPU_GRAD → launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import reduced
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves, tree_map
+
+    common.reset_launch_counts()
+    line = {"phase": "train.card_cpu", "card": card, "loss_tol": CARD_CPU_LOSS,
+            "grad_tol": CARD_CPU_GRAD, "batch": [CARD_CPU_BATCH, CARD_CPU_SEQ]}
+    ok = True
+    for arch, method in CARD_CPU_ARCHS:
+        cfg = dataclasses.replace(reduced(arch), insertion_method=method)
+        host = tstep.init_train_state(seed + 1500, cfg, device="cpu")
+        card_state = tree_map(lambda t: t.detach().to(DEV, copy=True).requires_grad_(t.requires_grad),
+                              host)
+        batch = make_batch(cfg, CARD_CPU_BATCH, CARD_CPU_SEQ, seed=seed, step=0, device="cpu")
+        dbatch = {k: v.to(DEV) for k, v in batch.items()}
+        got = {}
+        for where, st, b in (("cpu", host, batch), ("card", card_state, dbatch)):
+            loss, _ = tstep.loss_fn(st.params, b, cfg)
+            grads = torch.autograd.grad(loss, leaves(st.params))
+            got[where] = (float(loss.detach()), [g.detach().cpu().double() for g in grads])
+        loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        grad_rel = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
+                       for a, b in zip(got["card"][1], got["cpu"][1]))
+        opt = adamw.AdamWConfig(lr=1e-3)
+        host, hm = tstep.train_step(host, batch, cfg, opt)
+        card_state, cm = tstep.train_step(card_state, dbatch, cfg, opt)
+        param_rel = max(float((a.detach().cpu().double() - b.detach().double()).norm()
+                              / max(float(b.detach().double().norm()), 1e-30))
+                        for a, b in zip(leaves(card_state.params), leaves(host.params)))
+        line[arch] = {"insertion_method": method, "loss_rel": loss_rel, "max_grad_rel_l2": grad_rel,
+                      "step_loss": [float(cm["loss"]), float(hm["loss"])],
+                      "params_after_step_max_rel_l2": param_rel}
+        ok = ok and loss_rel <= CARD_CPU_LOSS and grad_rel <= CARD_CPU_GRAD
+    launches = common.launch_counts()
+    line["launches"] = {k: v for k, v in launches.items() if v}
+    line["ok"] = ok
+    emit(line)
+    check(ok, "train.card_cpu: the card and the CPU disagree")
+    check(launches["row_scan_mxu"] >= 1, "kernel row_scan_mxu never launched on train.card_cpu")
+    return launches
+
+
+def train_paths(card: str, seed: int) -> dict:
+    """Every slice-12 path, launch counts zeroed before each and read after
+    → the counts summed over the paths."""
+    import gc
+
+    import torch
+
+    runs = {}
+    runs["train.step"], state, cfg = train_step_path(card, seed)
+    runs["train.packed"] = train_packed_path(card, seed, state, cfg)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train.resume"] = train_resume_path(card, seed)
+    runs["train.moe"] = train_moe_path(card, seed)
+    runs["train.card_cpu"] = train_card_cpu_path(card, seed)
+    emit({"phase": "train.launches", "card": card,
+          "launches": {k: {n: v for n, v in c.items() if v} for k, c in runs.items()}})
+    return {k: sum(c[k] for c in runs.values()) for k in KERNELS}
+
+
 AB_REPS = 5  # prefills a turn, after a warm-up
 AB_NEW = 16  # new tokens per BatchEngine request
 AB_ORDER = ("parent", "change", "change", "parent")
@@ -4929,6 +5499,11 @@ def main() -> int:
     if args.turn and not args.ab:
         ap.error("--turn needs --ab")
 
+    import os
+
+    # the bitwise training phases run under torch.use_deterministic_algorithms,
+    # which needs cuBLAS's fixed workspace before its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -4951,7 +5526,8 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()} limit)"
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "allow_tf32": False})
+          "cuda": torch.version.cuda, "allow_tf32": False,
+          "cublas_workspace_config": os.environ["CUBLAS_WORKSPACE_CONFIG"]})
 
     # 2. build
     from repro_torch.kernels import _build
@@ -4995,8 +5571,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 6b. the remaining model families
     family_launches = family_paths(card, args.seed, engine_lens, res)
+    torch.cuda.empty_cache()
+    # 6c. training
+    train_launches = train_paths(card, args.seed)
     launches = {k: launches[k] + core_launches[k] + arena_launches[k] + obs_arena_launches[k]
-                + serve_launches[k] + family_launches[k] for k in KERNELS}
+                + serve_launches[k] + family_launches[k] + train_launches[k] for k in KERNELS}
     check(launches["counter_plane"] >= 1, "kernel counter_plane never launched on the obs paths")
 
     # 7. the kernels line

@@ -1,0 +1,4 @@
+"""Checkpoints — port of ``repro/checkpoint``."""
+from repro_torch.checkpoint import ckpt
+
+__all__ = ["ckpt"]

@@ -3,9 +3,11 @@
 The dataclasses are the reference's, field for field, so a config compares
 equal across the two packages (``tests/test_torch_configs.py``).  Knobs that
 only shape the TPU program are kept as documented no-ops on the GPU:
-``kernel_memory_space`` (the Pallas VMEM/HBM tiling), ``remat`` (JAX
-rematerialisation; the port serves, it does not differentiate) and
-``insertion_method``.
+``kernel_memory_space`` (the Pallas VMEM/HBM tiling).  ``remat`` is real:
+when a gradient is taken, each period of the stack (each encoder layer) runs
+under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.
+``insertion_method`` picks the MoE routing's rank backend (``tile`` K1,
+``mxu`` K2 on a card).
 
 A ``ModelConfig`` describes one architecture from the assigned pool.  Layer
 heterogeneity (Jamba's 1:7 Mamba:attention interleave, every-other-layer MoE)

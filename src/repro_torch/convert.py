@@ -15,7 +15,9 @@ numpy has no
 bfloat16 of its own: ``np.asarray`` of a JAX bf16 array gives an
 ``ml_dtypes`` bfloat16 array, which torch does not take, so bf16 travels as
 its ``uint16`` bit pattern — accepted on the way in (by dtype name) and
-returned on the way out.
+returned on the way out.  ``train_state_from_numpy`` /
+``train_state_to_numpy`` carry a whole training state (parameters, AdamW
+step and moments, the error-feedback residual) leaf for leaf.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ __all__ = [
     "params_from_numpy",
     "tensor_from_numpy",
     "tensor_to_numpy",
+    "train_state_from_numpy",
+    "train_state_to_numpy",
 ]
 
 # An arena's state as numpy: the extents' data (a list, bf16 as uint16
@@ -219,3 +223,34 @@ def cache_to_numpy(cache: dict) -> dict:
     """A port KV cache slot → numpy leaves (bf16 as ``uint16`` bits)."""
     return {k: tuple(tensor_to_numpy(e) for e in v) if isinstance(v, tuple) else tensor_to_numpy(v)
             for k, v in cache.items()}
+
+
+def train_state_from_numpy(cfg: Any, state: Any, device: "str | torch.device | None" = None) -> Any:
+    """The reference's ``TrainState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) → the port's on ``device``: the parameters by
+    ``params_from_numpy`` (requiring grad), the step, the f32 moments and
+    the residual (``state.ef`` may be None) as they are."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.compression import EFState
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import leaves, tree_map
+
+    params = params_from_numpy(cfg, state.params, device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+
+    def f32(arr) -> torch.Tensor:
+        return tensor_from_numpy(np.asarray(arr), device)
+
+    opt = AdamWState(step=f32(state.opt.step), m=tree_map(f32, state.opt.m),
+                     v=tree_map(f32, state.opt.v))
+    ef = None if state.ef is None else EFState(residual=tree_map(f32, state.ef.residual))
+    return TrainState(params=params, opt=opt, ef=ef)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's ``TrainState`` → the same structure with numpy leaves
+    (bf16 as ``uint16`` bits)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(tensor_to_numpy, state)

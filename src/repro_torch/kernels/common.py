@@ -245,7 +245,8 @@ def put_drop_(
     harmless — or, when no lane is valid, writes ``dst[0, ...]`` back onto
     itself.  ``index`` entries and ``valid`` broadcast to one lane shape;
     ``vals`` is that shape followed by the trailing dims of ``dst``.  Valid
-    lanes must be in range and target distinct slots.
+    lanes must be in range and target distinct slots.  Under autograd each
+    valid lane's value gets its slot's gradient and a dropped lane's none.
     """
     lane_shape = torch.broadcast_shapes(valid.shape, *(i.shape for i in index))
     nlanes = 1
@@ -263,7 +264,10 @@ def put_drop_(
     any_valid = valid.index_select(0, first)[0]
     zero = torch.zeros((), dtype=torch.int64, device=dst.device)
     rep_idx = [torch.where(any_valid, i.index_select(0, first)[0], zero) for i in idx]
-    rep_val = torch.where(any_valid, vals.index_select(0, first)[0], dst[(0,) * len(index)])
+    # the repeated value carries no gradient: a dropped lane writes nothing
+    # (JAX's drop mode), so under autograd it must send nothing back either
+    rep_val = torch.where(any_valid, vals.index_select(0, first)[0],
+                          dst[(0,) * len(index)]).detach()
     lane_valid = valid.reshape((nlanes,) + (1,) * len(item))
     idx = [torch.where(valid, i, r) for i, r in zip(idx, rep_idx)]
     vals = torch.where(lane_valid, vals, rep_val)

@@ -190,8 +190,20 @@ def _pallas_attention(q, k, v, *, group, causal):
     The reference transposes into (B·H, S, Dh) copies for its kernel; the
     port hands the kernel strided (B, H, S, Dh) views and lets it write the
     (B, S, H, Dh) output in place, so no transpose is copied on the card.
+
+    K13 has no backward, as the reference's Pallas kernel has none (its
+    ``train_step`` under ``attention_impl="pallas"`` fails to
+    differentiate): under grad mode with q, k or v requiring grad this
+    raises, on the CPU and on the card alike, rather than return an output
+    that no gradient flows through.
     """
     from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "attention_impl='pallas' (K13) has no backward: train with "
+            "'blockwise', 'blockwise_tri' or 'xla', or call under torch.no_grad()"
+        )
 
     out = torch.empty_like(q)
     fa_ops.flash_attention_bhsd(

@@ -5,7 +5,9 @@ The encoder consumes precomputed frame embeddings (the audio frontend is a
 stub, ``models/frontends.synthetic_frames``) through bidirectional
 attention layers; the decoder (``models/transformer.py``) cross-attends to
 its output.  Encoder leaves are stacked over ``n_enc_layers``, as the
-reference's ``vmap`` stacks them, and the port loops where it scans.
+reference's ``vmap`` stacks them, and the port loops where it scans (each
+leaf unbound once; each layer checkpointed under ``cfg.remat``, as the
+reference's ``jax.checkpoint(body)``).
 """
 from __future__ import annotations
 
@@ -32,14 +34,18 @@ def init_encoder(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> 
 
 def encode(enc_params: Param, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings → encoder memory (B, S_enc, D)."""
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import run_periods, unstack_layers
 
     x = frames.to(DTYPES[cfg.dtype])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_enc_layers):
-        lp = layer_params(enc_params["layers"], i)
+    layers = unstack_layers(enc_params["layers"], cfg.n_enc_layers)
+
+    def body(i: int, x: torch.Tensor):
+        lp = layers[i]
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + attn_mod.attention_block(lp["attn"], h, cfg, positions, causal=False)
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp_mod.mlp_block(lp["mlp"], h, cfg.activation)
+        return (x + mlp_mod.mlp_block(lp["mlp"], h, cfg.activation),)
+
+    (x,) = run_periods(body, (x,), cfg.n_enc_layers, cfg.remat)
     return rms_norm(x, enc_params["final_norm"], cfg.norm_eps)

@@ -3,9 +3,10 @@
 Norms, rotary embeddings, embeddings and the scaled-normal initialiser.  The
 arithmetic follows the reference step by step (f32 inside the norm and the
 rotation, the input dtype at the boundary, f32 logits), so both packages
-compute the same function on the same parameters.  The reference's
-hand-written VJP of ``rms_norm`` has no counterpart: the port serves and
-does not differentiate.  ``dense_init`` takes an explicit
+compute the same function on the same parameters.  ``rms_norm`` carries
+the reference's hand-written VJP (``repro/models/modules.py:43-57``) as a
+``torch.autograd.Function``: f32 math inside, the gradients in the input's
+and the weight's dtypes.  ``dense_init`` takes an explicit
 ``torch.Generator``; JAX's PRNG does not carry over, so parity tests hand
 the reference's parameters across with ``convert.params_from_numpy``.
 """
@@ -47,11 +48,43 @@ def dense_init(
     return out
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm: f32 inside, ``x.dtype`` out."""
+def _rms_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
     rstd = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + eps)
     return (x32 * rstd * weight.to(torch.float32)).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP: the cotangents leave in the boundary
+    dtypes (bf16 in, bf16 out), never as f32 x-sized tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        x32, dy32, w32 = x.to(torch.float32), dy.to(torch.float32), weight.to(torch.float32)
+        rstd = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + ctx.eps)
+        xhat = x32 * rstd
+        # dL/dw: reduce over all leading dims
+        dw = torch.sum(dy32 * xhat, dim=tuple(range(dy.ndim - 1))) if dy.ndim > 1 else dy32 * xhat
+        # dL/dx = rstd * (g - xhat * mean(g * xhat)) with g = dy * w
+        g = dy32 * w32
+        dx = rstd * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: f32 inside, ``x.dtype`` out; differentiable by the
+    reference's hand-written VJP (the plain forward when nothing needs a
+    gradient, as in serving)."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_fwd(x, weight, eps)
 
 
 def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:

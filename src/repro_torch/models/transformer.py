@@ -11,14 +11,21 @@ reference's parameters over leaf for leaf.  A slot holds ``norm1`` and
 ``cross_norm`` / ``cross`` in an encoder–decoder).  A Mamba slot has no
 MLP, so it never gets an MoE — the reference's rule, which leaves Jamba's
 MoE slots (1, 3, 5, 7: all Mamba) without experts.  Where the reference
-scans a period body, the port loops over periods and indexes each leaf
-(``layer_params``, a view, never a copy).
+scans a period body, the port loops over periods.  ``forward`` unbinds each
+stacked leaf once (``unstack_layers``: views, never copies), so under
+autograd a leaf's gradient is stacked once per step, not scattered into a
+zero stack once per period; the serving steps index one period at a time
+(``layer_params``).  ``cfg.remat`` is the reference's
+``jax.checkpoint(period_body)``: when a gradient is needed, each period runs
+under ``torch.utils.checkpoint`` and its activations are recomputed in the
+backward.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -27,7 +34,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.modules import DTYPES, Param, embed, rms_norm, unembed
 
-__all__ = ["init_params", "forward", "layer_params", "check_supported", "DTYPES"]
+__all__ = ["init_params", "forward", "layer_params", "unstack_layers", "check_supported", "DTYPES"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -45,6 +52,25 @@ def layer_params(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack_layers(tree: Any, n: int) -> list:
+    """Every period of a stacked layer tree at once: ``n`` trees whose
+    leaves are the views ``torch.unbind`` gives, one call a leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def run_periods(period, carry: tuple, n: int, remat: bool) -> tuple:
+    """``carry = period(i, *carry)`` for i < n; under ``remat`` (and a
+    gradient to take) each call is checkpointed, the reference's
+    ``jax.checkpoint(period_body)``."""
+    remat = remat and torch.is_grad_enabled()
+    for i in range(n):
+        carry = checkpoint(period, i, *carry, use_reentrant=False) if remat else period(i, *carry)
+    return carry
 
 
 def _init_slot(gen: torch.Generator, slot: int, kind: str, cfg: ModelConfig,
@@ -134,10 +160,11 @@ def forward(
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_periods):
+    periods = [unstack_layers(slot_tree, cfg.n_periods) for slot_tree in params["layers"]]
+
+    def period(i: int, x: torch.Tensor, aux: torch.Tensor):
         for slot, kind in enumerate(cfg.layout):
-            sp = layer_params(params["layers"][slot], i)
+            sp = periods[slot][i]
             mkv = None
             if memory is not None and kind == "attn":
                 mkv = (attn_mod.project_heads(memory, sp["cross"]["wk"]),
@@ -145,6 +172,10 @@ def forward(
             x, a = _apply_slot(sp, x, kind, slot, cfg, positions, mkv)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = run_periods(period, (x, aux), cfg.n_periods, cfg.remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = unembed(x, table)

@@ -30,7 +30,9 @@ host arithmetic on a length mirror, sampled tokens stay on the device, and
 one audited read (``serve.host_syncs{site=…}``) materialises them after the
 loop.  Host data reaches the card with ``non_blocking`` copies
 (``kernels.common.to_device``), so a steady-state decode step makes no
-synchronising call at all.
+synchronising call at all.  ``Engine.generate`` and ``BatchEngine.step`` /
+``run`` run under ``torch.no_grad()``, so trained parameters (which require
+grad) serve without building a graph.
 
 ``instrument=True`` turns on the device counter plane (K15): each step
 hands its counter vector to ``devctr`` (a list append, no transfer) and
@@ -212,6 +214,7 @@ class Engine:
             out.append(grown)
         return out
 
+    @torch.no_grad()
     def generate(
         self,
         prompts: list[list[int]],
@@ -943,6 +946,7 @@ class BatchEngine:
                 self._arm_full_hit(req, slot)
         self._drop_pins()  # matched but not admitted this round
 
+    @torch.no_grad()
     def step(self) -> bool:
         """Admit, run prefill chunks, one batched decode step (interleaved).
         → False when nothing is active.  Any failure inside the step dumps a
@@ -1024,6 +1028,7 @@ class BatchEngine:
             return True
         return self.sched.busy if self.sched is not None else bool(self._pending)
 
+    @torch.no_grad()
     def run(self) -> dict[int, list[int]]:
         """Drain every submitted request → {rid: prompt + generated tokens}.
         Two device→host reads: the per-request first tokens and the stream."""

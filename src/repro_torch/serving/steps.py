@@ -15,6 +15,10 @@ With ``cfg.instrument`` each step opens one ``obs.device.tape()`` (the
 reference opens one per scan iteration; PyTorch traces nothing) and returns
 the sum of the counter vectors the cache ops recorded as an extra output —
 device data, no transfer.
+
+Every step runs under ``torch.no_grad()``: parameters that require grad (a
+``train.step.TrainState``'s) serve as they are, and no graph is built
+across decode steps.
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ def _with_counters(cfg: ModelConfig, out: tuple, t, device) -> tuple:
     return (*out, t.total(device)) if cfg.instrument else out
 
 
+@torch.no_grad()
 def prefill(
     params: dict,
     tokens: torch.Tensor,
@@ -151,6 +156,7 @@ def prefill(
     return _with_counters(cfg, (logits_from_hidden(params, last, cfg), caches), t, dev)
 
 
+@torch.no_grad()
 def prefill_chunk(
     params: dict,
     tokens: torch.Tensor,  # (1, Cb) bucket-padded chunk of one prompt
@@ -227,6 +233,7 @@ def init_decode_caches(
     return caches
 
 
+@torch.no_grad()
 def decode_step(
     params: dict,
     token: torch.Tensor,  # (B,) or (B, 1)

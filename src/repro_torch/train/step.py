@@ -1,0 +1,154 @@
+"""Loss + train step: next-token CE, gradient accumulation, AdamW,
+compression — port of ``repro/train/step.py``.
+
+The reference differentiates with ``jax.value_and_grad`` and accumulates
+microbatches in a ``lax.scan``; the port takes ``torch.autograd.grad`` of
+the same loss (through ``models/modules.rms_norm``'s hand-written VJP and,
+in MoE layers, routing ranks from K1 or K2, which carry no gradient) and
+loops over the microbatches.  AdamW and the error-feedback compression
+update the state in place (``optim/``), so ``train_step`` returns the
+same parameter tensors it was given, updated.  A step makes no host
+sync: the metrics stay on the device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import encdec, transformer
+from repro_torch.optim import adamw, compression
+from repro_torch.tree import leaves, unflatten
+
+__all__ = ["TrainState", "init_train_state", "loss_fn", "train_step", "make_train_step",
+           "AUX_LOSS_WEIGHT"]
+
+AUX_LOSS_WEIGHT = 0.01
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt: adamw.AdamWState
+    ef: compression.EFState | None  # error feedback (grad compression)
+
+
+def init_train_state(
+    seed: int,
+    cfg: ModelConfig,
+    *,
+    grad_compression: bool = False,
+    device: "str | torch.device | None" = None,
+) -> TrainState:
+    """Random parameters from ``seed`` (requiring grad), zero moments and,
+    with ``grad_compression``, a zero residual, on ``device`` (the card
+    unless ``device="cpu"``)."""
+    gen = torch.Generator(device=resolve(device))
+    gen.manual_seed(seed)
+    params = transformer.init_params(cfg, gen)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return TrainState(
+        params=params,
+        opt=adamw.init(params),
+        ef=compression.ef_init(params) if grad_compression else None,
+    )
+
+
+def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (B, S, V) f32, targets (B, S).
+
+    ``mask``: optional (B, S) loss mask (padding from the packing pipeline);
+    the denominator is at least 1."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """→ (CE + AUX_LOSS_WEIGHT · aux, {"ce", "aux"}).  Only token positions
+    predict the next token: prefix embeddings are inputs."""
+    tokens = batch["tokens"]
+    memory = None
+    if cfg.n_enc_layers:
+        memory = encdec.encode(params["encoder"], batch["frames"], cfg)
+    logits, aux = transformer.forward(
+        params, tokens, cfg, prefix_embeds=batch.get("prefix_embeds"), memory=memory,
+    )
+    P = logits.shape[1] - tokens.shape[1]
+    mask = batch.get("loss_mask")
+    ce = _ce_loss(logits[:, P:-1], tokens[:, 1:], None if mask is None else mask[:, 1:])
+    loss = ce + AUX_LOSS_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _value_and_grad(params: dict, batch: dict, cfg: ModelConfig):
+    """(loss, metrics) detached, and the gradient of every leaf of
+    ``params``, in ``leaves`` order."""
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, batch, cfg)
+        grads = list(torch.autograd.grad(loss, leaves(params)))
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def train_step(
+    state: TrainState,
+    batch: dict,
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig,
+    lr_scale=1.0,
+    *,
+    microbatches: int = 1,
+    grad_specs=None,
+) -> tuple[TrainState, dict]:
+    """One optimizer step → (state, {"ce", "aux", "loss", "grad_norm"}).
+
+    ``microbatches > 1`` splits the batch along axis 0, accumulates f32
+    gradients, divides them by the count and averages the metrics, as the
+    reference's scan does.  ``grad_specs`` (the reference's sharding pins)
+    needs a mesh, which the port does not have yet."""
+    if grad_specs is not None:
+        raise NotImplementedError("train_step: grad_specs needs the distributed port (a mesh)")
+    if microbatches == 1:
+        loss, metrics, grads = _value_and_grad(state.params, batch, cfg)
+    else:
+        B = batch["tokens"].shape[0]
+        if B % microbatches:
+            raise ValueError(f"batch {B} not divisible by microbatches {microbatches}")
+        mb = {k: v.reshape(microbatches, B // microbatches, *v.shape[1:]) for k, v in batch.items()}
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves(state.params)]
+        loss, per = 0.0, []
+        for i in range(microbatches):
+            l, m, g = _value_and_grad(state.params, {k: v[i] for k, v in mb.items()}, cfg)
+            for acc, gi in zip(grads, g):
+                acc.add_(gi)
+            loss = loss + l
+            per.append(m)
+            del g
+        for acc in grads:
+            acc.div_(microbatches)
+        loss = loss / microbatches
+        metrics = {k: torch.mean(torch.stack([m[k] for m in per])) for k in per[0]}
+    grads = unflatten(state.params, grads)
+    ef = state.ef
+    if ef is not None:
+        grads, ef = compression.compress_grads(grads, ef)
+    params, opt, gnorm = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale)
+    metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+    return TrainState(params=params, opt=opt, ef=ef), metrics
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, microbatches: int = 1):
+    """The step with the model and optimizer configs bound."""
+
+    def step(state: TrainState, batch: dict, lr_scale=1.0):
+        return train_step(state, batch, cfg, opt_cfg, lr_scale, microbatches=microbatches)
+
+    return step

@@ -50,6 +50,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.ops", "repro_torch.serving.kvcache",
             "repro_torch.serving.engine", "repro_torch.obs.timeline",
             "repro_torch.launch.serve"} <= set(MODULES)
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.optim.schedule", "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+            "repro_torch.tree"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():
@@ -207,3 +211,28 @@ def test_cpu_slice4_paths_launch_no_kernel():
     da.decode_attention(torch.ones((1, 4, 16)), torch.ones((1, 2, 8, 16)), torch.ones((1, 2, 8, 16)),
                         torch.tensor([5]))
     assert common.launch_counts() == {k: 0 for k in common.KERNELS}
+
+
+@pytest.mark.parametrize("entry", ["init_train_state", "loop.run", "launch.train"])
+def test_training_entry_points_need_a_card_unless_asked_for_cpu(entry, tmp_path):
+    from repro_torch.configs import reduced
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop, step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = reduced("qwen2.5-3b")
+    make = {
+        "init_train_state": lambda **kw: step.init_train_state(0, cfg, **kw).params["embed"],
+        "loop.run": lambda **kw: loop.run(cfg, loop.LoopConfig(steps=1, batch=2, seq=8), **kw),
+        "launch.train": lambda **kw: launch_train.main(
+            ["--steps", "1", "--batch", "2", "--seq", "8"]
+            + (["--device", kw["device"]] if kw else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    out = make(device="cpu")
+    if entry == "init_train_state":
+        assert out.device.type == "cpu" and out.requires_grad
+    else:
+        assert len(out["losses"]) == 1

@@ -105,6 +105,15 @@ Run from the root of the repository.  Phases, one JSON line each:
    insertion methods scan, tile (K1) and mxu (K2): per wave insert and
    resize ms, allocated over live and copied bytes; contents checked.
    ``lfvector``: one LFVector (b0 2048) pushed to 2^22 elements.
+4a. the paper's §VI demo (``configs/ggarray_demo.py``) through the
+   ``two_phase`` example's twin (``repro_torch.examples.two_phase``), for
+   32 and 512 blocks: 1e6 f32 elements doubled 10 times to 1.024e9, B0 =
+   64 a block, grown by K3 (``method="auto"``), frozen by K7, the +1 × 30
+   work kernel; copied bytes 0,
+   capacity within 2n + B0·blocks, a steady wave with no host sync; grow,
+   freeze and work ms, K3 and K7 launches (``demo.two_phase`` lines).
+   Again with int32 lane ids (f32 holds integers exactly only to 2^24):
+   the whole frozen array held to the insertion order on the device.
 5. arena paths — ``TwoPhasePipeline.from_arena(SlabArena(512, 2048,
    grow_chunk="doubling"))`` grown by the same eight waves, frozen, read and
    checked; every 4th array released and one more wave grown into the freed
@@ -157,6 +166,21 @@ Run from the root of the repository.  Phases, one JSON line each:
    tokens and prefill chunks as planned, copy-on-write copies, refcounts
    checked; ``serve.prefix.doubling`` a quarter of it over extents (K11),
    no pool byte copied.  Every steady decode step under the sync check.
+6d. a one-rank device mesh (``dist.init``): a process group of one rank
+   (NCCL, over a file store in a temporary directory) and
+   ``launch.mesh.make_host_mesh(1, 1)`` on the card; its phases ride on
+   the models of 6b and 6c.  ``dist.serve.moe``: serve.moe's dbrx and
+   prompts under the mesh, plain tensors through ``_moe_sharded`` (groups
+   of one; K2 inside), 16 new tokens identical to serve.moe's first 16,
+   the prefill's logits bitwise; then unmeshed and meshed runs in turns,
+   each turn's median step ms.  ``dist.train.moe``: train.moe's llama4
+   layer under ``"mxu"`` with its parameters and moments wrapped as
+   DTensors (no copy), ``grad_specs = param_specs(...)``, the routing in a
+   ``local_map`` region: losses, grad norms and parameters bitwise the
+   unmeshed runs', and the peak of one unmeshed step with the backward on
+   the calling thread.  ``dist.resume``: train.resume's checkpoint restored
+   with ``shardings`` onto the mesh, bitwise, and one step on it bitwise a
+   plain step.  Each result that is not bitwise stops the run.
 6b. the remaining model families, full width, random bf16 weights.
    ``moe.route``: one dbrx-132b MoE layer (d_model 6144, 16 experts, top-4,
    d_ff_expert 10752) on 4 x 1792 tokens under the insertion methods
@@ -234,6 +258,7 @@ Run from the root of the repository.  Phases, one JSON line each:
    at the main shape with and without counters).
 9. the last line: ``{"ok": true, "device": {...}}``.
 
+Each phase's line carries ``t_s``, the seconds since the script started.
 Launch counts are zeroed just before each path and read just after it; a
 kernel of a path that never launched fails the run.  Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout of the repository, it prints no result and
@@ -338,9 +363,14 @@ LF_B0, LF_PUSHES = 2048, [2048 << w for w in range(11)] + [2048]
 OBS_NEW = 32
 OBS_ORDER = ("plain", "counted", "counted", "plain")
 DEV = "cuda"
+T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds since
+    the script started, so the lines show where a run's time went."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -535,22 +565,38 @@ def kernel_phase(card: str, gen) -> dict:
     n_live = int(final_sizes.sum().item())
     k7_bound = bound_ms(4 * n_live + 8 * NBLOCKS + plane_bytes,
                         NBLOCKS * cap * (NBLOCKS.bit_length()), card)
+    # K7's function as one library call: torch.cat of the blocks' live
+    # segments (the views made outside the timed call), in a CUDA graph
+    host_sizes = final_sizes.tolist()
+    segs = [compact[b, :n_b] for b, n_b in enumerate(host_sizes)]
+    note("segmented_gather", [(torch.cat(segs), k_fl.segmented_gather_cuda(compact, starts, ends)[:n_live])])
     timing["segmented_gather"] = dict(
         ms=cuda_ms(lambda: k_fl.segmented_gather_cuda(compact, starts, ends), 10),
         plain_ms=cuda_ms(lambda: r_fl.gather_global(compact, starts, ends), 2),
-        library_ms=None,
+        library_ms=graph_ms(lambda: torch.cat(segs), 10),
         bound=k7_bound,
         shape=f"plane ({NBLOCKS}, {cap}) f32, {n_live} live",
     )
+    # the levels form's library call: torch.cat of each block's level views
+    level_segs = []
+    for b, n_b in enumerate(host_sizes):
+        for w, lev in zip(indexing.bucket_sizes(B0, n_lev), written):
+            if n_b <= 0:
+                break
+            level_segs.append(lev[b, :min(w, n_b)])
+            n_b -= w
+    note("segmented_gather", [(torch.cat(level_segs),
+                               k_fl.segmented_gather_levels_cuda(written, B0, starts, ends)[:n_live])])
     # K7's levels form: the GGArray freeze, beside the K6 + K7 it replaces
     levels_ms = cuda_ms(lambda: k_fl.segmented_gather_levels_cuda(written, B0, starts, ends), 10)
     emit({"phase": "kernel.levels", "name": "segmented_gather", "card": card, "ms": levels_ms,
           "plain_ms": cuda_ms(lambda: r_fl.gather_levels(written, B0, starts, ends), 2),
           "k6_then_k7_ms": cuda_ms(lambda: k_fl.segmented_gather_cuda(
               k_fl.compact_blocks_cuda(written, B0), starts, ends), 10),
+          "library_ms": graph_ms(lambda: torch.cat(level_segs), 10), "library": "torch.cat of the level views",
           "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
           "shape": f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32, {n_live} live -> ({NBLOCKS * cap},)"})
-    del compact, written
+    del compact, written, segs, level_segs
     # K1 at the largest wave of the main path's tile run (one eighth size).
     x = (torch.rand((NBLOCKS, m_last // 8), generator=gen, device=dev) < 0.9).to(torch.int32)
     note("row_scan", [(k_st.row_scan_cuda(x), r_st.row_scan(x))])
@@ -4003,7 +4049,7 @@ def forward_rel(what: str, cfg, params, out, last_logits, **kw) -> float:
     return rel
 
 
-def serve_moe_paths(card: str, seed: int, lens, res: dict) -> dict:
+def serve_moe_paths(card: str, seed: int, lens, res: dict, mesh=None) -> dict:
     """moe.route, then serve.moe: dbrx-132b at full width, 8 layers,
     ``insertion_method="mxu"``: Engine(ggarray) on serve.engine's prompt
     lengths with 320 new tokens (one growth), BatchEngine over doubling
@@ -4021,6 +4067,8 @@ def serve_moe_paths(card: str, seed: int, lens, res: dict) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
     eng = family_engine(card, "serve.moe.engine", cfg, params, prompts, SERVE_NEW, res)
     check(eng["fields"]["grow_events"] >= 1, "serve.moe: the cache never grew")
+    if mesh is not None:
+        runs["dist.serve.moe"] = dist_serve_moe(card, cfg, params, prompts, eng, mesh)
     emit({"phase": "serve.moe.engine", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
           "param_bytes": nbytes, "init_s": init_s, **eng["fields"], "ok": True})
     runs["moe.engine"] = eng["launches"]
@@ -4222,12 +4270,13 @@ def serve_prompted_path(card: str, seed: int, what: str, arch: str, run_fn, new:
     return launches
 
 
-def family_paths(card: str, seed: int, lens, res: dict) -> dict:
-    """Every slice-10 path, launch counts zeroed before each run and read
-    after → the counts summed over the runs."""
+def family_paths(card: str, seed: int, lens, res: dict, mesh=None) -> dict:
+    """Every slice-10 path (and, with ``mesh``, dist.serve.moe), launch
+    counts zeroed before each run and read after → the counts summed over
+    the runs."""
     import torch
 
-    runs = serve_moe_paths(card, seed, lens, res)
+    runs = serve_moe_paths(card, seed, lens, res, mesh)
     runs.update(serve_hybrid_paths(card, seed, res))
     runs.update(serve_ssm_path(card, seed, res))
     runs["encdec"] = serve_prompted_path(card, seed + 800, "serve.encdec", ENCDEC_ARCH, encdec_run,
@@ -4326,9 +4375,10 @@ def state_bytes(state) -> dict:
     return {"params": p, "grads": p, "moments": m, "total": 2 * p + m}
 
 
-def timed_steps(state, cfg, batches, opt, sync_step: int | None = None) -> tuple:
-    """``train_step`` once a batch → (state, losses, grad norms, device ms
-    a step by CUDA events); step ``sync_step`` under the sync check."""
+def timed_steps(state, cfg, batches, opt, sync_step: int | None = None, **step_kw) -> tuple:
+    """``train_step`` once a batch (with ``step_kw``) → (state, losses, grad
+    norms, device ms a step by CUDA events); step ``sync_step`` under the
+    sync check."""
     import torch
 
     from repro_torch.train import step as tstep
@@ -4340,16 +4390,23 @@ def timed_steps(state, cfg, batches, opt, sync_step: int | None = None) -> tuple
             torch.cuda.set_sync_debug_mode("error")
         try:
             start.record()
-            state, m = tstep.train_step(state, batch, cfg, opt)
+            state, m = tstep.train_step(state, batch, cfg, opt, **step_kw)
             end.record()
         finally:
             if i == sync_step:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+        losses.append(float(whole(m["loss"])))
+        norms.append(float(whole(m["grad_norm"])))
     return state, losses, norms, ms
+
+
+def whole(t):
+    """A ``DTensor``'s full value (a one-rank mesh: its local tensor); a plain tensor."""
+    from repro_torch.distributed.context import is_dtensor
+
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def profiled(fn, step_ms: float) -> tuple:
@@ -4500,13 +4557,14 @@ def dir_bytes(path) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def train_resume_path(card: str, seed: int) -> dict:
+def train_resume_path(card: str, seed: int, mesh=None) -> dict:
     """train.resume: the fault-tolerant loop at full width, 2 layers, under
     deterministic algorithms: a crash at step 5, then a restart from the
     step-3 checkpoint, gives the uninterrupted run's losses bitwise, with
     blocking and with async checkpoints; checkpoint write and restore
     timed; the restored parameters served by Engine under ggarray and
-    static, the same tokens → launch counts."""
+    static, the same tokens; with ``mesh``, dist.resume on the blocking
+    run's checkpoint → launch counts by path."""
     import dataclasses
     import shutil
 
@@ -4581,7 +4639,9 @@ def train_resume_path(card: str, seed: int) -> dict:
     line["async_roundtrip_mismatches"] = sum(compare(a.detach(), b.detach())[0]
                                              for a, b in zip(leaves(again), leaves(restored)))
     del again
-    shutil.rmtree(root, ignore_errors=True)
+    for sub in root.iterdir():  # dist.resume restores the blocking run's checkpoint
+        if mesh is None or sub.name != "sync":
+            shutil.rmtree(sub, ignore_errors=True)
     # serve the restored parameters (which require grad) under two policies
     rng = np.random.default_rng(seed + 1350)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37, 250)]
@@ -4598,8 +4658,12 @@ def train_resume_path(card: str, seed: int) -> dict:
     check(line["ok"], f"train.resume: served identical {line['served_identical']}, "
                       f"async round trip {line['async_roundtrip_mismatches']}")
     del restored
+    out = {"train.resume": common.launch_counts()}
     torch.cuda.empty_cache()
-    return common.launch_counts()
+    if mesh is not None:
+        out["dist.resume"] = dist_resume_path(card, seed, cfg, d, last, mesh)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def zipf_batch(cfg, batch: int, seq: int, seed: int, step: int) -> dict:
@@ -4635,11 +4699,12 @@ def moe_drops(cfg, params, batch) -> tuple[int, int, int]:
         return int((slot < 0).sum().item()), C, slot.numel()
 
 
-def train_moe_path(card: str, seed: int) -> dict:
+def train_moe_path(card: str, seed: int, mesh=None) -> dict:
     """train.moe: llama4 (1 layer, full width) trained a few steps under
     ``scan``, ``tile`` (K1) and ``mxu`` (K2) from one seed, under
     deterministic algorithms: losses, grad norms and final parameters
-    bitwise equal across the methods → launch counts."""
+    bitwise equal across the methods; with ``mesh``, dist.train.moe against
+    them → launch counts by path."""
     import dataclasses
     import gc
 
@@ -4698,6 +4763,10 @@ def train_moe_path(card: str, seed: int) -> dict:
             del state, params, batches
     finally:
         torch.use_deterministic_algorithms(False)
+    out = {"train.moe": total}
+    if mesh is not None:
+        out["dist.train.moe"] = dist_train_moe(card, seed, base,
+                                               dict(first, median_step_ms=runs["mxu"]["median_step_ms"]), mesh)
     del first
     gc.collect()
     torch.cuda.empty_cache()
@@ -4710,7 +4779,7 @@ def train_moe_path(card: str, seed: int) -> dict:
     check(runs["tile"]["launches"].get("row_scan", 0) >= 1, "kernel row_scan never launched on train.moe")
     check(runs["mxu"]["launches"].get("row_scan_mxu", 0) >= 1,
           "kernel row_scan_mxu never launched on train.moe")
-    return total
+    return out
 
 
 def train_card_cpu_path(card: str, seed: int) -> dict:
@@ -4767,9 +4836,10 @@ def train_card_cpu_path(card: str, seed: int) -> dict:
     return launches
 
 
-def train_paths(card: str, seed: int) -> dict:
-    """Every slice-12 path, launch counts zeroed before each and read after
-    → the counts summed over the paths."""
+def train_paths(card: str, seed: int, mesh=None) -> dict:
+    """Every slice-12 path (and, with ``mesh``, dist.train.moe and
+    dist.resume), launch counts zeroed before each and read after → the
+    counts summed over the paths."""
     import gc
 
     import torch
@@ -4780,12 +4850,410 @@ def train_paths(card: str, seed: int) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    runs["train.resume"] = train_resume_path(card, seed)
-    runs["train.moe"] = train_moe_path(card, seed)
+    runs.update(train_resume_path(card, seed, mesh))
+    runs.update(train_moe_path(card, seed, mesh))
     runs["train.card_cpu"] = train_card_cpu_path(card, seed)
     emit({"phase": "train.launches", "card": card,
           "launches": {k: {n: v for n, v in c.items() if v} for k, c in runs.items()}})
     return {k: sum(c[k] for c in runs.values()) for k in KERNELS}
+
+
+# --------------------------------------------------------------------------
+# Phase 4a: the paper's §VI demo (configs/ggarray_demo.py) through the
+# two_phase example's twin.  Phase 6d: sharding on a one-rank device mesh.
+# --------------------------------------------------------------------------
+
+# demo.two_phase: a wave this wide a block after the demo's regrow, which
+# must fit the capacity with no planner host sync and no device read.
+DEMO_STEADY_M = 64
+# dist.serve.moe: new tokens of the meshed Engine run (its tokens are held to
+# the first DIST_NEW of serve.moe's unmeshed run, greedy); the stop for a
+# result that is not bitwise (relative L2).
+DIST_NEW, DIST_STOP = 16, 1e-6
+DIST_TURNS = ("unmeshed", "meshed", "meshed", "unmeshed")  # Engine runs timed in turns
+
+
+def demo_order_check(pipe, nblocks: int, sizes, work: int) -> dict:
+    """On the device: the frozen int32 array holds, block after block, the
+    block's lane ids wave after wave, each plus ``work``; zeros past n; the
+    block starts the prefix of the per-block counts."""
+    import torch
+
+    frozen = pipe.frozen
+    data = frozen.data
+    waves, base = [], 0
+    for size in sizes:
+        m = -(-size // nblocks)
+        waves.append((base, m, size))
+        base += nblocks * m
+    counts = [sum(max(0, min(m, size - b * m)) for _, m, size in waves) for b in range(nblocks)]
+    n = sum(counts)
+    starts, acc = [], 0
+    for c in counts:
+        starts.append(acc)
+        acc += c
+    bad = torch.zeros((), dtype=torch.int64, device=data.device)
+    for b in range(nblocks):
+        want = torch.cat([base_w + b * m + torch.arange(max(0, min(m, size - b * m)), dtype=torch.int32,
+                                                        device=data.device)
+                          for base_w, m, size in waves]) + work
+        bad += (data[starts[b]:starts[b] + counts[b]] != want).sum()
+    return {"elements": int(frozen.size), "expected": n, "mismatches": int(bad.item()),
+            "tail_nonzero": int(torch.count_nonzero(data[n:]).item()),
+            "block_starts_ok": frozen.block_starts.cpu().tolist() == starts,
+            "frozen_bytes": data.numel() * data.element_size()}
+
+
+def demo_paths(card: str) -> dict:
+    """demo.two_phase: the two_phase twin at GGArrayDemoConfig's scale for
+    each of its block counts — 1e6 f32 elements doubled 10 times to
+    1.024e9, B0 = 64 a block, grown by K3 (``method="auto"``), frozen by K7,
+    the +1 × 30 work kernel; then a
+    steady wave under the sync check.  Again with int32 lane ids (f32 holds
+    integers exactly only to 2^24), the frozen array held to the insertion
+    order on the device → launch counts summed over the runs."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch.configs.ggarray_demo import CONFIG
+    from repro_torch.examples import two_phase
+    from repro_torch.kernels import common
+
+    sizes = two_phase.duplication_sizes(CONFIG.start_size, CONFIG.duplications)
+    total = {k: 0 for k in KERNELS}
+    for nblocks in CONFIG.nblocks_variants:
+        line = {"phase": "demo.two_phase", "card": card, "nblocks": nblocks,
+                "b0_per_block": CONFIG.b0_per_block, "start_size": CONFIG.start_size,
+                "duplications": CONFIG.duplications, "target_elements": sum(sizes),
+                "rw_op_repeats": CONFIG.rw_op_repeats}
+        for what, ids in (("f32", False), ("int32_ids", True)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            order: dict = {}
+            common.reset_launch_counts()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                run = two_phase.main(
+                    nblocks, sizes=sizes, b0=CONFIG.b0_per_block, W=1, repeats=CONFIG.rw_op_repeats,
+                    ids=ids, device=DEV,
+                    check=(lambda p: order.update(demo_order_check(p, nblocks, sizes, CONFIG.rw_op_repeats)))
+                    if ids else None)
+            pipe = run.pop("pipe")
+            syncs = pipe.stats.host_syncs
+            steady = torch.ones((nblocks, DEMO_STEADY_M), dtype=pipe.array.dtype, device=DEV)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pipe.append(steady, method="auto")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            launches = common.launch_counts()
+            for k, v in launches.items():
+                total[k] += v
+            levels_bytes = sum(t.numel() * t.element_size() for t in pipe.array.buckets)
+            entry = {k: run[k] for k in ("elements", "waves", "grow_events", "capacity", "copied_bytes",
+                                         "bound_ok", "host_syncs")}
+            entry.update(grow_ms=run["grow_s"] * 1e3, freeze_ms=run["freeze_s"] * 1e3,
+                         work_ms=run["work_s"] * 1e3, bound_elems=2 * run["elements"] + CONFIG.b0_per_block * nblocks,
+                         levels_bytes=levels_bytes, steady_wave_host_syncs=pipe.stats.host_syncs - syncs,
+                         peak_device_bytes=torch.cuda.max_memory_allocated(),
+                         launches={k: v for k, v in launches.items() if v},
+                         printed=printed.getvalue().splitlines())
+            if ids:
+                entry["order"] = order
+            line[what] = entry
+            del pipe, steady, run
+            check(entry["elements"] == sum(sizes), f"demo.two_phase {nblocks} {what}: {entry['elements']} elements")
+            check(entry["copied_bytes"] == 0 and entry["bound_ok"],
+                  f"demo.two_phase {nblocks} {what}: copied {entry['copied_bytes']}, bound {entry['bound_ok']}")
+            check(entry["steady_wave_host_syncs"] == 0, f"demo.two_phase {nblocks} {what}: a steady wave synced")
+            check(launches["push_back"] >= 1 and launches["segmented_gather"] >= 1,
+                  f"demo.two_phase {nblocks} {what}: K3 or K7 never launched")
+            if ids:
+                check(order.get("mismatches") == 0 and order["tail_nonzero"] == 0 and order["block_starts_ok"]
+                      and order["elements"] == order["expected"],
+                      f"demo.two_phase {nblocks}: the frozen array is out of order: {order}")
+        line["ok"] = True
+        emit(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+class CountCalls:
+    """Count the calls of ``module.name`` inside the ``with`` block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig, self.calls = module, name, getattr(module, name), 0
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            self.calls += 1
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def dist_init(card: str):
+    """A one-rank process group (NCCL on the card) over a file store in a
+    temporary directory, and ``make_host_mesh(1, 1)`` on it → (mesh, the
+    store's directory)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
+    mesh = make_host_mesh(1, 1, device=DEV)
+    emit({"phase": "dist.init", "card": card, "backend": backend, "world_size": dist.get_world_size(),
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "device_type": mesh.device_type})
+    return mesh, store
+
+
+def dist_close(store: str) -> None:
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+
+
+def on_mesh(tree, cfg, mesh):
+    """Plain parameters (or a tree shaped like them) → ``DTensor``s in the
+    rule layout on a one-rank mesh, sharing their storage: the whole tensor
+    is rank 0's shard (``DTensor.from_local``), so no copy is made."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.tree import tree_map
+
+    def wrap(p, s):
+        return DTensor.from_local(p.detach(), mesh, s.placements, run_check=False).requires_grad_(
+            p.requires_grad)
+
+    return tree_map(wrap, tree, sh.param_shardings(tree, cfg, mesh))
+
+
+def same_or_rel(a, b, V: int) -> dict:
+    """Bitwise, or the relative L2 of two logits blocks."""
+    mism = compare(a, b)[0]
+    return {"bitwise": mism == 0, "mismatches": mism, "rel_l2": 0.0 if mism == 0 else rel_logits(a, b, V)}
+
+
+def dist_serve_moe(card: str, cfg, params, prompts, unmeshed: dict, mesh) -> dict:
+    """dist.serve.moe: serve.moe's dbrx, parameters and prompts, under the
+    mesh: the prefill's logits, then Engine(ggarray) for DIST_NEW tokens,
+    each decode step timed under the sync check, through ``_moe_sharded``
+    (plain tensors on one rank, groups of one) → launch counts.  Tokens identical to serve.moe's first DIST_NEW, first-step
+    logits bitwise (else within DIST_STOP relative L2).  Then unmeshed and
+    meshed Engine runs in the turns DIST_TURNS, for the mesh's cost a step."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.kernels import common
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import steps
+    from repro_torch.serving.engine import Engine
+
+    common.reset_launch_counts()
+    # the prefill first: it also makes the groups' communicators, so the
+    # decode steps after it run under the sync check
+    with CountCalls(moe_mod, "_moe_sharded") as sharded, activation_mesh(mesh):
+        logits, caches, prefill_s, ttft_s = timed_prefill(params, cfg, prompts)
+        del caches
+        with StepTimer(steps, "decode_step") as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = Engine(params, cfg, device=DEV).generate(prompts, DIST_NEW)
+            wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    step_ms = timer.step_ms()
+    same = all(o == r[:len(p) + DIST_NEW] for o, r, p in zip(out, unmeshed["out"], prompts))
+    got = same_or_rel(logits.float(), unmeshed["logits"], cfg.vocab_size)
+    # the mesh's cost in a decode step: unmeshed and meshed Engine runs in turns
+    turns = []
+    for turn in DIST_TURNS:
+        with StepTimer(steps, "decode_step") as t, (activation_mesh(mesh) if turn == "meshed"
+                                                    else contextlib.nullcontext()):
+            Engine(params, cfg, device=DEV).generate(prompts, DIST_NEW)
+        turns.append(t.step_ms()[len(t.step_ms()) // 2])
+    mean = {k: float(np.mean([m for m, t in zip(turns, DIST_TURNS) if t == k])) for k in set(DIST_TURNS)}
+    line = {"phase": "dist.serve.moe", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "new_tokens": DIST_NEW,
+            "moe_sharded_calls": sharded.calls, "tokens_identical": same, "prefill_logits": got,
+            "prefill_s": prefill_s, "generate_s": wall, "decode_steps": len(step_ms),
+            "decode_step_ms_median": step_ms[len(step_ms) // 2],
+            "unmeshed_decode_step_ms_median": unmeshed["fields"]["decode_step_ms_median"],
+            "turns": list(DIST_TURNS), "turn_decode_step_ms_median": turns,
+            "meshed_over_unmeshed": mean["meshed"] / mean["unmeshed"],
+            "launches": {k: v for k, v in launches.items() if v}}
+    line["ok"] = same and got["rel_l2"] <= DIST_STOP and sharded.calls >= cfg.n_layers
+    emit(line)
+    check(line["ok"], f"dist.serve.moe: {line}")
+    check(launches["row_scan_mxu"] >= 1, "kernel row_scan_mxu never launched on dist.serve.moe")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_resume_path(card: str, seed: int, cfg, d: str, step: int, mesh) -> dict:
+    """dist.resume: train.resume's two-layer checkpoint restored with
+    ``shardings`` onto the mesh, bitwise the plain restore; then one step
+    on each (meshed with ``grad_specs``) from the same batch: losses and
+    parameters bitwise → launch counts."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.kernels import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    common.reset_launch_counts()
+    like = tstep.init_train_state(seed + 7, cfg, device=DEV)
+    ps = sh.param_shardings(like.params, cfg, mesh)
+    shardings = tstep.TrainState(params=ps, opt=adamw.AdamWState(
+        step=sh.NamedSharding(mesh, sh.P()), m=ps, v=ps), ef=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meshed, meta = ckpt.restore(d, step, like, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    plain, _ = ckpt.restore(d, step, like)
+    del like
+    mism = sum(compare(whole(a).detach(), b.detach())[0] for a, b in zip(leaves(meshed), leaves(plain)))
+    kinds = sorted({type(t).__name__ for t in leaves(meshed)})
+    batch = make_batch(cfg, RESUME_BATCH, RESUME_SEQ, seed=seed, step=step, device=DEV)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, pm = tstep.train_step(plain, batch, cfg, opt)
+        with activation_mesh(mesh):
+            meshed, mm = tstep.train_step(meshed, batch, cfg, opt,
+                                          grad_specs=sh.param_specs(plain.params, cfg, mesh))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_same = float(whole(mm["loss"])) == float(pm["loss"])
+    step_mism = sum(compare(whole(a).detach(), b.detach())[0]
+                    for a, b in zip(leaves(meshed.params), leaves(plain.params)))
+    launches = common.launch_counts()
+    line = {"phase": "dist.resume", "card": card, "arch": cfg.name, "layers": cfg.n_layers, "step": step,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "metadata": meta, "restore_s": restore_s,
+            "leaf_types": kinds, "restore_mismatches": mism, "step_loss": [float(whole(mm["loss"])), float(pm["loss"])],
+            "step_loss_bitwise": loss_same, "step_param_mismatches": step_mism,
+            "launches": {k: v for k, v in launches.items() if v}}
+    line["ok"] = mism == 0 and kinds == ["DTensor"] and loss_same and step_mism == 0
+    emit(line)
+    check(line["ok"], f"dist.resume: {line}")
+    del meshed, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_train_moe(card: str, seed: int, base, first: dict, mesh) -> dict:
+    """dist.train.moe: train.moe's llama4 layer under ``"mxu"`` (K2 inside
+    the ``local_map`` region) on the mesh, the parameters and moments
+    wrapped as DTensors (no copy), ``grad_specs = param_specs(...)``, the
+    same Zipf batches: losses, grad norms and parameters bitwise the
+    unmeshed runs'.  Then one unmeshed step with the backward on the
+    calling thread, for its peak → launch counts."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.context import activation_mesh, placements
+    from repro_torch.kernels import common
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(base, insertion_method="mxu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = tstep.init_train_state(seed + 1400, cfg, device=DEV)
+    state = tstep.TrainState(
+        params=on_mesh(state.params, cfg, mesh),
+        opt=adamw.AdamWState(step=state.opt.step, m=on_mesh(state.opt.m, cfg, mesh),
+                             v=on_mesh(state.opt.v, cfg, mesh)), ef=None)
+    bspec = placements(sh.batch_specs(cfg, mesh, MOE_TRAIN_BATCH)["tokens"], mesh)
+    batches = [{"tokens": DTensor.from_local(zipf_batch(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed, i)["tokens"],
+                                             mesh, bspec, run_check=False)}
+               for i in range(MOE_TRAIN_STEPS)]
+    specs = sh.param_specs(state.params, cfg, mesh)
+    common.reset_launch_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with CountCalls(moe_mod, "_moe_sharded") as sharded, activation_mesh(mesh):
+            state, losses, norms, ms = timed_steps(state, cfg, batches, adamw.AdamWConfig(lr=TRAIN_LR),
+                                                   grad_specs=specs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mism = sum(compare(whole(p).detach(), r.to(DEV))[0] for p, r in zip(leaves(state.params), first["params"]))
+    # the mesh runs the backward on the calling thread: one unmeshed step
+    # from the same state with only that, for its peak
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = tstep.init_train_state(seed + 1400, cfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.autograd.set_multithreading_enabled(False):
+            plain, st_losses, _, st_ms = timed_steps(plain, cfg, [zipf_batch(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                                                             seed, 0)],
+                                                     adamw.AdamWConfig(lr=TRAIN_LR))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    single_thread = {"peak_device_bytes": torch.cuda.max_memory_allocated(), "step_ms": st_ms[0],
+                     "loss_bitwise": st_losses[0] == first["losses"][0]}
+    del plain
+    line = {"phase": "dist.train.moe", "card": card, "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "batch": [MOE_TRAIN_BATCH, MOE_TRAIN_SEQ],
+            "steps": MOE_TRAIN_STEPS, "insertion_method": "mxu", "grad_specs": "param_specs",
+            "moe_sharded_calls": sharded.calls, "losses": losses, "grad_norms": norms, "step_ms": ms,
+            "median_step_ms": float(np.median(ms[1:])), "unmeshed_median_step_ms": first["median_step_ms"],
+            "losses_bitwise": losses == first["losses"], "grad_norms_bitwise": norms == first["norms"],
+            "param_mismatches": mism, "peak_device_bytes": peak,
+            "unmeshed_single_thread_backward": single_thread,
+            "launches": {k: v for k, v in launches.items() if v}}
+    line["ok"] = (line["losses_bitwise"] and line["grad_norms_bitwise"] and mism == 0
+                  and sharded.calls >= MOE_TRAIN_STEPS and single_thread["loss_bitwise"])
+    emit(line)
+    check(line["ok"], f"dist.train.moe: meshed against unmeshed {line}")
+    check(launches["row_scan_mxu"] >= 1, "kernel row_scan_mxu never launched on dist.train.moe")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 AB_REPS = 5  # prefills a turn, after a warm-up
@@ -5555,6 +6023,8 @@ def main() -> int:
     # 4. main path
     launches = main_path(card, args.seed)
     torch.cuda.empty_cache()
+    # 4a. the paper's §VI demo through the two_phase twin
+    demo_launches = demo_paths(card)
 
     # 4b. the paper's comparison: main.mxu, baselines, lfvector
     core_launches = slice4_core_paths(card, args.seed)
@@ -5569,13 +6039,17 @@ def main() -> int:
     # 6. the serving paths
     serve_launches, engine_lens = serve_paths(card, args.seed, res)
     torch.cuda.empty_cache()
+    # 6d. a one-rank device mesh: its dist.* phases ride on 6b's and 6c's models
+    mesh, store = dist_init(card)
     # 6b. the remaining model families
-    family_launches = family_paths(card, args.seed, engine_lens, res)
+    family_launches = family_paths(card, args.seed, engine_lens, res, mesh)
     torch.cuda.empty_cache()
     # 6c. training
-    train_launches = train_paths(card, args.seed)
-    launches = {k: launches[k] + core_launches[k] + arena_launches[k] + obs_arena_launches[k]
-                + serve_launches[k] + family_launches[k] + train_launches[k] for k in KERNELS}
+    train_launches = train_paths(card, args.seed, mesh)
+    dist_close(store)
+    launches = {k: launches[k] + demo_launches[k] + core_launches[k] + arena_launches[k]
+                + obs_arena_launches[k] + serve_launches[k] + family_launches[k] + train_launches[k]
+                for k in KERNELS}
     check(launches["counter_plane"] >= 1, "kernel counter_plane never launched on the obs paths")
 
     # 7. the kernels line

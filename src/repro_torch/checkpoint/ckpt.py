@@ -18,6 +18,11 @@ The port updates parameters and moments in place, so ``save_async``
 copies the tree to host memory before it returns (the reference copies in
 its thread, which is safe only because JAX arrays are immutable); the
 thread then only writes files.
+
+The format is shard-agnostic: a ``DTensor`` leaf is saved whole
+(``full_tensor``), and ``restore(..., shardings=...)`` places each leaf for
+the *restoring* mesh, whatever mesh wrote it — the reference's elastic
+reshard.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ import shutil
 import threading
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.context import is_dtensor
 from repro_torch.tree import leaves, paths, unflatten
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending"]
@@ -37,7 +44,10 @@ _PENDING: list[threading.Thread] = []
 
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf → (a numpy copy that owns its memory, the manifest dtype)."""
-    t = leaf.detach().to("cpu", copy=True)
+    leaf = leaf.detach()
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
+    t = leaf.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -68,15 +78,30 @@ def _write(ckpt_dir: str, step: int, snap, metadata: dict | None) -> str:
     return final
 
 
+def _meshed(tree) -> bool:
+    """A tree with ``DTensor`` leaves: every rank gathers it, rank 0 writes."""
+    return any(is_dtensor(leaf) for leaf in leaves(tree))
+
+
 def save(ckpt_dir: str, step: int, tree, *, metadata: dict | None = None) -> str:
-    """Blocking atomic save → the final directory's path."""
-    return _write(ckpt_dir, step, _snapshot(tree), metadata)
+    """Blocking atomic save → the final directory's path.  On a mesh every
+    rank calls it; rank 0 writes and the ranks meet after the write."""
+    snap = _snapshot(tree)
+    if not _meshed(tree):
+        return _write(ckpt_dir, step, snap, metadata)
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, snap, metadata)
+    dist.barrier()
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
 def save_async(ckpt_dir: str, step: int, tree, *, metadata: dict | None = None) -> threading.Thread:
-    """Copy the tree to host now, write it on a worker thread."""
+    """Copy the tree to host now, write it on a worker thread (on a mesh,
+    only rank 0's thread writes)."""
     snap = _snapshot(tree)
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, snap, metadata), daemon=True)
+    write = not _meshed(tree) or dist.get_rank() == 0
+    t = threading.Thread(target=_write if write else lambda *_: None,
+                         args=(ckpt_dir, step, snap, metadata), daemon=True)
     t.start()
     _PENDING.append(t)
     return t
@@ -99,23 +124,32 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _from_host(arr: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor:
+def _from_host(arr: np.ndarray, dtype: str, like: torch.Tensor, sharding=None) -> torch.Tensor:
     if not arr.flags.c_contiguous:
         arr = arr.copy(order="C")
     if dtype == "bfloat16" and arr.dtype.itemsize == 2:  # <u2 (the port) or |V2 (the reference)
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    t = t.to(like.device)
+    if sharding is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        # every rank read the whole leaf: each keeps its shard, no exchange
+        t = distribute_tensor(t.to(sharding.mesh.device_type), sharding.mesh,
+                              sharding.placements, src_data_rank=None)
+    else:
+        t = t.to(like.device)
     if like.requires_grad:
         t.requires_grad_(True)
     return t
 
 
-def restore(ckpt_dir: str, step: int, tree_like):
+def restore(ckpt_dir: str, step: int, tree_like, *, shardings=None):
     """Load step ``step`` into the structure of ``tree_like`` → (tree,
     metadata).  Each leaf is a new tensor on its ``tree_like`` leaf's
-    device, requiring grad where that leaf does."""
+    device, requiring grad where that leaf does; with ``shardings`` (a
+    matching tree of ``distributed.sharding.NamedSharding``, as
+    ``param_shardings`` gives) a ``DTensor`` placed for that mesh."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -125,6 +159,7 @@ def restore(ckpt_dir: str, step: int, tree_like):
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"structure expects {len(like)}"
         )
-    restored = [_from_host(np.load(os.path.join(d, e["file"])), e["dtype"], l)
-                for e, l in zip(manifest["leaves"], like)]
+    shard = [None] * len(like) if shardings is None else leaves(shardings)
+    restored = [_from_host(np.load(os.path.join(d, e["file"])), e["dtype"], l, s)
+                for e, l, s in zip(manifest["leaves"], like, shard)]
     return unflatten(tree_like, restored), manifest["metadata"]

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain
 from repro_torch.models.modules import Param, apply_rope, dense_init, rms_norm, rope
 
 __all__ = [
@@ -100,6 +101,10 @@ def _blockwise_attention(q, k, v, *, group, causal, chunk, q_offset=0):
     k, v = _pad_seq(k, pad), _pad_seq(v, pad)
     n_chunks = k.shape[1] // chunk
     qr = q.reshape(B, Sq, KH, group, Dh).to(_F32) * (Dh ** -0.5)
+    # q stays seq-sharded; each KV chunk is small and streamed per step
+    qr = constrain(qr, ("batch", "seq", None, None, None))
+    kc = constrain(k.reshape(B, n_chunks, chunk, KH, Dh).movedim(1, 0), (None, "batch", None, None, None))
+    vc = constrain(v.reshape(B, n_chunks, chunk, KH, Dh).movedim(1, 0), (None, "batch", None, None, None))
     dev = q.device
     qpos = q_offset + torch.arange(Sq, device=dev)
     state = _state0(B, Sq, KH, group, Dh, dev)
@@ -111,8 +116,7 @@ def _blockwise_attention(q, k, v, *, group, causal, chunk, q_offset=0):
             live = live[None, :, None, None, :]
         else:
             live = live[None, None, None, None, :]
-        state = softmax_update(state, qr, k[:, ci * chunk:(ci + 1) * chunk],
-                        v[:, ci * chunk:(ci + 1) * chunk], live)
+        state = softmax_update(state, qr, kc[ci], vc[ci], live)
     out = state.acc / torch.clamp(state.l[..., None], min=1e-30)
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
@@ -261,8 +265,11 @@ def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(p: Param, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """x: (B, S, D) → q (B,S,H,Dh), k,v (B,S,KH,Dh) with bias/qk-norm/rope."""
-    q, k, v = project_heads(x, p["wq"]), project_heads(x, p["wk"]), project_heads(x, p["wv"])
+    """x: (B, S, D) → q (B,S,H,Dh), k,v (B,S,KH,Dh) with bias/qk-norm/rope.
+    Head-sharded on a mesh (Megatron TP)."""
+    q = constrain(project_heads(x, p["wq"]), ("batch", None, "heads", None))
+    k = constrain(project_heads(x, p["wk"]), ("batch", None, "kv_heads", None))
+    v = constrain(project_heads(x, p["wv"]), ("batch", None, "kv_heads", None))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:

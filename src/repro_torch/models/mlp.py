@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import constrain
 from repro_torch.models.modules import Param, dense_init
 
 __all__ = ["init_mlp", "mlp_block"]
@@ -34,10 +35,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
 
 
 def mlp_block(p: Param, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The hidden is ff-sharded on a mesh (Megatron TP inside the block)."""
     if activation == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        return (F.silu(constrain(x @ p["w_gate"], ("batch", None, "ff")))
+                * constrain(x @ p["w_up"], ("batch", None, "ff"))) @ p["w_down"]
     if activation == "gelu":
-        h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+        h = F.gelu(constrain(x @ p["w_up"], ("batch", None, "ff")) + p["b_up"], approximate="tanh")
     else:
-        h = F.relu(x @ p["w_up"] + p["b_up"])
+        h = F.relu(constrain(x @ p["w_up"], ("batch", None, "ff")) + p["b_up"])
     return h @ p["w_down"] + p["b_down"]

@@ -8,11 +8,21 @@ exclusive prefix sum over the (experts, tokens·k) assignment matrix,
 computed by ``core.insertion.insertion_offsets`` under
 ``cfg.insertion_method`` (``tile`` is K1, ``mxu`` K2 on a card).
 
-Only the reference's ``_moe_local`` is ported: one global (E·C, D)
-buffer.  ``_moe_sharded`` (``shard_map`` and an ``all_to_all`` over the
-expert axis) needs a mesh, and the reference takes ``_moe_local`` on one
-device too.  The router, the softmax, the expert FFN and the combine are
-plain PyTorch, as the reference leaves them to XLA.
+Two execution paths, chosen as the reference chooses them:
+
+``_moe_local``   — one global (E·C, D) buffer: no mesh, or sizes that do
+    not divide over it.
+``_moe_sharded`` — under a mesh with a ``'model'`` axis: each shard routes
+    its own (B/dp, S/tp) tokens and runs the insertion scan shard-locally
+    (one LFVector set a shard, capacity ``expert_capacity(moe, T_local)``,
+    so a shard drops at its own boundary), builds a local (E, C_local, D)
+    buffer and exchanges expert rows with one ``all_to_all`` over the
+    ``'model'`` group, there and back.  On ``DTensor`` inputs the local
+    block is a ``local_map`` region, PyTorch's ``shard_map``; the kernels
+    see local tensors only.
+
+The router, the softmax, the expert FFN and the combine are plain
+PyTorch, as the reference leaves them to XLA.
 
 Top-k is a stable descending sort: ``jax.lax.top_k``'s order (values
 descending, the lower expert first on a tie), which ``torch.topk`` does not
@@ -27,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import indexing
 from repro_torch.core.insertion import insertion_offsets
+from repro_torch.distributed.context import active_mesh, is_dtensor, mesh_axes, placements
 from repro_torch.kernels.common import put_drop_
 from repro_torch.models.modules import Param, dense_init
 
@@ -119,8 +130,8 @@ def _combine(out_buf: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor, T: i
     return torch.sum(gathered.reshape(T, k, D) * gate[..., None].to(out_buf.dtype), dim=1)
 
 
-def moe_block(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routed expert MLP. x: (B, S, D) → (out, aux_loss f32 scalar)."""
+def _moe_local(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """One global buffer — one device, and shapes that do not divide over a mesh."""
     moe = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -130,3 +141,127 @@ def moe_block(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor
     out = _combine(_expert_ffn(p, buf), slot, gate, T)
     aux = moe.n_experts * torch.sum(density * router_prob) * moe.top_k
     return out.reshape(B, S, D), aux
+
+
+class _MeshMean(torch.autograd.Function):
+    """The reference's ``pmean`` of a result every rank then holds: the sum
+    over ``groups`` (one a mesh dim) over the rank count.  Its cotangent
+    arrives replicated, so each rank's share is it over the count, with no
+    exchange (what ``shard_map`` gives an unmapped output)."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        import torch.distributed as dist
+
+        ctx.n = n
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` in equal parts over ``group``: part j of dim 0
+    to rank j, the received parts in rank order.  PyTorch's differentiable
+    form: its backward sends the cotangent back the same way."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+
+def _exchange(t: torch.Tensor, group, tp: int, to_owner: bool) -> torch.Tensor:
+    """The reference's tiled ``all_to_all`` over the ``'model'`` group.
+    ``to_owner``: (E, C, D) → (E/tp, tp·C, D), expert rows to their owner
+    and the peers' rows concatenated in rank order along axis 1; else the
+    inverse, (E/tp, tp·C, D) → (E, C, D)."""
+    if to_owner:  # split axis 0, concat axis 1
+        E, C, D = t.shape
+        got = _all_to_all(t, group)
+        return got.reshape(tp, E // tp, C, D).permute(1, 0, 2, 3).reshape(E // tp, tp * C, D)
+    El, TC, D = t.shape  # split axis 1, concat axis 0
+    send = t.reshape(El, tp, TC // tp, D).permute(1, 0, 2, 3)
+    return _all_to_all(send, group).reshape(tp * El, TC // tp, D)
+
+
+def _moe_sharded(p: Param, x: torch.Tensor, cfg: ModelConfig, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local routing and insertion on each shard, ``all_to_all`` over the
+    expert axis.  ``x`` a ``DTensor`` on ``mesh`` (the local block runs under
+    ``local_map``), or a plain tensor on a one-rank mesh (the same block,
+    groups of one)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    moe = cfg.moe
+    B, S, D = x.shape
+    sizes = mesh_axes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    tp = sizes["model"]
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    T_local = (B // dp_size) * (S // tp)
+    C_local = expert_capacity(moe, T_local)
+    names = list(sizes)
+    model_group = mesh.get_group("model")
+    groups = [mesh.get_group(a) for a in names]  # aux: the mean over every mesh axis
+    n = mesh.size()
+
+    def local_block(xl, router, w_gate, w_up, w_down):
+        # xl: (B/dp, S/tp, D) — this shard's tokens (one LFVector set a shard)
+        b, s, _ = xl.shape
+        pl = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        xt = xl.reshape(b * s, D)
+        buf, slot, gate, (density, router_prob) = _route_and_pack(pl, xt, cfg, C_local)
+        # EP exchange: expert rows to their owners, this shard's experts
+        # gathered from every peer → (E/tp, tp·C_local, D), and back
+        out = _exchange(_expert_ffn(pl, _exchange(buf, model_group, tp, True)), model_group, tp,
+                        False)
+        y = _combine(out, slot, gate, b * s)
+        aux = moe.n_experts * moe.top_k * _MeshMean.apply(torch.sum(density * router_prob), groups, n)
+        return y.reshape(b, s, D), aux
+
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if not is_dtensor(x):
+        if mesh.size() != 1:
+            raise NotImplementedError(
+                "MoE on a multi-rank mesh needs DTensor activations; sharded serving with "
+                "plain tensors is ROADMAP item 23")
+        return local_block(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    xplace = placements((dp or None, "model", None), mesh)
+    wplace = placements(("model", None, None), mesh)
+    rep = [Replicate()] * len(names)
+    # a replicated input's gradient is each shard's partial sum, as the
+    # reference's shard_map transposes an unmapped input
+    wgrad = [p_ if p_.is_shard() else Partial() for p_ in wplace]
+    run = local_map(
+        local_block,
+        out_placements=(xplace, rep),
+        in_placements=(xplace, rep, wplace, wplace, wplace),
+        in_grad_placements=(xplace, [Partial()] * len(names), wgrad, wgrad, wgrad),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return run(*args)
+
+
+def moe_block(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed expert MLP. x: (B, S, D) → (out, aux_loss f32 scalar).
+    ``_moe_sharded`` whenever a mesh with a ``'model'`` axis is active and
+    the sizes divide over it, as the reference chooses."""
+    mesh = active_mesh()
+    B, S, _ = x.shape
+    if mesh is not None:
+        sizes = mesh_axes(mesh)
+        if "model" in sizes:
+            tp = sizes["model"]
+            dp = 1
+            for a in ("pod", "data"):
+                dp *= sizes.get(a, 1)
+            if S % tp == 0 and cfg.moe.n_experts % tp == 0 and B % dp == 0:
+                return _moe_sharded(p, x, cfg, mesh)
+    return _moe_local(p, x, cfg)

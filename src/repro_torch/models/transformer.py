@@ -22,12 +22,15 @@ backward.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import activation_mesh, active_mesh, constrain
+from repro_torch.distributed.sharding import constrain_param_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -66,10 +69,17 @@ def unstack_layers(tree: Any, n: int) -> list:
 def run_periods(period, carry: tuple, n: int, remat: bool) -> tuple:
     """``carry = period(i, *carry)`` for i < n; under ``remat`` (and a
     gradient to take) each call is checkpointed, the reference's
-    ``jax.checkpoint(period_body)``."""
+    ``jax.checkpoint(period_body)``; its recompute runs under the mesh the
+    forward ran under."""
     remat = remat and torch.is_grad_enabled()
+    mesh = active_mesh()
+
+    def contexts():
+        return contextlib.nullcontext(), activation_mesh(mesh)
+
     for i in range(n):
-        carry = checkpoint(period, i, *carry, use_reentrant=False) if remat else period(i, *carry)
+        carry = (checkpoint(period, i, *carry, use_reentrant=False, context_fn=contexts)
+                 if remat else period(i, *carry))
     return carry
 
 
@@ -125,15 +135,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Param:
 
 def _apply_slot(sp: Param, x: torch.Tensor, kind: str, slot: int, cfg: ModelConfig,
                 positions: torch.Tensor, memory_kv) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One layer → (x, its MoE aux loss or None)."""
-    h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+    """One layer → (x, its MoE aux loss or None).  Each norm output is
+    constrained, so a mesh's sequence gather moves the norm's output dtype."""
+    h = constrain(rms_norm(x, sp["norm1"], cfg.norm_eps), ("batch", "seq", None))
     if kind == "mamba":
         return x + ssm_mod.mamba_block(sp["mamba"], h, cfg), None
     x = x + attn_mod.attention_block(sp["attn"], h, cfg, positions)
     if memory_kv is not None:
-        h = rms_norm(x, sp["cross_norm"], cfg.norm_eps)
+        h = constrain(rms_norm(x, sp["cross_norm"], cfg.norm_eps), ("batch", "seq", None))
         x = x + attn_mod.attention_block(sp["cross"], h, cfg, positions, kv=memory_kv)
-    h = rms_norm(x, sp["norm2"], cfg.norm_eps)
+    h = constrain(rms_norm(x, sp["norm2"], cfg.norm_eps), ("batch", "seq", None))
     if cfg.is_moe_layer(slot):
         out, aux = moe_mod.moe_block(sp["moe"], h, cfg)
         return x + out, aux
@@ -158,13 +169,18 @@ def forward(
     x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, ("batch", "seq", None))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     periods = [unstack_layers(slot_tree, cfg.n_periods) for slot_tree in params["layers"]]
 
     def period(i: int, x: torch.Tensor, aux: torch.Tensor):
+        # DP batch and sequence-parallel residual stream at every period
+        # boundary; the period's sliced params pinned to their rule layout
+        x = constrain(x, ("batch", "seq", None))
+        pp = constrain_param_tree([periods[slot][i] for slot in range(len(cfg.layout))], cfg)
         for slot, kind in enumerate(cfg.layout):
-            sp = periods[slot][i]
+            sp = pp[slot]
             mkv = None
             if memory is not None and kind == "attn":
                 mkv = (attn_mod.project_heads(memory, sp["cross"]["wk"]),
@@ -178,7 +194,7 @@ def forward(
     x, aux = run_periods(period, (x, aux), cfg.n_periods, cfg.remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed(x, table)
+    logits = constrain(unembed(x, table), ("batch", None, "vocab"))
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding columns
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(live, logits, -1e30)

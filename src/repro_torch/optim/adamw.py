@@ -12,6 +12,12 @@ moments at once.  Elementwise arithmetic does not depend on the slicing, so
 the values are the reference's.  ``update`` returns the same parameter and
 moment trees it was given, and ``global_norm`` stays on the device: a step
 makes no host sync.
+
+On a mesh (``DTensor`` leaves) the moments take their parameter's layout,
+each gradient is redistributed to it, and the update runs on the local
+shards (it is elementwise); a shard's sum of squares is reduced over the
+mesh dims that shard its leaf.  On a one-rank mesh the arithmetic is the
+plain tensors' exactly.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.context import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "AdamWState", "init", "update", "global_norm", "CHUNK"]
@@ -45,6 +52,8 @@ class AdamWState(NamedTuple):
 
 def init(params) -> AdamWState:
     def zeros32(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=_F32, requires_grad=False)
         return torch.zeros(p.shape, dtype=_F32, device=p.device)
 
     dev = leaves(params)[0].device
@@ -57,7 +66,14 @@ def _slices(n: int):
 
 
 def _sumsq(x: torch.Tensor) -> torch.Tensor:
-    """sum(x²) in f32, a slice at a time."""
+    """sum(x²) in f32, a slice at a time; of a ``DTensor``, the local
+    shard's, summed over the mesh dims that shard it."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        local = _sumsq(x.to_local())
+        over = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+        return DTensor.from_local(local, x.device_mesh, over).full_tensor()
     flat = x.detach().reshape(-1)
     return sum((torch.sum(torch.square(flat[s].to(_F32))) for s in _slices(flat.numel())),
                torch.zeros((), dtype=_F32, device=x.device))
@@ -88,10 +104,19 @@ def _update_slice(p, g, m, v, scale, bc1, bc2, lr, cfg: AdamWConfig) -> None:
     p.copy_(g32)  # back to the parameter dtype
 
 
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient in its parameter's layout (a pending sum
+    reduced); a plain one unchanged."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step, in place → (params, new state, grad_norm): the same
     ``params``, ``state.m`` and ``state.v`` trees, updated; a new step."""
     with torch.no_grad():
+        grads = tree_map(_like, grads, params)
         gnorm = global_norm(grads)
         denom = torch.clamp(gnorm, min=1e-9)
         scale = torch.clamp(torch.full_like(denom, cfg.grad_clip) / denom, max=1.0)
@@ -100,6 +125,8 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr_scale=1.0):
         bc2 = 1 - cfg.b2 ** step.to(_F32)
         lr = cfg.lr * lr_scale
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v)):
+            if is_dtensor(p):  # elementwise: the local shards, all four laid out alike
+                p, g, m, v = (t.to_local() for t in (p, g, m, v))
             pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
             for s in _slices(pf.numel()):
                 _update_slice(pf[s], gf[s], mf[s], vf[s], scale, bc1, bc2, lr, cfg)

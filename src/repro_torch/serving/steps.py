@@ -8,8 +8,8 @@ and writes each period's cache views in place (``kvcache.period_view``).
 An attention slot's cache is a KV cache (plus ``cross_k``/``cross_v``, the
 encoder's projected memory, in an encoder–decoder); a Mamba slot's is its
 recurrent state, ``conv`` (P, B, d_conv-1, ch) and ``ssd`` (P, B, nh, hd,
-n) f32.  ``constrain`` (the reference's sharding annotation) is the
-identity on one card and is dropped.
+n) f32.  ``constrain`` sits where the reference's does: the identity on
+plain tensors (one card), a redistribution on a mesh's ``DTensor``.
 
 With ``cfg.instrument`` each step opens one ``obs.device.tape()`` (the
 reference opens one per scan iteration; PyTorch traces nothing) and returns
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed.context import constrain
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import inner_attention, project_heads, project_out, project_qkv
 from repro_torch.models.mlp import mlp_block
@@ -49,7 +50,7 @@ __all__ = [
 def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed(x, table)
+    logits = constrain(unembed(x, table), ("batch", "vocab"))
     if cfg.padded_vocab != cfg.vocab_size:
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(live, logits, -1e30)
@@ -126,6 +127,7 @@ def prefill(
         caches.append(c)
     with _scope(cfg) as t:
         for i in range(P):
+            x = constrain(x, ("batch", "seq", None))
             for slot, kind in enumerate(cfg.layout):
                 sp = layer_params(params["layers"][slot], i)
                 c = kvcache.period_view(caches[slot], i)
@@ -182,6 +184,7 @@ def prefill_chunk(
     positions = (t0 + torch.arange(Cb, device=x.device))[None, :]
     with _scope(cfg) as t:
         for i in range(cfg.n_periods):
+            x = constrain(x, ("batch", None, None))
             for lslot, kind in enumerate(cfg.layout):
                 sp = layer_params(params["layers"][lslot], i)
                 c = kvcache.period_view(caches[lslot], i)
@@ -256,6 +259,7 @@ def decode_step(
     positions = pos[:, None]
     with _scope(cfg) as t:
         for i in range(cfg.n_periods):
+            x = constrain(x, ("batch", None, None))
             for slot, kind in enumerate(cfg.layout):
                 sp = layer_params(params["layers"][slot], i)
                 c = kvcache.period_view(caches[slot], i)

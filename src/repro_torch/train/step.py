@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed.context import constrain_tree, is_dtensor, replicate_dims
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw, compression
 from repro_torch.tree import leaves, unflatten
@@ -63,7 +64,8 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
     ``mask``: optional (B, S) loss mask (padding from the packing pipeline);
     the denominator is at least 1."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    # DTensor's gather on a vocab-sharded dim fails: gather from the whole row
+    gold = torch.gather(replicate_dims(logits, -1), -1, targets[..., None].long())[..., 0]
     nll = lse - gold
     if mask is None:
         return torch.mean(nll)
@@ -111,24 +113,32 @@ def train_step(
 
     ``microbatches > 1`` splits the batch along axis 0, accumulates f32
     gradients, divides them by the count and averages the metrics, as the
-    reference's scan does.  ``grad_specs`` (the reference's sharding pins)
-    needs a mesh, which the port does not have yet."""
-    if grad_specs is not None:
-        raise NotImplementedError("train_step: grad_specs needs the distributed port (a mesh)")
+    reference's scan does.  ``grad_specs`` (a spec tree matching params,
+    ``distributed.sharding.param_specs``) pins the gradients and the f32
+    accumulator to the parameter layout under an active mesh, at the
+    reference's four sites; the identity on plain tensors."""
+    params = state.params
+
+    def pin(g: list) -> list:
+        return leaves(constrain_tree(unflatten(params, g), grad_specs))
+
     if microbatches == 1:
-        loss, metrics, grads = _value_and_grad(state.params, batch, cfg)
+        loss, metrics, grads = _value_and_grad(params, batch, cfg)
+        grads = pin(grads)
     else:
         B = batch["tokens"].shape[0]
         if B % microbatches:
             raise ValueError(f"batch {B} not divisible by microbatches {microbatches}")
         mb = {k: v.reshape(microbatches, B // microbatches, *v.shape[1:]) for k, v in batch.items()}
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves(state.params)]
+        grads = pin([torch.zeros_like(p, dtype=torch.float32, requires_grad=False) if is_dtensor(p)
+                     else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for p in leaves(params)])
         loss, per = 0.0, []
         for i in range(microbatches):
-            l, m, g = _value_and_grad(state.params, {k: v[i] for k, v in mb.items()}, cfg)
-            for acc, gi in zip(grads, g):
+            l, m, g = _value_and_grad(params, {k: v[i] for k, v in mb.items()}, cfg)
+            for acc, gi in zip(grads, pin(g)):
                 acc.add_(gi)
+            grads = pin(grads)
             loss = loss + l
             per.append(m)
             del g
@@ -136,7 +146,7 @@ def train_step(
             acc.div_(microbatches)
         loss = loss / microbatches
         metrics = {k: torch.mean(torch.stack([m[k] for m in per])) for k in per[0]}
-    grads = unflatten(state.params, grads)
+    grads = unflatten(params, grads)
     ef = state.ef
     if ef is not None:
         grads, ef = compression.compress_grads(grads, ef)

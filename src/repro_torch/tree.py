@@ -2,7 +2,8 @@
 
 A tree is nested dicts, lists, tuples and NamedTuples with tensors at the
 leaves; ``None`` is an empty subtree.  Dict keys are visited sorted and
-NamedTuple fields in order, as ``jax.tree_util`` flattens them, so
+NamedTuple fields in order, as ``jax.tree_util`` flattens them (another
+tuple subclass, such as a ``PartitionSpec``, is a leaf, as in JAX), so
 ``leaves`` lists a tree's tensors in the reference's order and ``paths``
 names them with the reference checkpoint's keys (``.params/layers/0/attn/bk``:
 a NamedTuple field as ``.name``, a dict key as itself, a list index as its
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["paths", "leaves", "tree_map", "unflatten"]
+__all__ = ["paths", "leaves", "tree_map", "map_with_keys", "unflatten"]
 
 
 def _is_namedtuple(node: Any) -> bool:
@@ -27,7 +28,7 @@ def _children(node: Any) -> list[tuple[str, Any]] | None:
         return [(str(k), node[k]) for k in sorted(node)]
     if _is_namedtuple(node):
         return [(f".{f}", getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
+    if type(node) in (list, tuple):
         return [(str(i), v) for i, v in enumerate(node)]
     return None
 
@@ -62,9 +63,29 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, getattr(tree, f), *(getattr(r, f) for r in rest))
                             for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def map_with_keys(fn: Callable, tree: Any) -> Any:
+    """``fn(keys, leaf)`` over the leaves of ``tree``, ``keys`` the dict keys
+    on the path to the leaf (what ``jax.tree_util.tree_map_with_path``'s
+    ``DictKey`` entries carry; list indices and NamedTuple fields are left
+    out) → a tree of ``tree``'s structure."""
+
+    def walk(keys: tuple, node: Any) -> Any:
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(keys + (k,), node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(walk(keys, getattr(node, f)) for f in node._fields))
+        if type(node) in (list, tuple):
+            return type(node)(walk(keys, v) for v in node)
+        return fn(keys, node)
+
+    return walk((), tree)
 
 
 def unflatten(like: Any, new_leaves: list) -> Any:

@@ -213,11 +213,24 @@ def test_train_step_matches_reference(microbatches, compression):
 
 
 def test_train_step_refuses_grad_specs():
+    """``grad_specs`` is taken since the mesh port (it pinned nothing before
+    and was refused): without an active mesh it is the identity, with one
+    microbatch and with two, bitwise.  A batch that does not divide into
+    the microbatches is still refused."""
+    from repro_torch.distributed import sharding as sh
+
     cfg = configs.reduced("qwen2.5-3b")
-    state = tstep.init_train_state(0, cfg, device="cpu")
     batch = make_batch(cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="grad_specs"):
-        tstep.train_step(state, batch, cfg, adamw.AdamWConfig(), grad_specs={})
+    mesh = {"data": 2, "model": 4}  # a shape-only mesh: the rules read names and sizes
+    for mb in (1, 2):
+        a = tstep.init_train_state(0, cfg, device="cpu")
+        b = tstep.init_train_state(0, cfg, device="cpu")
+        specs = sh.param_specs(b.params, cfg, mesh)
+        a, ma = tstep.train_step(a, batch, cfg, adamw.AdamWConfig(), microbatches=mb)
+        b, mb_ = tstep.train_step(b, batch, cfg, adamw.AdamWConfig(), microbatches=mb, grad_specs=specs)
+        assert float(ma["loss"]) == float(mb_["loss"])
+        assert all(torch.equal(x, y) for x, y in zip(leaves(a.params), leaves(b.params)))
+    state = tstep.init_train_state(0, cfg, device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
         tstep.train_step(state, make_batch(cfg, 3, 8, device="cpu"), cfg, adamw.AdamWConfig(),
                          microbatches=2)

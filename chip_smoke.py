@@ -9,7 +9,8 @@ Run from the root of the repository.  Phases, one JSON line each:
 1. device — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build — every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc``.
 3. kernels — K1 (row scan), K3 (push-back, one group and the KV cache's
-   two), K6 (compaction), K7 (segmented gather, from the plane and from
+   two; its shard form at 1, 2 and 4 slices on the decode append, a
+   ``kernel.k3_shards`` line), K6 (compaction), K7 (segmented gather, from the plane and from
    the bucket levels; the levels form also timed beside K6 then K7 on the
    plane, a ``kernel.levels`` line), K8/K9 (paged gather, one
    extent / many) and K12 (slab append) against their plain PyTorch
@@ -181,6 +182,19 @@ Run from the root of the repository.  Phases, one JSON line each:
    the calling thread.  ``dist.resume``: train.resume's checkpoint restored
    with ``shardings`` onto the mesh, bitwise, and one step on it bitwise a
    plain step.  Each result that is not bitwise stops the run.
+6e. serving on the mesh and the step counter (slice 14).
+   ``dist.serve.dense``: qwen2.5-3b at full width (bf16, random weights,
+   the serve.engine prompt lengths) on the one-rank mesh, parameters as
+   DTensors in the rule layout and caches placed by ``cache_specs``:
+   every decode append is K3's shard form in a ``local_map`` region and
+   every attend merges its slices' softmax states; 8 greedy tokens
+   identical to the same steps on plain tensors, K3 once a layer a step;
+   unmeshed and meshed runs in turns, each turn's median step ms.
+   ``analysis.roofline``: ``analysis.flops.count_fn`` on serve.engine's
+   prefill (K13) and one decode step (K3) on the card: FLOPs, modelled
+   traffic, the roofline's lower bound under ``analysis.roofline.HW``'s
+   H100 peaks beside the measured times; the same steps on fake tensors
+   count exactly the same.
 6b. the remaining model families, full width, random bf16 weights.
    ``moe.route``: one dbrx-132b MoE layer (d_model 6144, 16 experts, top-4,
    d_ff_expert 10752) on 4 x 1792 tokens under the insertion methods
@@ -235,6 +249,12 @@ Run from the root of the repository.  Phases, one JSON line each:
    relative L2.  The bitwise phases run under
    ``torch.use_deterministic_algorithms(True)``, for which the script sets
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (if unset) for the whole run.
+6f. ``dryrun.cell``: ``launch.dryrun.run_cell`` on qwen2.5-3b and
+   dbrx-132b x decode_32k, fake 16x16 mesh (PyTorch's ``fake`` process
+   group, fake ``cuda`` tensors), in a subprocess started just before 6c
+   (it traces on the host while the card trains, after every phase whose
+   times PERF.md's tables keep): status, rank 0's HBM, the bound and the
+   trace time of each.
 7. the device counter plane (K15).  ``obs.kernels`` (after the kernel
    phase): K3 (one group at the main path's last wave, two groups at
    m = 1, small ragged waves, empty masks), K7 (the freeze's plane, empty
@@ -267,7 +287,9 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -5114,6 +5136,294 @@ def dist_serve_moe(card: str, cfg, params, prompts, unmeshed: dict, mesh) -> dic
     return launches
 
 
+K3_SHARDS = (1, 2, 4)  # slice counts of the shard form's check
+DENSE_NEW = 8  # decode steps of dist.serve.dense (the cache does not grow)
+DENSE_TURNS = ("unmeshed", "meshed", "meshed", "unmeshed")
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+
+
+def k3_shard_cases(card: str, res: dict) -> None:
+    """K3's shard form (a cache level split over a mesh's 'model' axis) on
+    the Engine's decode append shapes (``decode_inputs``): for each count n
+    in K3_SHARDS and each slice r < n, the kernel on slice r against the
+    plain version's, bitwise, and the n slices together against the
+    unsharded plain levels, bitwise; then the launch timed at n = 1 and 4.
+    Mismatches count in the push_back_multi entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels.push_back import kernel as k_pb
+    from repro_torch.kernels.push_back import ref as r_pb
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+    groups, sizes, elems, mask = decode_inputs(gen)
+    b0 = SERVE_SLAB
+    whole = tuple(tuple(x.clone() for x in g) for g in groups)
+    for g, e in zip(whole, elems):
+        r_pb.push_back(g, sizes, b0, e, mask)
+    r = res["push_back_multi"]
+    line = {"phase": "kernel.k3_shards", "card": card, "counts": list(K3_SHARDS), "mismatches": 0,
+            "union_mismatches": 0}
+    for n in K3_SHARDS:
+        parts = []
+        for rank in range(n):
+            sl = tuple(tuple(x.narrow(1, rank * (x.shape[1] // n), x.shape[1] // n).clone() for x in g)
+                       for g in groups)
+            want = tuple(tuple(x.clone() for x in g) for g in sl)
+            ns, pos = k_pb.push_back_cuda_multi(sl, sizes, b0, elems, mask, shard=rank, nshards=n)
+            pairs = []
+            for g, e in zip(want, elems):
+                _, ws, wp = r_pb.push_back(g, sizes, b0, e, mask, shard=rank, nshards=n)
+                pairs += [(ns, ws), (pos, wp)]
+            pairs += [(a, b) for ga, gb in zip(sl, want) for a, b in zip(ga, gb)]
+            for a, b in pairs:
+                mism, err = compare(a, b)
+                line["mismatches"] += mism
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+            parts.append(sl)
+        for g in range(len(groups)):
+            for lvl in range(len(groups[g])):
+                joined = torch.cat([p[g][lvl] for p in parts], dim=1)
+                line["union_mismatches"] += compare(joined, whole[g][lvl])[0]
+        r["cases"] += n
+    r["mismatches"] += line["mismatches"] + line["union_mismatches"]
+    for n in (1, 4):
+        sl = tuple(tuple(x.narrow(1, 0, x.shape[1] // n).clone() for x in g) for g in groups)
+        line[f"ms_{n}"] = graph_ms(lambda: k_pb.push_back_cuda_multi(sl, sizes, b0, elems, mask, shard=0,
+                                                                     nshards=n), 200)
+    line["shape"] = f"{SERVE_PROMPTS} rows, m = 1, k and v (2, 128) bf16, levels {b0} and {2 * b0}"
+    line["ok"] = line["mismatches"] == 0 and line["union_mismatches"] == 0
+    emit(line)
+    check(line["ok"], f"kernel.k3_shards: {line}")
+
+
+def dense_prompts(rng, cfg) -> list:
+    """The serve.engine prompts: 4 of 256-1792 tokens, the last 1792."""
+    lens = rng.integers(SERVE_MIN, SERVE_LEN + 1, SERVE_PROMPTS)
+    lens[-1] = SERVE_LEN
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+
+def greedy_run(params, cfg, prompts, new: int, timed: bool = False) -> tuple:
+    """Prefill the prompts (right-padded) with room for ``new`` tokens, then
+    ``new`` greedy decode steps by ``serving.steps`` → (tokens (new + 1, B)
+    on the host, decode step ms on the host clock around synchronised
+    steps, or [])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.context import is_dtensor
+    from repro_torch.serving import steps
+
+    L = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), L), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d = torch.from_numpy(toks).to(DEV)
+    lens_d = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=DEV)
+    mesh = next((t.device_mesh for t in [params["embed"]] if is_dtensor(t)), None)
+    if mesh is not None:
+        from repro_torch.distributed.context import as_dtensor
+
+        toks_d, lens_d = as_dtensor(toks_d, mesh), as_dtensor(lens_d, mesh)
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    logits, caches = steps.prefill(params, toks_d, cfg, capacity_hint=L + new, policy="ggarray",
+                                   lengths=lens_d)
+    out = [whole(logits).argmax(-1)]
+    pos = whole(lens_d)
+    ms = []
+    for i in range(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = steps.decode_step(params, out[-1], caches, pos + i, cfg)
+        out.append(whole(logits).argmax(-1))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del caches
+    return torch.stack(out).cpu(), (ms if timed else [])
+
+
+def dist_serve_dense(card: str, seed: int, mesh) -> dict:
+    """dist.serve.dense: qwen2.5-3b at full width (bf16, random weights,
+    the serve.engine prompts) on the one-rank NCCL mesh: parameters as
+    DTensors in the rule layout, caches placed by ``cache_specs``, so every
+    decode append is K3's shard form in a ``local_map`` region and every
+    attend merges its slices' softmax states → greedy tokens identical to
+    the same steps on plain tensors, K3 launched once a layer a step; then
+    unmeshed and meshed runs in turns DENSE_TURNS, for the mesh's cost a
+    decode step.  Attention is the plain blockwise walk in both runs (K13
+    takes plain tensors only)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.kernels import common
+
+    cfg, params = serve_model(seed)
+    cfg = dataclasses.replace(cfg, attention_impl="blockwise")
+    prompts = dense_prompts(np.random.default_rng(seed + 25), cfg)
+    meshed = on_mesh(params, cfg, mesh)
+    plain_toks, _ = greedy_run(params, cfg, prompts, DENSE_NEW)
+    common.reset_launch_counts()
+    with activation_mesh(mesh):
+        mesh_toks, _ = greedy_run(meshed, cfg, prompts, DENSE_NEW)
+    launches = common.launch_counts()
+    turns = []
+    for turn in DENSE_TURNS:
+        with activation_mesh(mesh) if turn == "meshed" else contextlib.nullcontext():
+            _, ms = greedy_run(meshed if turn == "meshed" else params, cfg, prompts, DENSE_NEW, timed=True)
+        turns.append(float(np.median(ms)))
+    mean = {k: float(np.mean([m for m, t in zip(turns, DENSE_TURNS) if t == k])) for k in set(DENSE_TURNS)}
+    line = {"phase": "dist.serve.dense", "card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "prompts": [len(p) for p in prompts],
+            "new_tokens": DENSE_NEW, "tokens_identical": bool(torch.equal(plain_toks, mesh_toks)),
+            "k3_launches": launches["push_back_multi"], "turns": list(DENSE_TURNS),
+            "turn_decode_step_ms_median": turns, "meshed_over_unmeshed": mean["meshed"] / mean["unmeshed"],
+            "launches": {k: v for k, v in launches.items() if v}}
+    line["ok"] = line["tokens_identical"] and line["k3_launches"] == DENSE_NEW * cfg.n_layers
+    emit(line)
+    check(line["ok"], f"dist.serve.dense: {line}")
+    del params, meshed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def roofline_path(card: str, seed: int) -> dict:
+    """analysis.roofline: ``analysis.flops.count_fn`` on serve.engine's
+    prefill (K13 in every layer, the serve.engine prompts) and one decode
+    step (K3) on the card → FLOPs, modelled traffic and the roofline's
+    lower bound under ``HW``'s H100 peaks, beside the steps' measured
+    times; then the same two steps on fake tensors (``FakeTensorMode``, the
+    kernels' shape rules): the same counts exactly."""
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import flops, roofline
+    from repro_torch.kernels import common
+    from repro_torch.serving import steps
+    from repro_torch.tree import tree_map
+
+    cfg, params = serve_model(seed)
+    prompts = dense_prompts(np.random.default_rng(seed + 26), cfg)
+    L = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), L), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks_d = torch.from_numpy(toks).to(DEV)
+    lens_d = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=DEV)
+
+    def prefill(params, toks, lens):
+        return steps.prefill(params, toks, cfg, capacity_hint=L + 1, policy="ggarray", lengths=lens)
+
+    def decode(params, tok, caches, pos):
+        return steps.decode_step(params, tok, caches, pos, cfg)
+
+    common.reset_launch_counts()
+    real_pre = flops.count_fn(prefill, params, toks_d, lens_d)
+    logits, caches = real_pre.pop("result")
+    tok = logits.argmax(-1)
+    real_dec = flops.count_fn(decode, params, tok, caches, lens_d)
+    real_dec.pop("result")
+    launches = common.launch_counts()
+    check(launches["flash_attention"] >= cfg.n_layers and launches["push_back_multi"] >= cfg.n_layers,
+          f"analysis.roofline: the counted steps launched {launches}")
+    # the measured steps: the same prefill, then one decode step on its caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, toks_d, lens_d)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    dec_ms = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(params, tok, caches, lens_d + i)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    del caches, logits
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fparams = tree_map(mode.from_tensor, params)
+        ftoks, flens = mode.from_tensor(toks_d), mode.from_tensor(lens_d)
+        fake_pre = flops.count_fn(prefill, fparams, ftoks, flens)
+        flogits, fcaches = fake_pre.pop("result")
+        fake_dec = flops.count_fn(decode, fparams, flogits.argmax(-1), fcaches, flens)
+        fake_dec.pop("result")
+    line = {"phase": "analysis.roofline", "card": card, "arch": cfg.name, "prompts": [len(p) for p in prompts],
+            "hw": {"peak_flops": roofline.HW().peak_flops, "hbm_bw": roofline.HW().hbm_bw}}
+    ok = True
+    for name, real, fake, ms in (("prefill", real_pre, fake_pre, prefill_ms),
+                                 ("decode", real_dec, fake_dec, float(np.median(dec_ms)))):
+        terms = roofline.roofline_terms({"flops": real["flops"], "bytes accessed": real["hbm_bytes"]},
+                                        roofline.collective_bytes(real["collectives"]))
+        same = real["flops"] == fake["flops"] and real["hbm_bytes"] == fake["hbm_bytes"]
+        ok = ok and same
+        line[name] = {"flops": real["flops"], "hbm_bytes": real["hbm_bytes"], "bound": terms["bound"],
+                      "bound_ms": terms["step_s_lower_bound"] * 1e3, "measured_ms": ms,
+                      "roofline_fraction": terms["step_s_lower_bound"] * 1e3 / ms,
+                      "fake_flops": fake["flops"], "fake_hbm_bytes": fake["hbm_bytes"], "fake_equal": same}
+    line["ok"] = ok
+    emit(line)
+    check(ok, f"analysis.roofline: fake counts differ from the card's: {line}")
+    del params, fparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_start():
+    """Start the dry-run of DRYRUN_CELLS in a subprocess (its fake process
+    group never meets this process's NCCL group, and its tracing runs on
+    the host while the card's phases run) → (the process, its log file,
+    its start time).  Killed at exit if it is still running."""
+    import atexit
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("from repro_torch.launch import dryrun, specs\n"
+            f"for arch, shape in {list(DRYRUN_CELLS)!r}:\n"
+            "    r = dryrun.run_cell(specs.Cell(arch, shape), multi_pod=False, force=True)\n"
+            "    print(r['cell'], r['status'], r.get('error', ''), flush=True)\n")
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT, env=env,
+                            cwd=str(ROOT))
+    atexit.register(proc.kill)
+    return proc, log, time.perf_counter()
+
+
+def dryrun_cells(card: str, started) -> None:
+    """dryrun.cell: wait for ``dryrun_start``'s subprocess, then one line a
+    cell of DRYRUN_CELLS (16x16 mesh, fake tensors labelled ``cuda``):
+    status, rank 0's HBM, the bound and the trace time."""
+    import json as _json
+
+    proc, log, t0 = started
+    rc = proc.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    log.seek(0)
+    out = log.read()
+    for arch, shape in DRYRUN_CELLS:
+        path = ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__pod16x16.json"
+        r = _json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        line = {"phase": "dryrun.cell", "card": card, "cell": f"{arch}×{shape}", "mesh": "16x16",
+                "status": r["status"], "subprocess_wall_s": wall, "rc": rc}
+        if r["status"] == "ok":
+            line.update(hbm_used_bytes=r["memory"]["hbm_used_bytes"], fits_80gb=r["memory"]["fits_80gb"],
+                        bound=r["roofline"]["bound"], step_s_lower_bound=r["roofline"]["step_s_lower_bound"],
+                        trace_s=r["trace_s"], flops=r["cost_global"]["flops"],
+                        hbm_bytes=r["cost_global"]["hbm_bytes"])
+        else:
+            line["error"] = r.get("error", out[-1500:])
+        line["ok"] = r["status"] == "ok" and rc == 0
+        emit(line)
+        check(line["ok"], f"dryrun.cell: {line}")
+
+
 def dist_resume_path(card: str, seed: int, cfg, d: str, step: int, mesh) -> dict:
     """dist.resume: train.resume's two-layer checkpoint restored with
     ``shardings`` onto the mesh, bitwise the plain restore; then one step
@@ -6015,6 +6325,7 @@ def main() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     res = kernel_phase(card, gen)
+    k3_shard_cases(card, res)
     torch.cuda.empty_cache()
     # 3b. each instrumented kernel with and without counters (K15)
     res["counter_plane"].update(obs_kernel_phase(card))
@@ -6041,15 +6352,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 6d. a one-rank device mesh: its dist.* phases ride on 6b's and 6c's models
     mesh, store = dist_init(card)
+    # 6e. serving on the mesh (DTensors, caches placed by cache_specs), and
+    # the step counter on the card against its count on fake tensors
+    dense_launches = dist_serve_dense(card, args.seed, mesh)
+    roofline_launches = roofline_path(card, args.seed)
+    torch.cuda.empty_cache()
     # 6b. the remaining model families
     family_launches = family_paths(card, args.seed, engine_lens, res, mesh)
     torch.cuda.empty_cache()
+    # 6f's dry-run traces on the host, in a subprocess, while the card
+    # trains: after every phase whose times PERF.md's tables keep
+    dry = dryrun_start()
     # 6c. training
     train_launches = train_paths(card, args.seed, mesh)
     dist_close(store)
+    # 6f. two decode cells of the dry-run on a fake 16x16 mesh (started before 6c)
+    dryrun_cells(card, dry)
     launches = {k: launches[k] + demo_launches[k] + core_launches[k] + arena_launches[k]
                 + obs_arena_launches[k] + serve_launches[k] + family_launches[k] + train_launches[k]
-                for k in KERNELS}
+                + dense_launches[k] + roofline_launches[k] for k in KERNELS}
     check(launches["counter_plane"] >= 1, "kernel counter_plane never launched on the obs paths")
 
     # 7. the kernels line

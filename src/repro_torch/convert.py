@@ -162,7 +162,20 @@ def arena_from_numpy(
 _F32_LEAVES = {("moe", "router"), ("mamba", "A_log"), ("mamba", "D"), ("mamba", "dt_bias")}
 
 
-def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" = None) -> Any:
+def _distribute(tree: Any, specs: Any, mesh: Any) -> Any:
+    """Each leaf (the whole array, the same on every rank) as a ``DTensor``
+    laid out by its spec on ``mesh``; each rank keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.context import placements
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, spec: distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None),
+                    tree, specs)
+
+
+def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" = None, *,
+                      mesh: Any = None) -> Any:
     """The reference's parameter tree as numpy → the port's, on ``device``.
 
     ``tree`` is ``jax.tree.map(np.asarray, params)`` of the reference's
@@ -172,7 +185,8 @@ def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" =
     bfloat16 or as their ``uint16`` bits.  Every leaf must have the dtype
     the reference gives it: ``cfg.param_dtype``, except the MoE router and
     the SSM's ``A_log``, ``D`` and ``dt_bias``, which are f32 in any model
-    (``_F32_LEAVES``).
+    (``_F32_LEAVES``).  With ``mesh`` (every rank passing the same arrays)
+    the leaves are ``DTensor``s laid out by ``sharding.param_specs``.
     """
     from repro_torch.models.transformer import DTYPES, check_supported
 
@@ -202,21 +216,33 @@ def params_from_numpy(cfg: Any, tree: Any, device: "str | torch.device | None" =
         if slot["norm1"].shape[0] != cfg.n_periods:
             raise ValueError(f"params_from_numpy: layers/{i} holds {slot['norm1'].shape[0]} "
                              f"periods, config says {cfg.n_periods}")
+    if mesh is not None:
+        from repro_torch.distributed.sharding import param_specs
+
+        out = _distribute(out, param_specs(out, cfg, mesh), mesh)
     return out
 
 
-def cache_from_numpy(cache: dict, device: "str | torch.device | None" = None) -> dict:
+def cache_from_numpy(cache: dict, device: "str | torch.device | None" = None, *,
+                     cfg: Any = None, mesh: Any = None) -> dict:
     """A reference KV cache slot, its leaves as numpy (``np.asarray`` of each;
     a paged pool may be a tuple of extents) → the port's slot on ``device``.
-    bf16 leaves may come as ml_dtypes bfloat16 or as ``uint16`` bits."""
+    bf16 leaves may come as ml_dtypes bfloat16 or as ``uint16`` bits.  With
+    ``cfg`` and ``mesh`` (a period-stacked slot, the same arrays on every
+    rank) the leaves are ``DTensor``s placed by ``sharding.cache_specs``."""
     def leaf(arr) -> torch.Tensor:
         arr = np.asarray(arr)
         if arr.dtype == np.uint16:
             return tensor_from_numpy(arr.view(np.int16), device).view(torch.bfloat16)
         return tensor_from_numpy(arr, device)
 
-    return {k: tuple(leaf(e) for e in v) if isinstance(v, (tuple, list)) else leaf(v)
-            for k, v in cache.items()}
+    out = {k: tuple(leaf(e) for e in v) if isinstance(v, (tuple, list)) else leaf(v)
+           for k, v in cache.items()}
+    if mesh is not None:
+        from repro_torch.distributed.sharding import cache_specs
+
+        out = _distribute(out, cache_specs(out, cfg, mesh), mesh)
+    return out
 
 
 def cache_to_numpy(cache: dict) -> dict:

@@ -22,6 +22,18 @@
 // cache's k and v) is one more row of it, with its own item size and copy
 // unit.
 //
+// The shard form (a KV cache whose levels a mesh's 'model' axis splits
+// along their slots, serving/kvcache.py): level L holds only slice `shard`
+// of its B0 2^L slots, w = B0 2^L / shards[L] of them.  A live lane whose
+// slot falls outside [shard w, (shard + 1) w) writes nothing here; the
+// others land at their slot less shard w, in rows of w.  Positions, sizes
+// and counters stay the whole wave's.  A level of count 1 is whole; a
+// launch whose levels are all whole runs the unsharded instantiation
+// (kShard = false): its body and its parameters are the whole-level
+// push-back's (the shard form's arithmetic lives in `if constexpr (kShard)`
+// branches, and its shard table, the last parameter, is one unread byte
+// there).
+//
 // Design: the tile-parallel row scan of common.cuh.  The grid is (rows x
 // tiles) of NT * 16 lanes; where a row has more than one tile a count pass
 // runs first, else the write pass is the only launch (the Engine's decode
@@ -71,6 +83,12 @@ struct PushBackTable {
   int nlevels;
 };
 
+// The shard form's table (kShard); the whole-level kernel never reads it.
+struct ShardTable {
+  int shards[kMaxLevels];  // slices a level is split into, 1 where whole
+  int shard;               // the slice this launch holds
+};
+
 // One copy unit of `unit` bytes (16, 4, 2 or 1; kernels/common.py::copy_unit
 // picks the widest that the item size and every pointer allow), carried in
 // a uint4.  Loads go through the read-only path: the kernel never reads what
@@ -110,14 +128,39 @@ __device__ __forceinline__ int level_of(int64_t p, int64_t b0, LevelCache& c) {
   return c.level;
 }
 
+// The shard form: where position p lands in this launch's slice of its
+// level, as level_of, with the slice's first position and width cached
+// beside the level.  False where p is past the last level or outside the
+// slice; else `at` is the element offset row * w + (p - first).
+struct SliceCache {
+  LevelCache lc;
+  int64_t first = 0, w = 0;
+};
+
+__device__ __forceinline__ bool slice_of(const ShardTable& sh, int nlevels, int64_t row, int64_t p,
+                                         int64_t b0, SliceCache& c, int& level, int64_t& at) {
+  const bool moved = p < c.lc.lo || p >= c.lc.hi;
+  level = level_of(p, b0, c.lc);
+  if (level >= nlevels) return false;
+  if (moved) {
+    const int n = sh.shards[level];
+    c.w = (b0 << level) / n;
+    c.first = c.lc.lo + (n > 1 ? sh.shard * c.w : 0);
+  }
+  const int64_t o = p - c.first;
+  at = row * c.w + o;
+  return o >= 0 && o < c.w;
+}
+
 // U: the copy unit of the direct copy (every group's item is one U), or
 // void for the unit loop.
-template <int NT, typename U, bool kCount>
+template <int NT, typename U, bool kCount, bool kShard>
 __global__ void __launch_bounds__(NT)
 push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
                  const int* __restrict__ sizes, const int* __restrict__ counts,
                  int* __restrict__ pos_out, int* __restrict__ new_sizes, int64_t m, int tiles,
-                 int64_t b0, int* __restrict__ ctr) {
+                 int64_t b0, int* __restrict__ ctr,
+                 const std::conditional_t<kShard, ShardTable, char> sh) {
   constexpr bool kDirect = !std::is_void_v<U>;
   constexpr int kTile = NT * kScanPer;
   __shared__ int lane_of[kDirect ? 1 : kTile];  // the unit loop: live lane of tile rank k
@@ -145,7 +188,8 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
   const bool last_tile = tile == tiles - 1;
   if (last_tile && tid == 0) new_sizes[row] = size + s.tile_first + s.tile_total;
 
-  LevelCache lc;
+  [[maybe_unused]] LevelCache lc;
+  [[maybe_unused]] SliceCache sc;
   if constexpr (kDirect) {
     for (int g = 0; g < t.ngroups; ++g) {
       const U* src = reinterpret_cast<const U*>(t.elems[g]) + tile_base;
@@ -156,7 +200,12 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
 #pragma unroll
       for (int i = 0; i < kScanPer; ++i) {  // ... then the stores
         const int pk = size + s.rank[i];
-        if (((s.live >> i) & 1u) && pk >= 0) {
+        if constexpr (kShard) {
+          int level;
+          int64_t at;
+          if (((s.live >> i) & 1u) && pk >= 0 && slice_of(sh, t.nlevels, row, pk, b0, sc, level, at))
+            reinterpret_cast<U*>(t.levels[g][level])[at] = val[i];
+        } else if (((s.live >> i) & 1u) && pk >= 0) {
           const int level = level_of(pk, b0, lc);
           if (level < t.nlevels)
             reinterpret_cast<U*>(t.levels[g][level])[row * (b0 << level) + (pk - lc.lo)] = val[i];
@@ -191,7 +240,16 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
           const int64_t kk = t.shift[g] >= 0 ? q >> t.shift[g] : q / units;
           const int64_t u = q - kk * units;
           const int pk = p0 + static_cast<int>(kk);
-          if (pk >= 0) {
+          if constexpr (kShard) {
+            int level;
+            int64_t slot;
+            if (pk >= 0 && slice_of(sh, t.nlevels, row, pk, b0, sc, level, slot)) {
+              const int64_t ib = t.item_bytes[g];
+              unit[j] = t.unit[g];
+              dst[j] = t.levels[g][level] + slot * ib + u * unit[j];
+              val[j] = load_unit(t.elems[g] + (tile_base + lane_of[kk]) * ib + u * unit[j], unit[j]);
+            }
+          } else if (pk >= 0) {
             const int level = level_of(pk, b0, lc);
             if (level < t.nlevels) {
               const int64_t ib = t.item_bytes[g];
@@ -236,17 +294,22 @@ push_back_kernel(PushBackTable t, const unsigned char* __restrict__ mask,
 
 // The write pass for copy unit U (void: the unit loop), with or without counters.
 template <int NT, typename U>
-void write_pass(const PushBackTable& t, unsigned grid, const unsigned char* mask, const int* sizes,
-                const int* counts, int* pos_out, int* new_sizes, int64_t m, int tiles, int64_t b0,
-                int* ctr, cudaStream_t stream) {
-  auto kernel = ctr != nullptr ? push_back_kernel<NT, U, true> : push_back_kernel<NT, U, false>;
-  kernel<<<grid, NT, 0, stream>>>(t, mask, sizes, counts, pos_out, new_sizes, m, tiles, b0, ctr);
+void write_pass(const PushBackTable& t, const ShardTable& sh, bool shard, unsigned grid,
+                const unsigned char* mask, const int* sizes, const int* counts, int* pos_out,
+                int* new_sizes, int64_t m, int tiles, int64_t b0, int* ctr, cudaStream_t stream) {
+  if (shard) {
+    auto kernel = ctr != nullptr ? push_back_kernel<NT, U, true, true> : push_back_kernel<NT, U, false, true>;
+    kernel<<<grid, NT, 0, stream>>>(t, mask, sizes, counts, pos_out, new_sizes, m, tiles, b0, ctr, sh);
+  } else {
+    auto kernel = ctr != nullptr ? push_back_kernel<NT, U, true, false> : push_back_kernel<NT, U, false, false>;
+    kernel<<<grid, NT, 0, stream>>>(t, mask, sizes, counts, pos_out, new_sizes, m, tiles, b0, ctr, char{0});
+  }
 }
 
 template <int NT>
-int launch(const PushBackTable& t, const unsigned char* mask, const int* sizes, int* counts,
-           int* pos_out, int* new_sizes, int64_t nblocks, int64_t m, int64_t b0, int* ctr,
-           cudaStream_t stream) {
+int launch(const PushBackTable& t, const ShardTable& sh, bool shard, const unsigned char* mask,
+           const int* sizes, int* counts, int* pos_out, int* new_sizes, int64_t nblocks, int64_t m,
+           int64_t b0, int* ctr, cudaStream_t stream) {
   const int64_t tiles = (m + NT * kScanPer - 1) / (NT * kScanPer);
   if (nblocks * tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto grid = static_cast<unsigned>(nblocks * tiles);
@@ -263,10 +326,10 @@ int launch(const PushBackTable& t, const unsigned char* mask, const int* sizes, 
   bool direct = true;
   for (int g = 0; g < t.ngroups; ++g) direct = direct && t.units[g] == 1 && t.unit[g] == t.unit[0];
   switch (direct ? t.unit[0] : 0) {
-    case 4: write_pass<NT, uint32_t>(t, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
-    case 2: write_pass<NT, uint16_t>(t, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
-    case 1: write_pass<NT, unsigned char>(t, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
-    default: write_pass<NT, void>(t, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
+    case 4: write_pass<NT, uint32_t>(t, sh, shard, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
+    case 2: write_pass<NT, uint16_t>(t, sh, shard, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
+    case 1: write_pass<NT, unsigned char>(t, sh, shard, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
+    default: write_pass<NT, void>(t, sh, shard, grid, mask, sizes, cn, pos_out, new_sizes, m, nt, b0, ctr, stream); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -283,12 +346,16 @@ __global__ void empty_kernel() {}
 // (16 threads)), as kernel.py::push_back_plan makes them (a plan that
 // differs is refused); where tiles > 1, counts is (nblocks * tiles) int32
 // scratch.
+// level_shards: nlevels slice counts (the shard form), each at least 1 and
+// dividing its level's B0 2^L slots, all 1 for whole levels; shard: the
+// slice held, below every count above 1.
 // ctr: a zeroed (kCtrSlots,) int32 counter block, or null for no counters.
 extern "C" int rt_push_back(void* const* level_ptrs, void* const* elem_ptrs,
                             const int64_t* item_bytes, const int* unit_bytes, int ngroups,
-                            int nlevels, const void* mask, const void* sizes, void* counts,
-                            void* pos_out, void* new_sizes, int64_t nblocks, int64_t m, int64_t b0,
-                            int threads, int64_t tiles, void* ctr, void* stream) {
+                            int nlevels, const int* level_shards, int shard, const void* mask,
+                            const void* sizes, void* counts, void* pos_out, void* new_sizes,
+                            int64_t nblocks, int64_t m, int64_t b0, int threads, int64_t tiles,
+                            void* ctr, void* stream) {
   if (ngroups < 1 || ngroups > kMaxGroups || nlevels < 1 || nlevels > kMaxLevels || b0 < 1 ||
       threads < 1 || tiles != (m + int64_t{threads} * kScanPer - 1) / (int64_t{threads} * kScanPer))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -296,6 +363,16 @@ extern "C" int rt_push_back(void* const* level_ptrs, void* const* elem_ptrs,
   PushBackTable t{};
   t.ngroups = ngroups;
   t.nlevels = nlevels;
+  ShardTable sh{};
+  sh.shard = shard;
+  bool sharded = false;
+  for (int l = 0; l < nlevels; ++l) {
+    const int n = level_shards[l];
+    if (n < 1 || ((b0 << l) % n) != 0 || (n > 1 && (shard < 0 || shard >= n)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    sh.shards[l] = n;
+    sharded = sharded || n > 1;
+  }
   for (int g = 0; g < ngroups; ++g) {
     for (int l = 0; l < nlevels; ++l) t.levels[g][l] = static_cast<char*>(level_ptrs[g * nlevels + l]);
     const int64_t ib = item_bytes[g];
@@ -316,9 +393,9 @@ extern "C" int rt_push_back(void* const* level_ptrs, void* const* elem_ptrs,
   auto* c = static_cast<int*>(ctr);
   auto s = static_cast<cudaStream_t>(stream);
   switch (threads) {
-    case 64: return launch<64>(t, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
-    case 128: return launch<128>(t, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
-    case 256: return launch<256>(t, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
+    case 64: return launch<64>(t, sh, sharded, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
+    case 128: return launch<128>(t, sh, sharded, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
+    case 256: return launch<256>(t, sh, sharded, mk, sz, cn, pos, ns, nblocks, m, b0, c, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

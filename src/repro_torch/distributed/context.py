@@ -30,7 +30,8 @@ import torch
 from repro_torch.tree import tree_map
 
 __all__ = ["PartitionSpec", "activation_mesh", "constrain", "constrain_tree", "active_mesh", "mesh_axes",
-           "placements", "redistribute", "logical_spec", "replicate_dims", "is_dtensor", "LOGICAL_AXES"]
+           "placements", "redistribute", "logical_spec", "replicate_dims", "is_dtensor", "LOGICAL_AXES",
+           "local_region", "placed_zeros", "as_dtensor", "rank_index"]
 
 LOGICAL_AXES: dict[str, Any] = {
     "batch": ("pod", "data"),
@@ -210,3 +211,69 @@ def constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     if mesh is None or not is_dtensor(x):
         return x
     return redistribute(x, logical_spec(tuple(x.shape), axes, mesh), mesh)
+
+
+def local_region(fn, mesh, in_placements, out_placements, in_grad_placements=None):
+    """``local_map(fn)`` on ``mesh`` — PyTorch's ``shard_map``: ``DTensor``
+    arguments are redistributed to ``in_placements`` and ``fn`` runs on
+    each rank's local tensors; its outputs come back as ``DTensor``s laid
+    out as ``out_placements`` (``()`` for a region that only writes its
+    arguments in place).  While ``fn`` runs, ``kernels.common.STEP.ranks``
+    is the mesh's rank count: a step counter counts each op of the region
+    that many times."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.common import STEP
+
+    def body(*args):
+        prev, STEP.ranks = STEP.ranks, mesh.size()
+        try:
+            return fn(*args)
+        finally:
+            STEP.ranks = prev
+
+    return local_map(body, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=in_grad_placements, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+def rank_index(mesh, dims) -> int:
+    """This rank's index among the ranks of mesh dims ``dims`` taken
+    together, the first major (0 for no dims): which slice it holds of a
+    tensor dim those mesh dims shard."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():  # the mesh's coordinates are real tensors
+        coord = mesh.get_coordinate()
+    idx = 0
+    for d in dims:
+        idx = idx * mesh.size(d) + coord[d]
+    return idx
+
+
+def placed_zeros(shape: tuple, dtype: torch.dtype, device, mesh, spec) -> torch.Tensor:
+    """A zero ``DTensor`` of global ``shape`` laid out as ``spec`` on
+    ``mesh``, each rank allocating its own shard only."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    place = placements(spec, mesh)
+    with unset_fake_temporarily():  # the mesh's coordinates are real tensors
+        local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh, place)
+    stride, n = [], 1
+    for d in reversed(shape):  # contiguous
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, place,
+                              run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
+def as_dtensor(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as a ``DTensor`` on ``mesh``: itself if it is one, else
+    replicated (every rank holds the same plain tensor)."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)

@@ -27,6 +27,7 @@ a CUDA kernel masks its own ragged edge.  What every kernel wrapper shares:
 from __future__ import annotations
 
 import functools
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -37,6 +38,9 @@ __all__ = [
     "MEMORY_SPACES",
     "DISPATCH_METHODS",
     "count_launch",
+    "STEP",
+    "on_cpu",
+    "run_kernel",
     "launch_counts",
     "reset_launch_counts",
     "check_memory_space",
@@ -51,6 +55,7 @@ __all__ = [
     "sm_count",
     "put_drop_",
     "scatter_levels_",
+    "level_shards",
     "SCAN_PER",
     "SCAN_THREADS",
     "scan_threads",
@@ -79,6 +84,58 @@ DISPATCH_METHODS = ("auto", "onehot", "mxu")
 
 def count_launch(name: str) -> None:
     _launches[name] += 1
+
+
+class _Step(threading.local):
+    """What a step counter (``analysis.flops.count_fn``) reads and sets, one
+    slot a thread: ``kernel``, its hook for a hand-written kernel's launch,
+    ``kernel(name, inputs, outputs)`` (None while no counter observes);
+    ``rules``, how many kernel shape rules are running (their ops are the
+    kernel's, not counted apart); ``ranks``, how many ranks run the local
+    region (``distributed.context.local_region``) this thread is in."""
+
+    kernel = None
+    rules = 0
+    ranks = 1
+
+
+STEP = _Step()
+
+
+def _is_fake(t) -> bool:
+    """True for a ``FakeTensor`` (``FakeTensorMode``): a shape with no data,
+    which a kernel cannot take."""
+    return type(t).__name__ == "FakeTensor"
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """A real tensor on the CPU: the wrappers' cue for the plain version.
+    A fake tensor takes the kernel's path, whatever its device label."""
+    return t.device.type == "cpu" and not _is_fake(t)
+
+
+def run_kernel(name: str, inputs: list, plain, launch):
+    """A wrapper's card path: ``launch()`` — or, when ``inputs[0]`` is fake,
+    the kernel's shape rule: ``plain()``, whose ops a step counter does not
+    count (outputs of the kernel's shapes and dtypes, in-place outputs
+    aliased as the kernel aliases them) — and, while a step counter
+    observes (``STEP.kernel``), one launch of ``name`` passed to it, reading
+    ``inputs`` and writing the tensors it returns.  On real tensors with no
+    counter this adds one type check to the launch."""
+    if _is_fake(inputs[0]):
+        STEP.rules += 1
+        try:
+            out = plain()
+        finally:
+            STEP.rules -= 1
+    else:
+        out = launch()
+    if STEP.kernel is not None:
+        from torch.utils._pytree import tree_leaves
+
+        STEP.kernel(name, [t for t in inputs if isinstance(t, torch.Tensor)],
+                    [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)])
+    return out
 
 
 def launch_counts() -> dict[str, int]:
@@ -274,19 +331,37 @@ def put_drop_(
     return dst.index_put_(tuple(idx), vals)
 
 
+def level_shards(nshards, nlevels: int) -> tuple[int, ...]:
+    """A shard count for each of ``nlevels`` levels: ``nshards`` itself
+    when it is a tuple, else that count for every level."""
+    out = tuple(nshards) if isinstance(nshards, (tuple, list)) else (int(nshards),) * nlevels
+    if len(out) != nlevels or any(n < 1 for n in out):
+        raise ValueError(f"level shard counts {out}: expected {nlevels} counts of at least 1")
+    return out
+
+
 def scatter_levels_(
-    levels: tuple[torch.Tensor, ...],  # level b: (nblocks, B0·2^b, *item)
+    levels: tuple[torch.Tensor, ...],  # level b: (nblocks, B0·2^b / nshards_b, *item)
     b0: int,
     pos: torch.Tensor,  # (nblocks, m) in-block target positions
     valid: torch.Tensor,  # (nblocks, m) bool
     elems: torch.Tensor,  # (nblocks, m, *item)
+    *,
+    shard: int = 0,
+    nshards: "int | tuple[int, ...]" = 1,
 ) -> None:
     """Scatter ``elems`` at in-block ``pos`` across the bucket levels, in
-    place; lanes that are not valid or lie past the last level are dropped."""
+    place; lanes that are not valid or lie past the last level are dropped.
+
+    A level split ``n`` ways along its slots (a mesh's ``'model'`` axis)
+    holds here only slice ``shard`` of it, slots ``[shard·w, (shard+1)·w)``
+    with ``w = B0·2^b / n``: lanes outside the slice drop, the rest land at
+    their slot less ``shard·w``.  A level of count 1 is whole."""
     rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    for b, level in enumerate(levels):
-        li = pos - b0 * ((1 << b) - 1)  # level b starts at B0 (2^b - 1)
-        put_drop_(level, (rows, li), valid & (li >= 0) & (li < (b0 << b)), elems)
+    for b, (level, n) in enumerate(zip(levels, level_shards(nshards, len(levels)))):
+        w = (b0 << b) // n
+        li = pos - b0 * ((1 << b) - 1) - (shard * w if n > 1 else 0)  # level b starts at B0 (2^b - 1)
+        put_drop_(level, (rows, li), valid & (li >= 0) & (li < w), elems)
 
 
 # The tile-parallel row scan of the append kernels (csrc/common.cuh): a row

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.decode_attention import kernel as _kernel
 from repro_torch.kernels.decode_attention import ref as _ref
 
@@ -36,9 +37,12 @@ def decode_attention(
     qg = q.reshape(B, KH, H // KH, D)
     lengths = lengths.reshape(B)
     scale = D ** -0.5 if sm_scale is None else sm_scale
-    if q.device.type == "cpu":
+    if common.on_cpu(q):
         out = _ref.decode_attention(qg, k, v, lengths, sm_scale=scale)
     else:
-        out = _kernel.decode_attention_cuda(qg.contiguous(), k, v,
-                                            lengths.to(torch.int32).contiguous(), sm_scale=scale)
+        out = common.run_kernel(
+            "decode_attention", [qg, k, v, lengths],
+            lambda: _ref.decode_attention(qg, k, v, lengths, sm_scale=scale),
+            lambda: _kernel.decode_attention_cuda(qg.contiguous(), k, v,
+                                                  lengths.to(torch.int32).contiguous(), sm_scale=scale))
     return out.reshape(B, H, D)

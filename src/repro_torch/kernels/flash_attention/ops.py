@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -44,13 +45,18 @@ def flash_attention_bhsd(
     B, H, Sq, D = q.shape
     _check_tiles(Sq, k.shape[2], bq, bk)
     scale = D ** -0.5 if sm_scale is None else sm_scale
-    if q.device.type == "cpu":
+    def plain():
         got = _ref.attention(q.reshape(B * H, Sq, D), k.reshape(-1, k.shape[2], D),
                              v.reshape(-1, v.shape[2], D), group=group, causal=causal,
                              sm_scale=scale)
         out.copy_(got.reshape(B, H, Sq, D))
         return out
-    return _kernel.flash_attention_cuda(q, k, v, out, group=group, causal=causal, sm_scale=scale)
+
+    if common.on_cpu(q):
+        return plain()
+    return common.run_kernel(
+        "flash_attention", [q, k, v], plain,
+        lambda: _kernel.flash_attention_cuda(q, k, v, out, group=group, causal=causal, sm_scale=scale))
 
 
 def flash_attention(

@@ -34,9 +34,10 @@ def compact_blocks(
 ) -> torch.Tensor:
     """Bucket levels of scalar items → ``(nblocks, cap)`` rows."""
     common.check_memory_space(memory_space)
-    if levels[0].device.type == "cpu":
+    if common.on_cpu(levels[0]):
         return _ref.compact_blocks(levels, b0)
-    return _kernel.compact_blocks_cuda(levels, b0)
+    return common.run_kernel("compact_blocks", list(levels), lambda: _ref.compact_blocks(levels, b0),
+                             lambda: _kernel.compact_blocks_cuda(levels, b0))
 
 
 def segmented_gather(
@@ -45,13 +46,18 @@ def segmented_gather(
     """``(nblocks, cap)`` rows of scalar items + int32 starts/ends → block-major
     ``(nblocks·cap,)`` order (K7); the arena's flatten calls it directly.
     ``instrument=True`` → (out, counter vector)."""
-    if compact.device.type == "cpu":
+    def plain():
         out = _ref.gather_global(compact, starts, ends)
         if instrument:
             return out, _ref.gather_counters(starts, ends, *compact.shape)
         return out
-    return _with_span(_kernel.segmented_gather_cuda(compact, starts, ends, instrument=instrument),
-                      starts, ends, instrument)
+
+    if common.on_cpu(compact):
+        return plain()
+    return common.run_kernel(
+        "segmented_gather", [compact, starts, ends], plain,
+        lambda: _with_span(_kernel.segmented_gather_cuda(compact, starts, ends, instrument=instrument),
+                           starts, ends, instrument))
 
 
 def _with_span(launched, starts: torch.Tensor, ends: torch.Tensor, instrument: bool):
@@ -82,15 +88,20 @@ def flatten_segmented(
     On the card one K7 launch reads the levels (no K6)."""
     common.check_memory_space(memory_space)
     starts, ends = _prefix_tables(sizes)
-    if levels[0].device.type == "cpu":
+    def plain():
         out = _ref.gather_levels(levels, b0, starts, ends)
         if instrument:
             return out, _ref.gather_counters(starts, ends, levels[0].shape[0],
                                              indexing.capacity(b0, len(levels)))
         return out
-    return _with_span(
-        _kernel.segmented_gather_levels_cuda(levels, b0, starts, ends, instrument=instrument),
-        starts, ends, instrument)
+
+    if common.on_cpu(levels[0]):
+        return plain()
+    return common.run_kernel(
+        "segmented_gather", [*levels, starts, ends], plain,
+        lambda: _with_span(
+            _kernel.segmented_gather_levels_cuda(levels, b0, starts, ends, instrument=instrument),
+            starts, ends, instrument))
 
 
 def flatten_dispatch(

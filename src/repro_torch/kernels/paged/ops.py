@@ -71,7 +71,7 @@ def paged_gather(
     if n_slabs == 0:
         out = torch.zeros((N, P * T, *item), dtype=exts[0].dtype, device=exts[0].device)
         return (out, _ref.gather_counters(pages, 0, False)) if instrument else out
-    if exts[0].device.type == "cpu":
+    def plain():
         flat = tuple(_flat_item(e, 2) for e in exts)
         if len(flat) == 1:
             out = _ref.gather_pages(flat[0], pages)
@@ -81,11 +81,16 @@ def paged_gather(
         if instrument:
             return out, _ref.gather_counters(pages, n_slabs, clip_high=len(flat) == 1)
         return out
-    outs = _kernel.paged_gather_cuda(exts, pages.to(torch.int32).contiguous(),
-                                     clip_high=len(exts) == 1, instrument=instrument)
-    if instrument:
-        return outs[0], obs_device.from_block(outs[1])
-    return outs
+
+    def launch():
+        outs = _kernel.paged_gather_cuda(exts, pages.to(torch.int32).contiguous(),
+                                         clip_high=len(exts) == 1, instrument=instrument)
+        return (outs[0], obs_device.from_block(outs[1])) if instrument else outs
+
+    if common.on_cpu(exts[0]):
+        return plain()
+    return common.run_kernel("paged_gather" if len(exts) == 1 else "paged_gather_extents",
+                             [*exts, pages], plain, launch)
 
 
 def paged_attend(
@@ -118,19 +123,24 @@ def paged_attend(
     if n_slabs == 0:
         out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         return (out, plain_counters()) if instrument else out
-    if q.device.type != "cpu":
+    def plain():
+        k1 = k_exts[0] if len(k_exts) == 1 else torch.cat(k_exts, 0)
+        v1 = v_exts[0] if len(v_exts) == 1 else torch.cat(v_exts, 0)
+        out = _ref.attend_paged(q, k1.permute(2, 0, 1, 3), v1.permute(2, 0, 1, 3), pages, lengths)
+        return (out, plain_counters()) if instrument else out
+
+    def launch():
         outs = _kernel.paged_attend_cuda(
             q.to(torch.float32).contiguous(), k_exts, v_exts,
             pages.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous(),
             instrument=instrument,
         )
-        if instrument:
-            return outs[0], obs_device.from_block(outs[1])
-        return outs
-    k1 = k_exts[0] if len(k_exts) == 1 else torch.cat(k_exts, 0)
-    v1 = v_exts[0] if len(v_exts) == 1 else torch.cat(v_exts, 0)
-    out = _ref.attend_paged(q, k1.permute(2, 0, 1, 3), v1.permute(2, 0, 1, 3), pages, lengths)
-    return (out, plain_counters()) if instrument else out
+        return (outs[0], obs_device.from_block(outs[1])) if instrument else outs
+
+    if common.on_cpu(q):
+        return plain()
+    return common.run_kernel("paged_attend" if len(k_exts) == 1 else "paged_attend_extents",
+                             [q, *k_exts, *v_exts, pages, lengths], plain, launch)
 
 
 def slab_append(
@@ -164,20 +174,29 @@ def slab_append(
         out = (ret, sizes, torch.zeros((N, 0), dtype=torch.int32, device=sizes.device))
         return out + (obs_device.zeros(sizes.device),) if instrument else out
     vec = (_ref.append_counters(mask),) if instrument else ()
-    if exts[0].device.type != "cpu":
-        new_sizes, pos = _kernel.slab_append_cuda(
+
+    def plain():
+        flat = [_flat_item(e, 2) for e in exts]
+        pool3 = flat[0] if len(flat) == 1 else torch.cat(flat, 0)
+        new_pool, new_sizes, pos = _ref.slab_append(
+            pool3, owners.to(torch.int32), bases.to(torch.int32), sizes, _flat_item(elems, 2), mask
+        )
+        lo = 0
+        for e, f in zip(exts, flat):
+            f.copy_(new_pool[lo:lo + e.shape[0]])  # f is a view of e: in place
+            lo += e.shape[0]
+        return (*exts, new_sizes, pos)
+
+    def launch():
+        return (*exts, *_kernel.slab_append_cuda(
             exts, owners.to(torch.int32).contiguous(), bases.to(torch.int32).contiguous(),
             sizes.contiguous(), elems.contiguous(), mask.contiguous(),
-        )
-        return (ret, new_sizes, pos, *vec)
-    flat = [_flat_item(e, 2) for e in exts]
-    pool3 = flat[0] if len(flat) == 1 else torch.cat(flat, 0)
-    new_pool, new_sizes, pos = _ref.slab_append(
-        pool3, owners.to(torch.int32), bases.to(torch.int32), sizes, _flat_item(elems, 2), mask
-    )
-    lo = 0
-    for e, f in zip(exts, flat):
-        f.copy_(new_pool[lo:lo + e.shape[0]])  # f is a view of e: in place
-        lo += e.shape[0]
+        ))
+
+    if common.on_cpu(exts[0]):
+        *_, new_sizes, pos = plain()
+    else:
+        *_, new_sizes, pos = common.run_kernel("slab_append", [*exts, owners, bases, sizes, elems, mask],
+                                               plain, launch)
     return (ret, new_sizes, pos, *vec)
 

@@ -52,6 +52,7 @@ def _lib():
         return lib
     lib.rt_push_back.argtypes = [
         _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,  # tables, units, ngroups, nlevels
+        _c, ctypes.c_int,  # level shard counts, shard
         _c, _c, _c, _c, _c,  # mask, sizes, counts, pos_out, new_sizes
         _i64, _i64, _i64, ctypes.c_int, _i64, _c, _c,  # nblocks, m, b0, threads, tiles, ctr, stream
     ]
@@ -98,6 +99,8 @@ def push_back_cuda(
     mask: torch.Tensor,
     *,
     instrument: bool = False,
+    shard: int = 0,
+    nshards: "int | tuple[int, ...]" = 1,
 ) -> tuple:
     """Launch K3 on one payload group → (new sizes, positions[, counter block]).
 
@@ -105,7 +108,8 @@ def push_back_cuda(
     ``sizes``: ``(nblocks,)`` int32; ``elems``: ``(nblocks, m, *item)``;
     ``mask``: ``(nblocks, m)`` bool.  All contiguous, on one CUDA device.
     """
-    return push_back_cuda_multi((levels,), sizes, b0, (elems,), mask, instrument=instrument)
+    return push_back_cuda_multi((levels,), sizes, b0, (elems,), mask, instrument=instrument,
+                                shard=shard, nshards=nshards)
 
 
 def push_back_cuda_multi(
@@ -116,6 +120,8 @@ def push_back_cuda_multi(
     mask: torch.Tensor,
     *,
     instrument: bool = False,
+    shard: int = 0,
+    nshards: "int | tuple[int, ...]" = 1,
 ) -> tuple:
     """Launch K3 once over ``len(level_groups)`` payload groups → (new sizes,
     positions), and with ``instrument`` the counter block.
@@ -124,6 +130,11 @@ def push_back_cuda_multi(
     ``elem_groups[g]`` ``(nblocks, m, *item_g)`` lands in its own levels
     ``level_groups[g]`` (level b ``(nblocks, B0·2^b, *item_g)``, written in
     place) at the same positions — the KV cache's k and v in one launch.
+
+    The shard form: level b is slice ``shard`` of a level split
+    ``nshards_b`` ways along its slots, ``(nblocks, B0·2^b / nshards_b,
+    *item_g)``; the kernel drops a lane outside the slice and shifts the
+    others' slots by ``shard·B0·2^b / nshards_b`` (``ref.push_back``).
     """
     if not 1 <= len(level_groups) <= MAX_GROUPS or len(elem_groups) != len(level_groups):
         raise ValueError(f"push_back: {len(level_groups)} level groups and {len(elem_groups)} "
@@ -142,7 +153,12 @@ def push_back_cuda_multi(
                         shape=(nblocks, m))
     common.check_tensor(sizes, "push_back sizes", device=dev, dtypes=(torch.int32,),
                         shape=(nblocks,))
-    widths = indexing.bucket_sizes(b0, nlevels)
+    shards = common.level_shards(nshards, nlevels)
+    widths = [w // n for w, n in zip(indexing.bucket_sizes(b0, nlevels), shards)]
+    if any(w % n for w, n in zip(indexing.bucket_sizes(b0, nlevels), shards)) or any(
+            n > 1 and not 0 <= shard < n for n in shards):
+        raise ValueError(f"push_back: shard {shard} of level shard counts {shards}: each count "
+                         f"must divide its level and exceed the shard")
     item_bytes, unit_bytes = [], []
     for g, (levels, elems) in enumerate(zip(level_groups, elem_groups)):
         common.check_tensor(elems, f"push_back elems[{g}]", device=dev, dtypes=PAYLOAD_DTYPES)
@@ -176,10 +192,12 @@ def push_back_cuda_multi(
     elem_ptrs = (ctypes.c_void_p * ngroups)(*(e.data_ptr() for e in elem_groups))
     nbytes = (ctypes.c_int64 * ngroups)(*item_bytes)
     units = (ctypes.c_int * ngroups)(*unit_bytes)
+    shard_counts = (ctypes.c_int * nlevels)(*shards)
     with torch.cuda.device(dev):
         rc = lib.rt_push_back(
             ctypes.cast(level_ptrs, _c), ctypes.cast(elem_ptrs, _c),
             ctypes.cast(nbytes, _c), ctypes.cast(units, _c), ngroups, nlevels,
+            ctypes.cast(shard_counts, _c), shard,
             mask.data_ptr(), sizes.data_ptr(), counts.data_ptr() if counts is not None else None,
             pos.data_ptr(), new_sizes.data_ptr(), nblocks, m, b0, plan.threads, plan.tiles,
             block.data_ptr() if block is not None else None, common.stream_of(dev),

@@ -38,6 +38,8 @@ def push_back_fused_multi(
     memory_space: str | None = None,
     dispatch: str = "auto",
     instrument: bool = False,
+    shard: int = 0,
+    nshards: "int | tuple[int, ...]" = 1,
 ) -> tuple:
     """→ (level groups written in place, new sizes (nblocks,), positions (−1 masked)),
     and with ``instrument`` the counter vector.
@@ -45,6 +47,15 @@ def push_back_fused_multi(
     Every group shares the mask and the positions.  On a CUDA device all
     groups go through one launch of K3 (up to four groups).  An empty wave
     (m = 0) launches nothing and counts nothing.
+
+    The shard form: the levels are slice ``shard`` of levels split
+    ``nshards`` ways along their slots (one count, or one a level; a mesh's
+    ``'model'`` axis), and lanes outside the slice write nothing here
+    (``ref.push_back``).  The counters describe the whole wave.
+
+    On fake tensors (``FakeTensorMode``: the dry-run) the shape rule stands
+    in for the launch: the plain version, uncounted, then one noted
+    launch (``common.run_kernel``).
     """
     common.check_memory_space(memory_space)
     common.check_dispatch(dispatch)
@@ -55,23 +66,34 @@ def push_back_fused_multi(
         out = (level_groups, sizes,
                torch.zeros((nblocks, 0), dtype=torch.int32, device=sizes.device))
         return out + (obs_device.zeros(sizes.device),) if instrument else out
-    if sizes.device.type == "cpu":
+    nshards = common.level_shards(nshards, len(level_groups[0]))
+
+    def plain():
         new_sizes = pos = None
         for levels, elems in zip(level_groups, elem_groups):
-            _, new_sizes, pos = _ref.push_back(levels, sizes, b0, elems, mask)
+            _, new_sizes, pos = _ref.push_back(levels, sizes, b0, elems, mask, shard=shard,
+                                               nshards=nshards)
         if instrument:
             vec = _ref.counters(mask, sizes, b0, len(level_groups[0]))
             return level_groups, new_sizes, pos, vec
         return level_groups, new_sizes, pos
-    outs = _kernel.push_back_cuda_multi(
-        level_groups, sizes.to(torch.int32).contiguous(), b0,
-        tuple(e.contiguous() for e in elem_groups), mask.contiguous(), instrument=instrument,
-    )
-    if instrument:
-        new_sizes, pos, block = outs
-        return level_groups, new_sizes, pos, obs_device.from_block(block)
-    new_sizes, pos = outs
-    return level_groups, new_sizes, pos
+
+    def launch():
+        outs = _kernel.push_back_cuda_multi(
+            level_groups, sizes.to(torch.int32).contiguous(), b0,
+            tuple(e.contiguous() for e in elem_groups), mask.contiguous(), instrument=instrument,
+            shard=shard, nshards=nshards,
+        )
+        if instrument:
+            new_sizes, pos, block = outs
+            return level_groups, new_sizes, pos, obs_device.from_block(block)
+        return (level_groups, *outs)
+
+    if common.on_cpu(sizes):
+        return plain()
+    levels_all = [lv for levels in level_groups for lv in levels]
+    return common.run_kernel(_kernel.launch_name(len(level_groups)),
+                             [*levels_all, sizes, *elem_groups, mask], plain, launch)
 
 
 def push_back_fused(

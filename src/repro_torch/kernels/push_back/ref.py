@@ -17,20 +17,29 @@ __all__ = ["push_back", "counters"]
 
 
 def push_back(
-    levels: tuple[torch.Tensor, ...],  # level b: (nblocks, B0·2^b, *item)
+    levels: tuple[torch.Tensor, ...],  # level b: (nblocks, B0·2^b / nshards_b, *item)
     sizes: torch.Tensor,  # (nblocks,) int32
     b0: int,
     elems: torch.Tensor,  # (nblocks, m, *item)
     mask: torch.Tensor,  # (nblocks, m) bool
+    *,
+    shard: int = 0,
+    nshards: "int | tuple[int, ...]" = 1,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
-    """→ (levels written in place, new sizes, positions (−1 where masked out))."""
+    """→ (levels written in place, new sizes, positions (−1 where masked out)).
+
+    The shard form (``common.scatter_levels_``): ``levels`` are slice
+    ``shard`` of levels split ``nshards`` ways along their slots (one count,
+    or one a level); a lane outside the slice writes nothing here, and
+    sizes and positions are the whole wave's.  ``nshards=1`` is the whole
+    level."""
     mask_i = mask.to(torch.int32)
     inclusive = torch.cumsum(mask_i, dim=-1, dtype=torch.int32)
     offsets = inclusive - mask_i
     m = mask.shape[1]
     counts = inclusive[:, -1] if m else torch.zeros_like(sizes)
     pos = sizes.to(torch.int32)[:, None] + offsets
-    common.scatter_levels_(levels, b0, pos, mask, elems)
+    common.scatter_levels_(levels, b0, pos, mask, elems, shard=shard, nshards=nshards)
     return levels, sizes + counts, torch.where(mask, pos, -1)
 
 

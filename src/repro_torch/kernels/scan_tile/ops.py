@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.scan_tile import kernel as _kernel
 from repro_torch.kernels.scan_tile import ref as _ref
 
@@ -17,6 +18,7 @@ def row_scan(x: torch.Tensor) -> torch.Tensor:
     """Per-row inclusive prefix sum of ``x: (rows, cols)``."""
     if x.ndim != 2:
         raise ValueError(f"expected (rows, cols), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if common.on_cpu(x):
         return _ref.row_scan(x)
-    return _kernel.row_scan_cuda(x.contiguous())
+    return common.run_kernel("row_scan", [x], lambda: _ref.row_scan(x),
+                             lambda: _kernel.row_scan_cuda(x.contiguous()))

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import constrain, is_dtensor
 from repro_torch.models.modules import Param, apply_rope, dense_init, rms_norm, rope
 
 __all__ = [
@@ -60,7 +60,7 @@ def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
 def _xla_attention(q, k, v, *, group, causal, q_offset=0):
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    qr = q.reshape(B, Sq, KH, group, Dh).to(_F32)
+    qr = _group_heads(q, KH, group)
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.to(_F32)) * (Dh ** -0.5)
     if causal:
         qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -68,14 +68,17 @@ def _xla_attention(q, k, v, *, group, causal, q_offset=0):
         s = torch.where(mask[None, None, None], s, MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(_F32))
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    return _pinned_reshape(out, (B, Sq, H, Dh)).to(q.dtype)
 
 
-def _state0(B, Sq, KH, G, Dh, device) -> SoftmaxState:
+def _state0(qr: torch.Tensor) -> SoftmaxState:
+    """The empty online-softmax state of grouped queries ``qr`` (B, Sq, KH,
+    G, Dh) f32, laid out as ``qr`` is (on a mesh, each rank its shard)."""
+    lead = qr[..., 0]
     return SoftmaxState(
-        m=torch.full((B, Sq, KH, G), MASK_VALUE, dtype=_F32, device=device),
-        l=torch.zeros((B, Sq, KH, G), dtype=_F32, device=device),
-        acc=torch.zeros((B, Sq, KH, G, Dh), dtype=_F32, device=device),
+        m=torch.full_like(lead, MASK_VALUE),
+        l=torch.zeros_like(lead),
+        acc=torch.zeros_like(qr),
     )
 
 
@@ -92,6 +95,50 @@ def softmax_update(state: SoftmaxState, qr, kk, vv, live) -> SoftmaxState:
     return SoftmaxState(m_new, l, state.acc * alpha[..., None] + pv)
 
 
+def _group_heads(q: torch.Tensor, kh: int, group: int) -> torch.Tensor:
+    """(B, S, H, Dh) → (B, S, KH, G, Dh) f32.  On a mesh whose ``'model'``
+    axis shards the heads but not the KH kv heads, DTensor cannot split the
+    heads dim: the heads first move off ``'model'`` onto the sequence, the
+    layout the blockwise walk wants next anyway."""
+    if is_dtensor(q):
+        n = 1
+        for d, p in enumerate(q.placements):
+            if p.is_shard(2):
+                n *= q.device_mesh.size(d)
+        if kh % n:
+            q = constrain(q, ("batch", "seq", None, None))
+    B, Sq, _, Dh = q.shape
+    return q.reshape(B, Sq, kh, group, Dh).to(_F32)
+
+
+class _PinnedReshape(torch.autograd.Function):
+    """``x.reshape(shape)`` of a ``DTensor`` whose backward lays the
+    gradient out as the output was laid out before reshaping it back.  A
+    gradient arriving in another layout may not reshape cleanly: heads
+    sharded over ``'model'`` cannot be split into (KH, G) again
+    (``_group_heads``), and KV chunks sharded within make a strided shard
+    of the sequence that a later redistribution cannot undo on fake
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = x.shape
+        out = x.reshape(shape)
+        ctx.placements = tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g.reshape(ctx.in_shape), None
+
+
+def _pinned_reshape(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``x.reshape(shape)``; on a ``DTensor``, ``_PinnedReshape``."""
+    return _PinnedReshape.apply(x, shape) if is_dtensor(x) else x.reshape(shape)
+
+
 def _blockwise_attention(q, k, v, *, group, causal, chunk, q_offset=0):
     """Flash attention in plain PyTorch: loop over KV chunks, carry softmax state."""
     B, Sq, H, Dh = q.shape
@@ -100,14 +147,16 @@ def _blockwise_attention(q, k, v, *, group, causal, chunk, q_offset=0):
     pad = (-Skv) % chunk
     k, v = _pad_seq(k, pad), _pad_seq(v, pad)
     n_chunks = k.shape[1] // chunk
-    qr = q.reshape(B, Sq, KH, group, Dh).to(_F32) * (Dh ** -0.5)
+    qr = _group_heads(q, KH, group) * (Dh ** -0.5)
     # q stays seq-sharded; each KV chunk is small and streamed per step
     qr = constrain(qr, ("batch", "seq", None, None, None))
-    kc = constrain(k.reshape(B, n_chunks, chunk, KH, Dh).movedim(1, 0), (None, "batch", None, None, None))
-    vc = constrain(v.reshape(B, n_chunks, chunk, KH, Dh).movedim(1, 0), (None, "batch", None, None, None))
+    kc = constrain(_pinned_reshape(k, (B, n_chunks, chunk, KH, Dh)).movedim(1, 0),
+                   (None, "batch", None, None, None))
+    vc = constrain(_pinned_reshape(v, (B, n_chunks, chunk, KH, Dh)).movedim(1, 0),
+                   (None, "batch", None, None, None))
     dev = q.device
     qpos = q_offset + torch.arange(Sq, device=dev)
-    state = _state0(B, Sq, KH, group, Dh, dev)
+    state = _state0(qr)
     for ci in range(n_chunks):
         kpos = ci * chunk + torch.arange(chunk, device=dev)
         live = kpos < Skv
@@ -118,7 +167,7 @@ def _blockwise_attention(q, k, v, *, group, causal, chunk, q_offset=0):
             live = live[None, None, None, None, :]
         state = softmax_update(state, qr, kc[ci], vc[ci], live)
     out = state.acc / torch.clamp(state.l[..., None], min=1e-30)
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    return _pinned_reshape(out, (B, Sq, H, Dh)).to(q.dtype)
 
 
 def _merge_states(a: SoftmaxState, b: SoftmaxState) -> SoftmaxState:
@@ -140,7 +189,7 @@ def _rect_state(qr, k, v, chunk):
     pad = (-Skv) % chunk
     k, v = _pad_seq(k, pad), _pad_seq(v, pad)
     dev = qr.device
-    state = _state0(B, Sq, KH, G, Dh, dev)
+    state = _state0(qr)
     for ci in range(k.shape[1] // chunk):
         live = (ci * chunk + torch.arange(chunk, device=dev)) < Skv
         state = softmax_update(state, qr, k[:, ci * chunk:(ci + 1) * chunk],
@@ -179,13 +228,13 @@ def _causal_tri_state(qr, k, v, chunk, q_offset=0):
 def _blockwise_tri_attention(q, k, v, *, group, causal, chunk, q_offset=0):
     B, Sq, H, Dh = q.shape
     KH = k.shape[2]
-    qr = q.reshape(B, Sq, KH, group, Dh).to(_F32) * (Dh ** -0.5)
+    qr = _group_heads(q, KH, group) * (Dh ** -0.5)
     if not causal or Sq != k.shape[1]:
         state = _rect_state(qr, k, v, chunk)
     else:
         state = _causal_tri_state(qr, k, v, chunk, q_offset)
     out = state.acc / torch.clamp(state.l[..., None], min=1e-30)
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    return _pinned_reshape(out, (B, Sq, H, Dh)).to(q.dtype)
 
 
 def _pallas_attention(q, k, v, *, group, causal):
@@ -258,9 +307,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *
     return p
 
 
+def _split_head_dim(w: torch.Tensor, h_dim: int) -> bool:
+    """True for a ``DTensor`` weight whose head_dim (dim ``h_dim + 1``) a
+    mesh dim shards under more than one head (dim ``h_dim``): flattening
+    (heads, head_dim) then mixes a whole dim with a sharded one, which
+    DTensor cannot unflatten again (the heads did not divide over
+    ``'model'``, ``sharding.logical_rules``)."""
+    return (is_dtensor(w) and w.shape[h_dim] > 1
+            and any(p.is_shard(h_dim + 1) for p in w.placements))
+
+
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads; one
+    a head where the heads' head_dim is sharded (``_split_head_dim``)."""
     d, h, k = w.shape
+    if _split_head_dim(w, 1):
+        return torch.stack([x @ w[:, j] for j in range(h)], dim=-2)
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
@@ -280,7 +342,14 @@ def project_qkv(p: Param, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
 
 
 def project_out(p: Param, attn_out: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads; a
+    sum of one a head where the heads' head_dim is sharded."""
     h, k, d = p["wo"].shape
+    if _split_head_dim(p["wo"], 0):
+        out = attn_out[..., 0, :] @ p["wo"][0]
+        for j in range(1, h):
+            out = out + attn_out[..., j, :] @ p["wo"][j]
+        return out
     return attn_out.reshape(*attn_out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
 
 

@@ -11,7 +11,9 @@ computed by ``core.insertion.insertion_offsets`` under
 Two execution paths, chosen as the reference chooses them:
 
 ``_moe_local``   — one global (E·C, D) buffer: no mesh, or sizes that do
-    not divide over it.
+    not divide over it (decode's S = 1).  On ``DTensor`` activations every
+    rank routes all tokens in a ``local_map`` region and the expert FFN runs
+    on the expert-sharded weights (``_moe_local_mesh``).
 ``_moe_sharded`` — under a mesh with a ``'model'`` axis: each shard routes
     its own (B/dp, S/tp) tokens and runs the insertion scan shard-locally
     (one LFVector set a shard, capacity ``expert_capacity(moe, T_local)``,
@@ -132,6 +134,8 @@ def _combine(out_buf: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor, T: i
 
 def _moe_local(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """One global buffer — one device, and shapes that do not divide over a mesh."""
+    if is_dtensor(x):
+        return _moe_local_mesh(p, x, cfg)
     moe = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -141,6 +145,37 @@ def _moe_local(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     out = _combine(_expert_ffn(p, buf), slot, gate, T)
     aux = moe.n_experts * torch.sum(density * router_prob) * moe.top_k
     return out.reshape(B, S, D), aux
+
+
+def _moe_local_mesh(p: Param, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_local`` on ``DTensor`` activations (decode: S = 1 does not
+    divide over ``'model'``).  Every rank routes and packs all B·S tokens in
+    a ``local_map`` region, so the capacity and the drops are the global
+    ones the reference's ``_moe_local`` gets under GSPMD; the expert FFN runs
+    as ``DTensor`` products on the expert-sharded weights; the combine is a
+    region again, on the gathered expert rows."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.context import local_region
+
+    moe = cfg.moe
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    B, S, D = x.shape
+    T = B * S
+    C = expert_capacity(moe, T)
+
+    def route_block(xl, router):
+        buf, slot, gate, (density, router_prob) = _route_and_pack({"router": router}, xl.reshape(T, D),
+                                                                  cfg, C)
+        return buf, slot, gate, density, router_prob
+
+    buf, slot, gate, density, router_prob = local_region(route_block, mesh, (rep, rep), (rep,) * 5)(
+        x, p["router"])
+    out = _expert_ffn(p, buf)
+    y = local_region(lambda ob, sl, g: _combine(ob, sl, g, T).reshape(B, S, D), mesh, (rep, rep, rep),
+                     rep)(out, slot, gate)
+    return y, moe.n_experts * torch.sum(density * router_prob) * moe.top_k
 
 
 class _MeshMean(torch.autograd.Function):
@@ -225,12 +260,16 @@ def _moe_sharded(p: Param, x: torch.Tensor, cfg: ModelConfig, mesh) -> tuple[tor
 
     args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
     if not is_dtensor(x):
-        if mesh.size() != 1:
-            raise NotImplementedError(
-                "MoE on a multi-rank mesh needs DTensor activations; sharded serving with "
-                "plain tensors is ROADMAP item 23")
-        return local_block(*args)
-    from torch.distributed.tensor.experimental import local_map
+        if mesh.size() == 1:
+            return local_block(*args)
+        # plain activations every rank holds alike: the same block on them
+        # as replicated DTensors, the result handed back plain
+        from repro_torch.distributed.context import as_dtensor
+
+        rep = [Replicate()] * mesh.ndim
+        y, aux = _moe_sharded(p, as_dtensor(x, mesh), cfg, mesh)
+        return y.redistribute(mesh, rep).to_local(), aux.redistribute(mesh, rep).to_local()
+    from repro_torch.distributed.context import local_region
 
     xplace = placements((dp or None, "model", None), mesh)
     wplace = placements(("model", None, None), mesh)
@@ -238,14 +277,8 @@ def _moe_sharded(p: Param, x: torch.Tensor, cfg: ModelConfig, mesh) -> tuple[tor
     # a replicated input's gradient is each shard's partial sum, as the
     # reference's shard_map transposes an unmapped input
     wgrad = [p_ if p_.is_shard() else Partial() for p_ in wplace]
-    run = local_map(
-        local_block,
-        out_placements=(xplace, rep),
-        in_placements=(xplace, rep, wplace, wplace, wplace),
-        in_grad_placements=(xplace, [Partial()] * len(names), wgrad, wgrad, wgrad),
-        device_mesh=mesh,
-        redistribute_inputs=True,
-    )
+    run = local_region(local_block, mesh, (xplace, rep, wplace, wplace, wplace), (xplace, rep),
+                       (xplace, [Partial()] * len(names), wgrad, wgrad, wgrad))
     return run(*args)
 
 

@@ -183,8 +183,11 @@ def forward(
             sp = pp[slot]
             mkv = None
             if memory is not None and kind == "attn":
-                mkv = (attn_mod.project_heads(memory, sp["cross"]["wk"]),
-                       attn_mod.project_heads(memory, sp["cross"]["wv"]))
+                # laid out as the self-attention's k and v (project_qkv): the
+                # memory's sequence sharding would reach the KV chunks' split
+                axes = ("batch", None, "kv_heads", None)
+                mkv = (constrain(attn_mod.project_heads(memory, sp["cross"]["wk"]), axes),
+                       constrain(attn_mod.project_heads(memory, sp["cross"]["wv"]), axes))
             x, a = _apply_slot(sp, x, kind, slot, cfg, positions, mkv)
             if a is not None:
                 aux = aux + a

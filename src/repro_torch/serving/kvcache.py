@@ -58,6 +58,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import indexing
 from repro_torch.device import resolve
+from repro_torch.distributed.context import as_dtensor, is_dtensor, local_region, rank_index
 from repro_torch.kernels import common
 from repro_torch.models.attention import MASK_VALUE, SoftmaxState, softmax_update
 from repro_torch.obs import device as obs_device
@@ -414,7 +415,23 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
     their bf16 scales).  The reference picks its plain scan path for
     one-lane waves from a TPU crossover (``kvcache.py:456``); that choice has
     no counterpart here.  ``cfg.kernel_memory_space`` is checked and inert.
+
+    On a mesh (the cache's tensors ``DTensor``s placed by
+    ``sharding.cache_specs``) the write runs in a ``local_map`` region:
+    each rank writes the lanes whose position falls in its slice of a
+    level split over ``'model'`` — K3's shard form — and a level that is
+    not split on every rank (:func:`_sharded`).
     """
+    if _mesh_of(cache) is not None:
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=k.device).expand(k.shape[0])
+        return _sharded(_append_local, cache, (k, v, pos), cfg)
+    return _append_local(cache, k, v, pos, cfg)
+
+
+def _append_local(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig | None = None,
+                  shard: int = 0, nshards: "int | tuple[int, ...]" = 1) -> Cache:
+    """:func:`append` on plain tensors; ``shard``/``nshards``: the slice of
+    each level (or of the static buffer) these tensors hold."""
     B = k.shape[0]
     dev = k.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
@@ -446,12 +463,14 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
     if not _is_ggarray(cache):  # static: writes at or past the capacity drop
         cap = cache["k"].shape[-3]
         rows = torch.arange(B, device=dev)
-        ok = (pos >= 0) & (pos < cap)
-        common.put_drop_(cache["k"], (rows, pos), ok, k[:, 0])
-        common.put_drop_(cache["v"], (rows, pos), ok, v[:, 0])
+        n = common.level_shards(nshards, 1)[0]
+        at = pos - (shard * cap if n > 1 else 0)  # this slice: [shard·cap, (shard+1)·cap)
+        ok = (at >= 0) & (at < cap)
+        common.put_drop_(cache["k"], (rows, at), ok, k[:, 0])
+        common.put_drop_(cache["v"], (rows, at), ok, v[:, 0])
         if quant:
-            common.put_drop_(cache["ks"], (rows, pos), ok, k_s[:, 0])
-            common.put_drop_(cache["vs"], (rows, pos), ok, v_s[:, 0])
+            common.put_drop_(cache["ks"], (rows, at), ok, k_s[:, 0])
+            common.put_drop_(cache["vs"], (rows, at), ok, v_s[:, 0])
         return cache
     from repro_torch.kernels.push_back import ops as push_back_ops
 
@@ -460,11 +479,12 @@ def append(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, cfg: ModelConfig
     groups = tuple(tuple(cache[f"{base}{lvl}"] for lvl in range(n)) for base in bases)
     payloads = (k, v, k_s, v_s) if quant else (k, v)
     inst = cfg is not None and cfg.instrument
+    nshards = common.level_shards(nshards, n)
     outs = push_back_ops.push_back_fused_multi(
-        groups, pos, cache["k0"].shape[-3], payloads,
+        groups, pos, cache["k0"].shape[-3] * nshards[0], payloads,
         torch.ones((B, 1), dtype=torch.bool, device=dev),
         memory_space=cfg.kernel_memory_space if cfg is not None else None,
-        instrument=inst,
+        instrument=inst, shard=shard, nshards=nshards,
     )
     if inst:
         obs_device.record(outs[3])
@@ -496,7 +516,26 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
     """q: (B, 1, H, Dh); ``length``: live entries per sequence ((B,) or ()).
     → (B, 1, H, Dh) in ``q.dtype``.  ggarray: one partial-softmax pass per
     bucket level, merged online.  static/frozen: one pass.  paged: the geometric page-group walk, or
-    K10/K11 under ``paged_attend_impl="pallas"``."""
+    K10/K11 under ``paged_attend_impl="pallas"``.
+
+    On a mesh each rank walks its slices of the levels split over
+    ``'model'`` at their global key positions, and the partial states
+    ``(m, l, acc)`` are merged over ``'model'`` (the flash-decode layout
+    ``cache_specs`` names); the levels that are not split follow, on every
+    rank (:func:`_sharded`)."""
+    if _mesh_of(cache) is not None:
+        B = q.shape[0]
+        lens = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
+        return _sharded(_attend_local, cache, (q, lens), cfg, attend=True)
+    return _attend_local(cache, q, length, cfg)
+
+
+def _attend_local(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig, shard: int = 0,
+                  nshards: "int | tuple[int, ...]" = 1, merge=None) -> torch.Tensor:
+    """:func:`attend` on plain tensors.  ``shard``/``nshards``: the slice of
+    each level (or of the static buffer) these tensors hold; ``merge``
+    combines the split slices' partial states across the ranks holding the
+    others."""
     B, _, H, Dh = q.shape
     kh = cfg.n_kv_heads
     g = H // kh
@@ -514,16 +553,24 @@ def attend(cache: Cache, q: torch.Tensor, length, cfg: ModelConfig) -> torch.Ten
         return out.reshape(B, 1, H, Dh).to(q.dtype)
     if _is_ggarray(cache):
         n = _levels(cache)
-        starts = indexing.bucket_starts(cache["k0"].shape[-3], n)
-        for lvl in range(n):
-            kk, vv = _kv_of(quant, cache[f"k{lvl}"], cache[f"v{lvl}"],
-                            cache.get(f"ks{lvl}"), cache.get(f"vs{lvl}"))
-            kpos = int(starts[lvl]) + torch.arange(kk.shape[-3], device=dev)
-            state = _partial_scores(qf, kk, vv, kpos, length, state)
+        shards = common.level_shards(nshards, n)
+        b0 = cache["k0"].shape[-3] * shards[0]
+        segs = [(f"k{lvl}", f"v{lvl}", f"ks{lvl}", f"vs{lvl}", int(lo), shards[lvl])
+                for lvl, lo in enumerate(indexing.bucket_starts(b0, n))]
     else:  # static or frozen: one segment, one softmax pass
-        kk, vv = _kv_of(quant, cache["k"], cache["v"], cache.get("ks"), cache.get("vs"))
-        kpos = torch.arange(kk.shape[-3], device=dev)
-        state = _partial_scores(qf, kk, vv, kpos, length, state)
+        segs = [("k", "v", "ks", "vs", 0, common.level_shards(nshards, 1)[0])]
+    # the split slices first, merged over the ranks holding the others,
+    # then the whole segments every rank holds
+    for split in (True, False):
+        for kk_, vv_, ks_, vs_, lo, n in segs:
+            if (n > 1) != split:
+                continue
+            kk, vv = _kv_of(quant, cache[kk_], cache[vv_], cache.get(ks_), cache.get(vs_))
+            w = kk.shape[-3]
+            kpos = lo + (shard * w if n > 1 else 0) + torch.arange(w, device=dev)
+            state = _partial_scores(qf, kk, vv, kpos, length, state)
+        if split and merge is not None and any(seg[-1] > 1 for seg in segs):
+            state = merge(state)
     m, l, acc = state
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, 1, H, Dh).to(q.dtype)
@@ -732,7 +779,17 @@ def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) 
     ggarray: bucket b receives the contiguous slice [start_b, start_b+len_b).
     paged: page p takes positions [p·T, (p+1)·T); rows whose page is
     unclaimed drop.  An int8 cache takes the codes and their scales.
+    On a mesh each rank fills its slices (:func:`_sharded`).
     """
+    if _mesh_of(cache) is not None:
+        return _sharded(_fill_local, cache, (k_full, v_full), None)
+    return _fill_local(cache, k_full, v_full)
+
+
+def _fill_local(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor, cfg=None, shard: int = 0,
+                nshards: "int | tuple[int, ...]" = 1) -> Cache:
+    """:func:`fill_from_prefill` on plain tensors holding slice ``shard`` of
+    each level split ``nshards`` ways (one count, or one a level)."""
     S = k_full.shape[1]
     full = {"k": k_full, "v": v_full}
     if _is_quant(cache):
@@ -747,18 +804,98 @@ def fill_from_prefill(cache: Cache, k_full: torch.Tensor, v_full: torch.Tensor) 
                 _scatter_slab(cache[f"{base}_pool"], slab, _pad1(x[:, p * T:(p + 1) * T], T))
         return cache
     if not _is_ggarray(cache):  # static: the first min(S, cap) positions
-        n = min(S, cache["k"].shape[-3])
+        w = cache["k"].shape[-3]
+        lo = shard * w if common.level_shards(nshards, 1)[0] > 1 else 0
+        n = min(S - lo, w)
         for base, x in full.items():
-            cache[base][:, :n] = x[:, :n]
+            if n > 0:
+                cache[base][:, :n] = x[:, lo:lo + n]
         return cache
     nlev = _levels(cache)
-    b0 = cache["k0"].shape[-3]
-    for lvl, (lo, size) in enumerate(zip(indexing.bucket_starts(b0, nlev),
-                                         indexing.bucket_sizes(b0, nlev))):
-        lo = int(lo)
-        if lo >= S:
-            break
-        n = min(int(size), S - lo)
+    shards = common.level_shards(nshards, nlev)
+    b0 = cache["k0"].shape[-3] * shards[0]
+    for lvl, start in enumerate(indexing.bucket_starts(b0, nlev)):
+        w = cache[f"k{lvl}"].shape[-3]
+        lo = int(start) + (shard * w if shards[lvl] > 1 else 0)
+        n = min(w, S - lo)
+        if n <= 0:
+            continue
         for base, x in full.items():
             cache[f"{base}{lvl}"][:, :n] = x[:, lo:lo + n]
     return cache
+
+
+# --------------------------------------------------------------------------
+# On a mesh: the cache ops in local_map regions.
+# --------------------------------------------------------------------------
+
+def _mesh_of(cache: Cache):
+    """The ``DeviceMesh`` of a cache slot whose tensors are ``DTensor``s, else None."""
+    for val in cache.values():
+        if is_dtensor(val):
+            return val.device_mesh
+    return None
+
+
+def _slot_split(t) -> tuple[int, int]:
+    """(this rank's slice, slice count) of a cache tensor's slot dim (dim 1
+    of a period's ``(B, L, …)``) over the mesh dims that shard it."""
+    mesh = t.device_mesh
+    dims = [d for d, p in enumerate(t.placements) if p.is_shard(1)]
+    n = 1
+    for d in dims:
+        n *= mesh.size(d)
+    return rank_index(mesh, dims), n
+
+
+def _sharded(fn, cache: Cache, args: tuple, cfg, *, attend: bool = False):
+    """Run ``fn(local cache, *local args, cfg, shard, nshards)`` on each
+    rank in a ``local_map`` region → ``cache`` (written in place), or with
+    ``attend`` ``fn``'s one output in the batch layout (``fn`` then also
+    gets ``merge``, which reduces the split slices' softmax states over the
+    ranks holding the others).  ``args`` (tensors with a leading batch dim)
+    arrive with the cache's batch layout, whole along every other dim; the
+    cache's tensors arrive as they are placed.  The slot dim's split is
+    read from each level's placement: a level whose slots do not divide
+    over ``'model'`` is whole on every rank."""
+    if _is_paged(cache):
+        raise NotImplementedError("a paged cache on a mesh is not ported: the BatchEngine runs on one card")
+    from torch.distributed.tensor import Replicate
+
+    keys = [key for key, val in cache.items() if is_dtensor(val)]
+    level_keys = [f"k{lvl}" for lvl in range(_levels(cache))] if _is_ggarray(cache) else ["k"]
+    mesh = cache[level_keys[0]].device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in cache[level_keys[0]].placements]
+    splits = [_slot_split(cache[key]) for key in level_keys]
+    shard = next((i for i, n in splits if n > 1), 0)
+    nshards = tuple(n for _, n in splits)
+    split = next((cache[key] for key, (_, n) in zip(level_keys, splits) if n > 1), None)
+    groups = [] if split is None else [mesh.get_group(d) for d, p in enumerate(split.placements)
+                                       if p.is_shard(1)]
+
+    def merge(state):
+        import torch.distributed._functional_collectives as funcol
+
+        m, l, acc = state
+        m_all = m
+        for g in groups:
+            m_all = funcol.all_reduce(m_all, "max", g)
+        a = torch.exp(m - m_all)
+        l, acc = l * a, acc * a[..., None]
+        for g in groups:
+            l = funcol.all_reduce(l, "sum", g)
+            acc = funcol.all_reduce(acc, "sum", g)
+        return m_all, l, acc
+
+    def body(*local):
+        lc = dict(zip(keys, local[len(args):]))
+        if attend:
+            return fn(lc, *local[:len(args)], cfg, shard, nshards, merge)
+        fn(lc, *local[:len(args)], cfg, shard, nshards)
+        return None
+
+    args = tuple(as_dtensor(a, mesh) for a in args)
+    region = local_region(body, mesh, (*(rows,) * len(args), *(cache[key].placements for key in keys)),
+                          rows if attend else (None,))
+    got = region(*args, *(cache[key] for key in keys))
+    return got if attend else cache

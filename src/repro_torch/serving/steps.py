@@ -19,6 +19,15 @@ device data, no transfer.
 Every step runs under ``torch.no_grad()``: parameters that require grad (a
 ``train.step.TrainState``'s) serve as they are, and no graph is built
 across decode steps.
+
+On a mesh (``DTensor`` parameters and tokens under ``activation_mesh``)
+the reference's GSPMD placement is written out: ``prefill`` returns its
+caches placed by ``sharding.cache_specs`` (levels sharded on their slots
+over ``'model'``, batch over the data axes, Mamba's conv and SSD states on
+channels and heads), ``init_decode_caches(mesh=...)`` places them the same
+way, and the cache ops run in ``local_map`` regions (``kvcache``).  State
+writes go through :func:`_copy_into`, which lays the new state out as the
+cache holds it.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import active_mesh, as_dtensor, constrain, is_dtensor, placed_zeros
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import inner_attention, project_heads, project_out, project_qkv
 from repro_torch.models.mlp import mlp_block
@@ -37,6 +46,7 @@ from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import DTYPES, check_supported, layer_params
 from repro_torch.obs import device as obs_device
 from repro_torch.serving import kvcache
+from repro_torch.tree import tree_map
 
 __all__ = [
     "prefill",
@@ -79,6 +89,26 @@ def _scope(cfg: ModelConfig):
     return obs_device.tape() if cfg.instrument else contextlib.nullcontext()
 
 
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a ``DTensor`` ``dst`` takes ``src`` laid out as
+    ``dst`` is, each rank writing its own shard in place."""
+    if is_dtensor(dst):
+        src = as_dtensor(src, dst.device_mesh).redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
+def _placed(caches: list, cfg: ModelConfig, mesh, device) -> list:
+    """Zero caches of the shapes and dtypes of ``caches`` (shape-only:
+    built on ``meta``) as ``DTensor``s placed by ``cache_specs`` on
+    ``mesh``, each rank allocating its own shards on ``device``."""
+    from repro_torch.distributed.sharding import cache_specs
+
+    return tree_map(lambda t, spec: placed_zeros(tuple(t.shape), t.dtype, device, mesh, spec),
+                    caches, cache_specs(caches, cfg, mesh))
+
+
 def _with_counters(cfg: ModelConfig, out: tuple, t, device) -> tuple:
     """Append the tape's total to a step's outputs when ``cfg.instrument``."""
     return (*out, t.total(device)) if cfg.instrument else out
@@ -114,17 +144,21 @@ def prefill(
     cap = capacity_hint if capacity_hint is not None else S
     positions = torch.arange(S, device=dev)[None, :]
     P = cfg.n_periods
+    mesh = active_mesh() if is_dtensor(x) else None
+    at = "meta" if mesh is not None else dev  # shapes only, placed below
     caches = []
     for kind in cfg.layout:
         if kind == "mamba":
-            caches.append(ssm_mod.init_mamba_state(cfg, B, x.dtype, dev, lead=(P,))._asdict())
+            caches.append(ssm_mod.init_mamba_state(cfg, B, x.dtype, at, lead=(P,))._asdict())
             continue
-        c = kvcache.init_cache(cfg, B, cap, policy, stack=P, device=dev)
+        c = kvcache.init_cache(cfg, B, cap, policy, stack=P, device=at)
         if memory is not None:
             shape = (P, B, memory.shape[1], cfg.n_kv_heads, cfg.head_dim)
-            c["cross_k"] = x.new_zeros(shape)
-            c["cross_v"] = x.new_zeros(shape)
+            c["cross_k"] = torch.zeros(shape, dtype=x.dtype, device=at)
+            c["cross_v"] = torch.zeros(shape, dtype=x.dtype, device=at)
         caches.append(c)
+    if mesh is not None:
+        caches = _placed(caches, cfg, mesh, dev)
     with _scope(cfg) as t:
         for i in range(P):
             x = constrain(x, ("batch", "seq", None))
@@ -135,8 +169,8 @@ def prefill(
                 if kind == "mamba":
                     y, st = ssm_mod.mamba_block(sp["mamba"], h, cfg, return_state=True)
                     x = x + y
-                    c["conv"].copy_(st.conv)
-                    c["ssd"].copy_(st.ssd)
+                    _copy_into(c["conv"], st.conv)
+                    _copy_into(c["ssd"], st.ssd)
                     continue
                 q, k, v = project_qkv(sp["attn"], h, cfg, positions)
                 x = x + project_out(sp["attn"], inner_attention(q, k, v, cfg, causal=True))
@@ -147,8 +181,8 @@ def prefill(
                     cv = project_heads(memory, sp["cross"]["wv"])
                     x = _cross(sp, x, ck, cv, cfg,
                                lambda q_, k_, v_: inner_attention(q_, k_, v_, cfg, causal=False))
-                    c["cross_k"].copy_(ck)
-                    c["cross_v"].copy_(cv)
+                    _copy_into(c["cross_k"], ck)
+                    _copy_into(c["cross_v"], cv)
                 x = _mlp_or_moe(sp, x, slot, cfg)
     if lengths is None:
         last = x[:, -1]
@@ -214,11 +248,17 @@ def init_decode_caches(
     policy: str | None = None,
     enc_len: int | None = None,
     device: "torch.device | str | None" = None,
+    mesh=None,
 ) -> list:
     """Empty period-stacked caches sized for a context of ``length_hint``
     (Mamba slots: zero states; ``enc_len``: zero cross K/V in an
-    encoder–decoder); ``device=None`` means the card (``device.resolve``)."""
+    encoder–decoder); ``device=None`` means the card (``device.resolve``).
+    With ``mesh``: ``DTensor``s placed by ``sharding.cache_specs``, each rank
+    allocating its own shards."""
     device = resolve(device)
+    if mesh is not None:
+        return _placed(init_decode_caches(cfg, batch, length_hint, policy=policy, enc_len=enc_len,
+                                          device="meta"), cfg, mesh, device)
     check_supported(cfg)
     P = cfg.n_periods
     caches = []
@@ -273,8 +313,8 @@ def decode_step(
                         keep = active[:, None, None]
                         new_conv = torch.where(keep, new_conv, c["conv"])
                         new_ssd = torch.where(keep[..., None], new_ssd, c["ssd"])
-                    c["conv"].copy_(new_conv)
-                    c["ssd"].copy_(new_ssd)
+                    _copy_into(c["conv"], new_conv)
+                    _copy_into(c["ssd"], new_ssd)
                     continue
                 q, k, v = project_qkv(sp["attn"], h, cfg, positions)
                 kv = {key: val for key, val in c.items() if not key.startswith("cross")}

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.distributed.context import constrain_tree, is_dtensor, replicate_dims
+from repro_torch.distributed.context import (constrain_tree, is_dtensor, local_region, rank_index,
+                                             replicate_dims)
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw, compression
 from repro_torch.tree import leaves, unflatten
@@ -57,16 +58,63 @@ def init_train_state(
     )
 
 
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    return is_dtensor(logits) and any(p.is_shard(logits.ndim - 1) for p in logits.placements)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the vocab.  On a mesh that shards the vocab:
+    the row maximum from each slice's maximum (a ``local_map`` region, held
+    constant: the gradient is the softmax either way), then the sum of the
+    shifted exponentials, each rank summing its own slice — DTensor's
+    ``logsumexp`` would gather the whole rows on every rank."""
+    if not _vocab_sharded(logits):
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate
+
+    vdim = logits.ndim - 1
+    mesh = logits.device_mesh
+    lp = list(logits.placements)
+    m = local_region(lambda lg: torch.amax(lg, dim=-1), mesh, (lp,),
+                     [Partial("max") if p.is_shard(vdim) else p for p in lp])(logits.detach())
+    m = m.redistribute(mesh, [Replicate() if p.is_shard(vdim) else p for p in lp])
+    return m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+
+
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]``.  On a mesh that shards the vocab, each rank
+    gathers from its own slice in a ``local_map`` region (a target outside
+    the slice counts 0) and the slices' sums are reduced: no rank holds a
+    whole row.  DTensor's own gather on a sharded dim fails, and gathering
+    from the replicated rows would give every rank the whole logits in the
+    backward (80 GB a rank in the dry-run's ``train_4k`` cells)."""
+    vdim = logits.ndim - 1
+    if not _vocab_sharded(logits):
+        return torch.gather(replicate_dims(logits, -1), -1, targets[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = logits.device_mesh
+    width = logits.to_local().shape[-1]
+    first = rank_index(mesh, [d for d, p in enumerate(logits.placements) if p.is_shard(vdim)]) * width
+
+    def block(lg: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        t = t.long() - first
+        ok = (t >= 0) & (t < lg.shape[-1])
+        return torch.where(ok, torch.gather(lg, -1, torch.where(ok, t, 0)[..., None])[..., 0], 0.0)
+
+    lp = list(logits.placements)
+    run = local_region(block, mesh, (lp, [Replicate() if p.is_shard(vdim) else p for p in lp]),
+                       [Partial() if p.is_shard(vdim) else p for p in lp])
+    return run(logits, targets)
+
+
 def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
              mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy; logits (B, S, V) f32, targets (B, S).
 
     ``mask``: optional (B, S) loss mask (padding from the packing pipeline);
     the denominator is at least 1."""
-    lse = torch.logsumexp(logits, dim=-1)
-    # DTensor's gather on a vocab-sharded dim fails: gather from the whole row
-    gold = torch.gather(replicate_dims(logits, -1), -1, targets[..., None].long())[..., 0]
-    nll = lse - gold
+    nll = _logsumexp(logits) - _gold(logits, targets)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(nll.dtype)
@@ -99,6 +147,21 @@ def _value_and_grad(params: dict, batch: dict, cfg: ModelConfig):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _split(v: torch.Tensor, microbatches: int) -> torch.Tensor:
+    """(B, ...) → (microbatches, B / microbatches, ...).  A ``DTensor`` batch
+    dim sharded over ranks whose count does not divide ``microbatches``
+    cannot be unflattened: it is gathered first, and each microbatch's
+    model input is laid out again (``transformer.forward``)."""
+    if is_dtensor(v):
+        n = 1
+        for d, p in enumerate(v.placements):
+            if p.is_shard(0):
+                n *= v.device_mesh.size(d)
+        if microbatches % n:
+            v = replicate_dims(v, 0)
+    return v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
+
+
 def train_step(
     state: TrainState,
     batch: dict,
@@ -129,7 +192,7 @@ def train_step(
         B = batch["tokens"].shape[0]
         if B % microbatches:
             raise ValueError(f"batch {B} not divisible by microbatches {microbatches}")
-        mb = {k: v.reshape(microbatches, B // microbatches, *v.shape[1:]) for k, v in batch.items()}
+        mb = {k: _split(v, microbatches) for k, v in batch.items()}
         grads = pin([torch.zeros_like(p, dtype=torch.float32, requires_grad=False) if is_dtensor(p)
                      else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for p in leaves(params)])

@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port and drive it on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch,append,freeze]   # two checkouts, in turns
+    python3 chip_smoke.py --ab PARENT [--what prefill,paged,batch,append,freeze,dispatch]   # two checkouts, in turns
 
 Run from the root of the repository.  Phases, one JSON line each:
 
@@ -35,7 +35,12 @@ Run from the root of the repository.  Phases, one JSON line each:
    owners a range, empty blocks at range edges, gaps, live items past cap,
    cap = 1, ragged tails, 2-byte items, odd starts); K5a (dispatch) and K5b (combine) bitwise
    with unique positions, up to the freeze's 2.7e8 lanes (repeated
-   positions: int32 bitwise, floats within 1e-5 / 2e-2); K14 (flash-decode)
+   positions, every lane to one slot: int32 bitwise, floats within 1e-5 /
+   2e-2), and K5a on unique positions among dropped lanes on both sides
+   (negative and >= S); each K5a launch's path read from its device header,
+   store for unique positions, collision (atomic) for repeated ones
+   (``kernel.dispatch_repeats``), and at the freeze's shape K5a timed in
+   turns with its design before the redesign (``kernel.dispatch``); K14 (flash-decode)
    within 2 ulps (bf16) / 256 ulps (f32) of the output's largest magnitude,
    head-major and token-major, lengths 0, inside and at S, the dead tail,
    lengths 1, nsplit - 1, nsplit and nsplit + 1 at odd and even split
@@ -86,7 +91,8 @@ Run from the root of the repository.  Phases, one JSON line each:
    (K2 on the last grow wave from Python and in CUDA-graph replays, K7 on
    the freeze's plane with and without counters, ``flatten_segmented`` at
    the main shape with its kernels' device times, main.freeze's and
-   main.mxu's grow and freeze).
+   main.mxu's grow and freeze) and ``dispatch`` (K5a alone at the
+   dispatch freeze's shape, with its path).
 4. main path — ``TwoPhasePipeline(nblocks=512, b0=2048)`` grown by eight
    doubling waves to about 2.4e8 float32 elements, frozen (K7 reading the
    levels; no K6 launch, which the path checks), read at 2^24
@@ -96,7 +102,8 @@ Run from the root of the repository.  Phases, one JSON line each:
    under ``torch.cuda.set_sync_debug_mode("error")``.
    ``main.mxu``: the same grow with ``method="mxu"`` (K2), frozen by the
    segmented gather and checked, frozen again with ``flatten_impl=
-   "dispatch"`` (K6 + K5a) and held bitwise against it (after adding +0.0:
+   "dispatch"`` (K6 + K5a, which must take its store path) and held
+   bitwise against it (after adding +0.0:
    the dispatch's scatter-add turns a -0.0 into +0.0, as the reference's
    does); after the path's launch counts are read, the frozen array is read
    back into the block-major plane through ``combine`` (K5b, which no path
@@ -1776,8 +1783,35 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
 
     # K5a/K5b: the reference test's shapes, three payload types, unique
     # positions (bitwise); repeated positions (int32 bitwise, floats within
-    # DISPATCH_REPEAT_TOL: sums in the order the atomics land)
+    # DISPATCH_REPEAT_TOL: sums in the order the atomics land).  Each K5a
+    # launch's path is read back from its device header: unique live
+    # positions must take the store path, repeated ones the collision path
+    # (``dispatch_paths`` counts both and the cases that took the other)
+    paths = {"store": 0, "atomic": 0, "wrong": 0}
+
+    def path_of(pos, S):
+        live = pos[(pos >= 0) & (pos < S)]
+        want = "atomic" if torch.unique(live).numel() < live.numel() else "store"
+        got = k_dm.dispatch_path(dev)
+        paths[got] = paths.get(got, 0) + 1
+        paths["wrong"] += got != want
+        return got
+
     repeat = {"cases": 0, "max_abs_err": 0.0, "mismatches": 0}
+
+    def held_repeat(x, pos, S):
+        got, want = k_dm.dispatch_cuda(x, pos, S), r_dm.dispatch(x, pos, S)
+        path_of(pos, S)
+        if x.dtype == torch.int32:
+            note("dispatch", [(got, want)])
+            return
+        tol = DISPATCH_REPEAT_TOL[str(x.dtype).split(".")[-1]]
+        diff = (got.double() - want.double()).abs()
+        mag = r_dm.dispatch(x.double().abs(), pos, S)
+        repeat["mismatches"] += int((diff > tol * mag).sum().item())
+        repeat["max_abs_err"] = max(repeat["max_abs_err"], float(diff.max().item()))
+        repeat["cases"] += 1
+
     for T, S, D in DISPATCH_SHAPES + ((1000, 999, 1), (37, 5, 3)):
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
             x = (torch.randint(-2**30, 2**30, (T, D), generator=gen, device=dev, dtype=torch.int32)
@@ -1787,22 +1821,28 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
             pos = torch.where(torch.rand(T, generator=gen, device=dev) < 0.8, perm, -1).to(torch.int32)
             buf = k_dm.dispatch_cuda(x, pos, S)
             note("dispatch", [(buf, r_dm.dispatch(x, pos, S))])
+            path_of(pos, S)
             note("combine", [(k_dm.combine_cuda(buf, pos), r_dm.combine(buf, pos, T))])
             far = torch.randint(-1, S + 3, (T,), generator=gen, device=dev, dtype=torch.int32)
             note("combine", [(k_dm.combine_cuda(buf, far), r_dm.combine(buf, far, T))])  # clipped ids
             rep = torch.randint(-1, max(S // 3, 1), (T,), generator=gen, device=dev, dtype=torch.int32)
-            got, want = k_dm.dispatch_cuda(x, rep, S), r_dm.dispatch(x, rep, S)
-            if dtype == torch.int32:
-                note("dispatch", [(got, want)])
-            else:
-                tol = DISPATCH_REPEAT_TOL[str(dtype).split(".")[-1]]
-                diff = (got.double() - want.double()).abs()
-                mag = r_dm.dispatch(x.double().abs(), rep, S)
-                repeat["mismatches"] += int((diff > tol * mag).sum().item())
-                repeat["max_abs_err"] = max(repeat["max_abs_err"], float(diff.max().item()))
-                repeat["cases"] += 1
-    emit({"phase": "kernel.dispatch_repeats", "card": card, "tolerance": DISPATCH_REPEAT_TOL, **repeat})
+            held_repeat(x, rep, S)
+            # dropped lanes on both sides: negative and >= S positions
+            # around unique live ones (the store path)
+            side = torch.randint(0, 3, (T,), generator=more, device=dev)
+            out_of = torch.where(side == 0, -torch.randint(1, 2**31 - 1, (T,), generator=more, device=dev),
+                                 S + torch.randint(0, 2**20, (T,), generator=more, device=dev))
+            mixed = torch.where((side == 2) & (perm >= 0), perm, out_of).to(torch.int32)
+            note("dispatch", [(k_dm.dispatch_cuda(x, mixed, S), r_dm.dispatch(x, mixed, S))])
+            path_of(mixed, S)
+            # every lane to one slot (at most 37 addends for the floats:
+            # DISPATCH_REPEAT_TOL's cases)
+            if T <= 37 or dtype == torch.int32:
+                held_repeat(x, torch.full((T,), S // 2, device=dev, dtype=torch.int32), S)
+    emit({"phase": "kernel.dispatch_repeats", "card": card, "tolerance": DISPATCH_REPEAT_TOL,
+          "dispatch_paths": paths, **repeat})
     check(repeat["mismatches"] == 0, "dispatch: repeated positions outside the stated tolerance")
+    check(paths["wrong"] == 0, f"dispatch: a launch took the other path than its positions demand: {paths}")
 
     # the freeze's shape: the main path's 8-level plane, (512 x 522240, 1)
     # f32 lanes, the live ones at their unique global positions
@@ -1817,19 +1857,32 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
     x = torch.randn((n_lanes, 1), generator=gen, device=dev)
     buf = k_dm.dispatch_cuda(x, pos, n_lanes)
     note("dispatch", [(buf, r_dm.dispatch(x, pos, n_lanes))])
+    note("dispatch", [(k_dm.dispatch_atomic_cuda(x, pos, n_lanes), buf)])  # the earlier design agrees
     dump = torch.where(pos < 0, n_lanes, pos).long()  # dropped lanes into a spare row
 
     def library_dispatch():
         return torch.zeros((n_lanes + 1, 1), device=dev).index_add_(0, dump, x)
 
+    # K5a and its design before the redesign (zero fill, then atomicAdd), in
+    # turns: new, earlier, earlier, new
+    new_ms, old_ms = _halves(lambda: k_dm.dispatch_cuda(x, pos, n_lanes),
+                             lambda: k_dm.dispatch_atomic_cuda(x, pos, n_lanes), cuda_ms, 5)
+    freeze_path = k_dm.dispatch_path(dev)  # after the timed loop
+    check(freeze_path == "store", f"dispatch: the freeze's unique positions took the {freeze_path} path")
     timing["dispatch"] = dict(
-        ms=cuda_ms(lambda: k_dm.dispatch_cuda(x, pos, n_lanes), 5),
+        ms=new_ms,
         plain_ms=cuda_ms(lambda: r_dm.dispatch(x, pos, n_lanes), 2),
         library_ms=cuda_ms(library_dispatch, 5),
         bound=bound_ms(4 * n_lanes * 3, 0, card),
         shape=f"x ({n_lanes}, 1) f32, {n_live} live unique positions -> ({n_lanes}, 1); "
+              f"path {freeze_path}; the atomic design before the redesign, in turns "
+              f"(new, atomic, atomic, new): {old_ms} ms; "
               f"library: index_add_ into zeros with a spare row for the dropped lanes",
     )
+    bound = timing["dispatch"]["bound"][0]
+    emit({"phase": "kernel.dispatch", "card": card, "freeze_shape_path": freeze_path,
+          "paths_of_cases": paths, "ms": new_ms, "atomic_design_ms": old_ms, "bound_ms": bound,
+          "share_of_bound": bound / new_ms, "atomic_design_share": bound / old_ms})
     del dump
     note("combine", [(k_dm.combine_cuda(buf, pos), r_dm.combine(buf, pos, n_lanes))])
     gidx = pos.clamp(min=0).long()
@@ -2271,6 +2324,7 @@ def mxu_path(card: str, rng, gen) -> dict:
 
     from repro_torch.core import indexing
     from repro_torch.kernels import common
+    from repro_torch.kernels.dispatch_mxu import kernel as k_dm
     from repro_torch.kernels.dispatch_mxu import ops as dispatch_ops
     from repro_torch.kernels.flatten import ops as flatten_ops
     from repro_torch.runtime import TwoPhasePipeline
@@ -2290,6 +2344,8 @@ def mxu_path(card: str, rng, gen) -> dict:
     disp.freeze()
     torch.cuda.synchronize()
     t_dispatch = time.perf_counter() - t0
+    dispatch_path = k_dm.dispatch_path(torch.device(DEV))
+    check(dispatch_path == "store", f"mxu: the dispatch freeze's unique positions took the {dispatch_path} path")
     # the dispatch adds each element into a zero slot (the reference's
     # scatter-add), so a -0.0 comes out +0.0: bitwise equal to seg + 0.0
     signed_zeros = int(((seg.data == 0) & torch.signbit(seg.data)).sum().item())
@@ -2316,7 +2372,7 @@ def mxu_path(card: str, rng, gen) -> dict:
     torch.cuda.synchronize()
     emit({"phase": "main.mxu", "card": card, "elements": full["n"], "alloc_elems": full["alloc"],
           "grow_s": t_grow, "freeze_s": t_freeze, "dispatch_freeze_s": t_dispatch,
-          "negative_zeros_made_positive_by_dispatch": signed_zeros,
+          "dispatch_path": dispatch_path, "negative_zeros_made_positive_by_dispatch": signed_zeros,
           "combine_read_s": t_combine, "launches": {k: v for k, v in launches.items() if v},
           "ok": True})
     for name in ("row_scan_mxu", "compact_blocks", "segmented_gather", "dispatch"):
@@ -5569,7 +5625,7 @@ def dist_train_moe(card: str, seed: int, base, first: dict, mesh) -> dict:
 AB_REPS = 5  # prefills a turn, after a warm-up
 AB_NEW = 16  # new tokens per BatchEngine request
 AB_ORDER = ("parent", "change", "change", "parent")
-AB_WHAT = ("prefill", "paged", "batch", "append", "freeze")
+AB_WHAT = ("prefill", "paged", "batch", "append", "freeze", "dispatch")
 AB_DECODE_NEW = 24  # new tokens of the append turn's Engine run
 
 
@@ -5837,6 +5893,48 @@ def ab_freeze(card: str, seed: int) -> dict:
     return t
 
 
+def ab_dispatch(card: str, seed: int) -> dict:
+    """K5a alone at the dispatch freeze's shape (the kernel phase's
+    inputs: 512 x 522240 f32 lanes, 0.9 of them live at unique in-order
+    positions), held bitwise against its plain version, with the path its
+    launches took where the checkout's K5a has one, and its device time by
+    kernel (and memset) under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import indexing
+    from repro_torch.kernels.dispatch_mxu import kernel as k_dm
+    from repro_torch.kernels.dispatch_mxu import ref as r_dm
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 26)
+    cap = indexing.capacity(B0, NWAVES)
+    sizes = torch.full((NBLOCKS,), int(0.9 * B0 * (2 ** NWAVES - 1)), dtype=torch.int32, device=DEV)
+    sizes += torch.randint(-(B0 // 2), B0 // 2, (NBLOCKS,), generator=gen, device=DEV, dtype=torch.int32)
+    starts = indexing.block_starts(sizes)
+    posn = torch.arange(cap, dtype=torch.int32, device=DEV)[None, :]
+    pos = torch.where(posn < sizes[:, None], starts[:, None] + posn, -1).reshape(-1)
+    del posn
+    n = pos.numel()
+    x = torch.randn((n, 1), generator=gen, device=DEV)
+    check(compare(k_dm.dispatch_cuda(x, pos, n), r_dm.dispatch(x, pos, n))[0] == 0,
+          "--ab dispatch: K5a differs from its plain version")
+    t = {"dispatch_ms": cuda_ms(lambda: k_dm.dispatch_cuda(x, pos, n), 10),
+         "dispatch_bound_ms": bound_ms(4 * n * 3, 0, card)[0]}
+    if hasattr(k_dm, "dispatch_path"):
+        t["dispatch_path"] = k_dm.dispatch_path(torch.device(DEV))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            k_dm.dispatch_cuda(x, pos, n)
+        torch.cuda.synchronize()
+    t["dispatch_device_ms_by_kernel"] = {e.key[:80]: e.device_time_total / 1e3 / 5 for e in prof.key_averages()
+                                         if e.device_type == DeviceType.CUDA}
+    del x, pos
+    torch.cuda.empty_cache()
+    return t
+
+
 def ab_turn(card: str, seed: int, what: list) -> dict:
     """One turn of ``--ab``: the timings named in ``what``, with whichever
     checkout's ``repro_torch`` this process imported."""
@@ -5845,6 +5943,8 @@ def ab_turn(card: str, seed: int, what: list) -> dict:
         t.update(ab_paged(seed))
     if "freeze" in what:
         t.update(ab_freeze(card, seed))
+    if "dispatch" in what:
+        t.update(ab_dispatch(card, seed))
     if "prefill" in what or "batch" in what or "append" in what:
         cfg, params = serve_model(seed)
         if "prefill" in what:
@@ -5927,9 +6027,15 @@ def obs_kernel_phase(card: str) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"] += 1
 
-    def timed(name, plain, counted, timer, iters, shape):
+    def timed(name, plain, counted, timer, iters, shape, nbytes, nops=0):
+        """Plain and counted launches in turns, beside each one's bound:
+        the kernel's bytes, and those plus the counter block's."""
         p, c = _halves(plain, counted, timer, iters)
-        rec[name].update(plain_launch_ms=p, counted_ms=c, overhead=c / p - 1.0, shape=shape)
+        bound, by = bound_ms(nbytes, nops, card)
+        counted_bound = bound_ms(nbytes + 4 * obs_device.NSLOTS, nops, card)[0]
+        rec[name].update(plain_launch_ms=p, counted_ms=c, overhead=c / p - 1.0, shape=shape,
+                         bound_ms=bound, counted_bound_ms=counted_bound, bound_by=by,
+                         counted_share=counted_bound / c)
 
     def k3(n, b0, nlev, m, sizes, item=(), dtype=torch.float32, groups=1, p_live=0.9):
         levels = tuple(tuple(torch.randn((n, w, *item), generator=gen, device=dev).to(dtype)
@@ -5984,11 +6090,11 @@ def obs_kernel_phase(card: str) -> dict:
     sizes += ints(-(B0 // 4), B0 // 4, (NBLOCKS,))
     la, elems, mask = k3(NBLOCKS, B0, n_lev, m_last, sizes)
     live_lanes = int(mask.sum().item())
+    k3_bytes = NBLOCKS * m_last * (1 + 4 + 4) + 8 * NBLOCKS + 4 * live_lanes
     timed("push_back", lambda: k_pb.push_back_cuda_multi(la, sizes, B0, elems, mask),
           lambda: k_pb.push_back_cuda_multi(la, sizes, B0, elems, mask, instrument=True), cuda_ms, 10,
-          f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32, wave ({NBLOCKS}, {m_last}), live {live_lanes}")
-    k3_bound = bound_ms(NBLOCKS * m_last * (1 + 4 + 4) + 8 * NBLOCKS + 4 * live_lanes,
-                        NBLOCKS * m_last, card)
+          f"levels {n_lev} x ({NBLOCKS}, {B0}*2^b) f32, wave ({NBLOCKS}, {m_last}), live {live_lanes}",
+          k3_bytes, NBLOCKS * m_last)
     del la, elems, mask
     # the two-group K3 at the Engine's decode append (m = 1)
     KH, D = 2, 128
@@ -5997,7 +6103,8 @@ def obs_kernel_phase(card: str) -> dict:
     timed("push_back_multi", lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask),
           lambda: k_pb.push_back_cuda_multi(groups, sizes, SERVE_SLAB, elems, mask, instrument=True),
           graph_ms, 50, f"2 groups x 2 levels of ({SERVE_PROMPTS}, {SERVE_SLAB}*2^b, {KH}, {D}) bf16, "
-                        f"wave ({SERVE_PROMPTS}, 1); CUDA-graph times")
+                        f"wave ({SERVE_PROMPTS}, 1); CUDA-graph times",
+          SERVE_PROMPTS * (1 + 4 + 4 + 4 + 4 * KH * D * 2))
     del groups, elems, mask
     torch.cuda.empty_cache()
 
@@ -6016,9 +6123,11 @@ def obs_kernel_phase(card: str) -> dict:
     final_sizes[::64] = 0  # a few empty blocks
     compact = torch.randn((NBLOCKS, cap), generator=gen, device=dev)
     starts, ends = k7(compact, final_sizes)
+    n_live = int(final_sizes.sum().item())
     timed("segmented_gather", lambda: k_fl.segmented_gather_cuda(compact, starts, ends),
           lambda: k_fl.segmented_gather_cuda(compact, starts, ends, instrument=True), cuda_ms, 10,
-          f"plane ({NBLOCKS}, {cap}) f32, {int(final_sizes.sum().item())} live")
+          f"plane ({NBLOCKS}, {cap}) f32, {n_live} live",
+          4 * n_live + 8 * NBLOCKS + NBLOCKS * cap * 4, NBLOCKS * cap * NBLOCKS.bit_length())
     del compact
     torch.cuda.empty_cache()
 
@@ -6040,7 +6149,8 @@ def obs_kernel_phase(card: str) -> dict:
     k89((pool,), pages)
     timed("paged_gather", lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True),
           lambda: k_pg.paged_gather_cuda((pool,), pages, clip_high=True, instrument=True), graph_ms, 20,
-          f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32; CUDA-graph times")
+          f"pages ({NBLOCKS}, {pages.shape[1]}), flat pool {S} x {t8} f32; CUDA-graph times",
+          int((pages >= 0).sum().item()) * t8 * 4 + pages.numel() * 4 + pages.numel() * t8 * 4)
     npages = [-(-int(0.9 * B0 * (2 ** NWAVES - 1) + j) // B0) for j in range(0, 4 * NBLOCKS, 4)]
     sizes_e = _extent_sizes(sum(npages), "doubling")
     S = sum(sizes_e)
@@ -6049,7 +6159,8 @@ def obs_kernel_phase(card: str) -> dict:
     k89(exts, pages)
     timed("paged_gather_extents", lambda: k_pg.paged_gather_cuda(exts, pages, clip_high=False),
           lambda: k_pg.paged_gather_cuda(exts, pages, clip_high=False, instrument=True), cuda_ms, 10,
-          f"pages ({NBLOCKS}, {pages.shape[1]}) over {len(exts)} extents of {B0} f32")
+          f"pages ({NBLOCKS}, {pages.shape[1]}) over {len(exts)} extents of {B0} f32",
+          int((pages >= 0).sum().item()) * B0 * 4 + pages.numel() * 4 + pages.numel() * B0 * 4)
     del pool, exts, pages
     torch.cuda.empty_cache()
 
@@ -6080,7 +6191,8 @@ def obs_kernel_phase(card: str) -> dict:
         timed(name, lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens),
               lambda: k_pg.paged_attend_cuda(q, kx, vx, pages, lens, instrument=True), graph_ms, 20,
               f"q ({Bq}, {KH}, {G}, {D}) f32, {len(kx)} extent(s) of {T}-token bf16 slabs, "
-              f"pages ({Bq}, {P}), {sum(lengths)} live tokens; CUDA-graph times")
+              f"pages ({Bq}, {P}), {sum(lengths)} live tokens; CUDA-graph times",
+              2 * sum(lengths) * KH * D * 2 + q.numel() * 4 * 2 + pages.numel() * 4 + Bq * 4)
         del kx, vx
     del q, pk, pv, pages, lens
     torch.cuda.synchronize()
@@ -6095,10 +6207,13 @@ def obs_kernel_phase(card: str) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
             "cases": sum(r["cases"] for r in rec.values()),
             "ms": pb["counted_ms"], "plain_ms": pb["plain_launch_ms"], "library_ms": None,
-            "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+            "bound_ms": pb["counted_bound_ms"], "bound_by": pb["bound_by"],
             "shape": f"K3 at the main path's last wave: {pb['shape']}; ms counted, plain_ms the "
-                     f"same launch uncounted; bound: the uncounted K3's (the counters add 76 bytes)",
-            "overhead": {name: r["overhead"] for name, r in rec.items() if "overhead" in r}}
+                     f"same launch uncounted; bound: K3's bytes plus the counter block's "
+                     f"{4 * obs_device.NSLOTS}",
+            "overhead": {name: r["overhead"] for name, r in rec.items() if "overhead" in r},
+            "counted_bound_ms": {name: r["counted_bound_ms"] for name, r in rec.items() if "counted_bound_ms" in r},
+            "counted_share": {name: r["counted_share"] for name, r in rec.items() if "counted_share" in r}}
 
 
 def obs_arena_path(card: str, seed: int) -> dict:

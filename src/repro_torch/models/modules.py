@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.context import as_dtensor, is_dtensor, local_region
+
 __all__ = ["rms_norm", "rope", "apply_rope", "embed", "unembed", "dense_init", "Param", "DTYPES"]
 
 Param = dict[str, Any]
@@ -106,7 +108,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    """Rows of ``table`` (V, D) at ``tokens`` → (*tokens.shape, D).
+
+    On a ``DTensor`` table (a mesh) the lookup is vocab-parallel, whatever
+    DTensor's own rules for indexing: each rank looks the tokens up in its
+    own rows of the table in a ``local_map`` region (a token outside its
+    vocab slice gives a zero row), and the mesh dims that shard the vocab
+    sum the slices' rows, reduce-scattered onto the embed dim.  A rank
+    never holds more than its own shard of the table (DTensor's
+    ``aten.index`` replicates a vocab-sharded table under some torch
+    versions).  Each row is one table row plus zeros, so the result is the
+    unmeshed lookup's bits, but for a stored -0.0, which comes back +0.0.
+    """
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    place = list(table.placements)
+    with unset_fake_temporarily():  # the mesh's coordinates are real tensors
+        (rows, _), (first, _) = compute_local_shape_and_global_offset(tuple(table.shape), mesh, place)
+    edim = tokens.ndim
+
+    def block(tab: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+        i = tok.long() - first
+        ok = (i >= 0) & (i < rows)
+        return torch.where(ok[..., None], tab[torch.where(ok, i, 0)], 0)
+
+    partial = [Partial() if p.is_shard(0) else Shard(edim) if p.is_shard(1) else p for p in place]
+    x = local_region(block, mesh, (place, [Replicate()] * mesh.ndim), partial)(table, as_dtensor(tokens, mesh))
+    return x.redistribute(mesh, [Shard(edim) if p.is_shard(0) else q for p, q in zip(place, partial)])
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

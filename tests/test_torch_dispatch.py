@@ -132,3 +132,19 @@ def test_dispatch_adds_into_zeros_so_negative_zero_becomes_positive():
     want = ref_ref.dispatch(jnp.asarray(x), jnp.asarray(pos), 3)
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert not torch.signbit(got[2, 0])
+
+
+@pytest.mark.parametrize("n_slots, words", [(1, 5), (31, 5), (32, 5), (33, 6), (2**31 - 1, 4 + 2**26)])
+def test_scratch_holds_the_header_then_a_bit_a_slot(n_slots, words):
+    assert kernel.SCRATCH_HEADER == 4  # csrc/dispatch.cu's kHeader
+    assert kernel.scratch_words(n_slots) == words
+
+
+def test_atomic_yardstick_wants_cuda_and_checks_like_the_kernel():
+    x = torch.ones((4, 2))
+    pos = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected cuda"):
+        kernel.dispatch_atomic_cuda(x, pos, 4)
+    with pytest.raises(ValueError, match="expected cuda"):
+        kernel.dispatch_cuda(x.to("meta"), pos.to("meta"), 4)
+    assert kernel.dispatch_path("cpu") is None  # no launch on that device

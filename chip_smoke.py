@@ -1873,7 +1873,9 @@ def slice4_kernel_cases(card: str, res: dict, timing: dict) -> None:
         ms=new_ms,
         plain_ms=cuda_ms(lambda: r_dm.dispatch(x, pos, n_lanes), 2),
         library_ms=cuda_ms(library_dispatch, 5),
-        bound=bound_ms(4 * n_lanes * 3, 0, card),
+        # pos of every lane, x of the live lanes only (a dropped lane's x is
+        # never needed), every slot of out
+        bound=bound_ms(4 * n_lanes * 2 + 4 * n_live, 0, card),
         shape=f"x ({n_lanes}, 1) f32, {n_live} live unique positions -> ({n_lanes}, 1); "
               f"path {freeze_path}; the atomic design before the redesign, in turns "
               f"(new, atomic, atomic, new): {old_ms} ms; "
@@ -5916,12 +5918,12 @@ def ab_dispatch(card: str, seed: int) -> dict:
     posn = torch.arange(cap, dtype=torch.int32, device=DEV)[None, :]
     pos = torch.where(posn < sizes[:, None], starts[:, None] + posn, -1).reshape(-1)
     del posn
-    n = pos.numel()
+    n, n_live = pos.numel(), int(sizes.sum().item())
     x = torch.randn((n, 1), generator=gen, device=DEV)
     check(compare(k_dm.dispatch_cuda(x, pos, n), r_dm.dispatch(x, pos, n))[0] == 0,
           "--ab dispatch: K5a differs from its plain version")
     t = {"dispatch_ms": cuda_ms(lambda: k_dm.dispatch_cuda(x, pos, n), 10),
-         "dispatch_bound_ms": bound_ms(4 * n * 3, 0, card)[0]}
+         "dispatch_bound_ms": bound_ms(4 * n * 2 + 4 * n_live, 0, card)[0]}
     if hasattr(k_dm, "dispatch_path"):
         t["dispatch_path"] = k_dm.dispatch_path(torch.device(DEV))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -8,9 +8,10 @@
 // for what is a scatter and a gather; and the f32 product rounds int
 // payloads above 2^24.
 //
-// Bound on the card: bytes.  Dispatch reads x (T D) and pos (T) once and
-// writes out (S D) once; combine reads pos and the T gathered rows of buf
-// and writes out (T D).
+// Bound on the card: bytes.  Dispatch reads pos (T) once and x (T D) of
+// the live lanes only (a dropped lane's x is never needed), and writes out
+// (S D) once; combine reads pos and the T gathered rows of buf and writes
+// out (T D).
 //
 // Design.  K5a, since its redesign for the H100: plain stores where the
 // positions are unique, atomics only where they repeat, the choice made
@@ -47,9 +48,15 @@
 // zeros and the bitmap (1/32 of a 4-byte slot's bytes, cleared, marked and
 // read), about 3.2 GB, against the atomic design's zero fill of all of
 // out followed by a read-modify-write of every live line in L2 (the fill
-// long since evicted them), about 5.1 GB at 2.7e8 f32 lanes.  rt_dispatch_atomic runs
-// that earlier design alone (passes 3 and 4 unconditionally), for timing
-// comparisons; no path calls it.
+// long since evicted them), about 5.1 GB at 2.7e8 f32 lanes.
+// rt_dispatch_atomic runs that earlier design alone (passes 3 and 4
+// unconditionally), for timing comparisons; no path calls it.  It is a
+// temporary yardstick: `chip_smoke.py --ab PARENT --what dispatch` times
+// the same design from the parent checkout, so rt_dispatch_atomic, its
+// wrapper and the scratch == nullptr branches of passes 3 and 4 can go.
+// The scratch is one buffer per device, shared by every K5a launch there:
+// launches must be ordered on one stream (two launches overlapping on two
+// streams would clear each other's marks).
 // K5b: one thread per copy unit (16, 8, 4 or 2 bytes, the widest that
 // divides a row) copies buf[clip(pos[t], 0, S - 1)] or writes zeros where
 // pos[t] < 0, the plain version's rule.  64-bit indices throughout: the

@@ -73,7 +73,12 @@ def _checked(x: torch.Tensor, pos: torch.Tensor, n_slots: int, what: str) -> tor
 
 
 def dispatch_cuda(x: torch.Tensor, pos: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """Launch K5a: ``x (T, D)``, int32 ``pos (T,)`` → ``(n_slots, D)``."""
+    """Launch K5a: ``x (T, D)``, int32 ``pos (T,)`` → ``(n_slots, D)``.
+
+    Every launch on a device shares that device's scratch (the counts and
+    the occupancy bitmap), so launches on one device must be ordered on
+    one stream: two that overlap on two streams clear each other's marks,
+    and the fill pass would then zero live slots."""
     out = _checked(x, pos, n_slots, "dispatch_cuda")
     T, D = x.shape
     if n_slots * D == 0:

@@ -18,7 +18,9 @@ include the first and the last row.
 
 What holds:
 - the meshed lookup and its table gradient are bitwise the unmeshed ones
-  (f32 on the CPU).  The random tables hold no -0.0 (asserted), the one
+  (f32 on the CPU), and the meshed lookup is bitwise the reference's
+  ``repro.models.modules.embed`` (``jnp.take``) on the same numpy table
+  and tokens, run in the pytest process.  The random tables hold no -0.0 (asserted), the one
   value a vocab-split lookup changes: a row planted as -0.0 comes back
   +0.0 where the vocab is split over ranks (its row plus the other
   slices' zeros) and -0.0 where it is not;
@@ -114,7 +116,8 @@ def _port_case(d: str, name: str) -> dict:
     def bits(t):
         return t.contiguous().view(torch.int32)
 
-    out: dict = {"table_bytes": table.numel() * table.element_size(),
+    out: dict = {"rows": rows, "d_model": cfg.d_model,
+                 "table_bytes": table.numel() * table.element_size(),
                  "table_negative_zeros": int(((table == 0) & torch.signbit(table)).sum()),
                  "table_placements": [repr(p) for p in place]}
     for shape_name, shape in SHAPES.items():
@@ -129,7 +132,11 @@ def _port_case(d: str, name: str) -> dict:
             with rec:
                 got = embed(dtable, dtok)
             r["placements"] = [repr(p) for p in got.placements]
-            r["bitwise"] = bool(torch.equal(bits(got.full_tensor()), bits(want)))
+            full = got.full_tensor()
+            r["bitwise"] = bool(torch.equal(bits(full), bits(want)))
+            if torch.distributed.get_rank() == 0:  # for the reference, in the pytest process
+                np.save(os.path.join(d, f"{name}_{shape_name}_tokens.npy"), tokens.numpy())
+                np.save(os.path.join(d, f"{name}_{shape_name}_got.npy"), full.numpy())
             r["plain_tokens_bitwise"] = bool(torch.equal(bits(embed(dtable, tokens).full_tensor()), bits(want)))
             r["table_ops"] = rec.ops
             r["collectives"] = flops.count_fn(embed, dtable, dtok)["collectives"]
@@ -183,7 +190,8 @@ def _port_main(d: str) -> None:
 # --------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
+def port_dir(tmp_path_factory):
+    """The directory the eight ranks wrote ``port.json`` and the lookups to."""
     d = str(tmp_path_factory.mktemp("embed_mesh"))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.abspath(SRC)
@@ -191,7 +199,12 @@ def port(tmp_path_factory):
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "port", d],
                          capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, f"port failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}"
-    with open(os.path.join(d, "port.json")) as f:
+    return d
+
+
+@pytest.fixture(scope="module")
+def port(port_dir):
+    with open(os.path.join(port_dir, "port.json")) as f:
         return json.load(f)
 
 
@@ -202,6 +215,22 @@ def test_meshed_lookup_is_bitwise_unmeshed(port, name, shape):
     assert got["table_negative_zeros"] == 0
     assert got[shape]["bitwise"]
     assert got[shape]["plain_tokens_bitwise"]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("name", list(CASES))
+def test_meshed_lookup_is_bitwise_the_reference(port, port_dir, name, shape):
+    import jax.numpy as jnp
+
+    from repro.models import modules
+
+    table = np.random.default_rng(SEED).standard_normal((port[name]["rows"], port[name]["d_model"]),
+                                                        dtype=np.float32)
+    tokens = np.load(os.path.join(port_dir, f"{name}_{shape}_tokens.npy"))
+    got = np.load(os.path.join(port_dir, f"{name}_{shape}_got.npy"))
+    want = np.asarray(modules.embed(jnp.asarray(table), jnp.asarray(tokens)))
+    assert want.dtype == got.dtype == np.float32 and want.shape == got.shape
+    assert np.array_equal(want.view(np.int32), got.view(np.int32))
 
 
 @pytest.mark.parametrize("name", list(CASES))

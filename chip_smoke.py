@@ -257,11 +257,12 @@ Run from the root of the repository.  Phases, one JSON line each:
    ``torch.use_deterministic_algorithms(True)``, for which the script sets
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (if unset) for the whole run.
 6f. ``dryrun.cell``: ``launch.dryrun.run_cell`` on qwen2.5-3b and
-   dbrx-132b x decode_32k, fake 16x16 mesh (PyTorch's ``fake`` process
-   group, fake ``cuda`` tensors), in a subprocess started just before 6c
-   (it traces on the host while the card trains, after every phase whose
-   times PERF.md's tables keep): status, rank 0's HBM, the bound and the
-   trace time of each.
+   dbrx-132b x decode_32k, and x train_4k at full width and 2 layers, fake
+   16x16 mesh (PyTorch's ``fake`` process group, fake ``cuda`` tensors),
+   one subprocess a cell, all started after 6c (they trace on the host,
+   so no timed phase shares it with them): status, depth, rank 0's HBM,
+   the bound, the useful-FLOP ratio (in (0, 1], else the run fails) and
+   the trace time of each.
 7. the device counter plane (K15).  ``obs.kernels`` (after the kernel
    phase): K3 (one group at the main path's last wave, two groups at
    m = 1, small ragged waves, empty masks), K7 (the freeze's plane, empty
@@ -5195,9 +5196,13 @@ def dist_serve_moe(card: str, cfg, params, prompts, unmeshed: dict, mesh) -> dic
 
 
 K3_SHARDS = (1, 2, 4)  # slice counts of the shard form's check
+DRYRUN_CUT_DIR = ROOT / "results" / "dryrun_torch" / "cut"  # the cells whose depth is cut
 DENSE_NEW = 8  # decode steps of dist.serve.dense (the cache does not grow)
 DENSE_TURNS = ("unmeshed", "meshed", "meshed", "unmeshed")
-DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+# (arch, shape, layers: None for the config's own depth); the train cells
+# at full width, their depth cut so the subprocess ends well inside its wait
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k", None), ("dbrx-132b", "decode_32k", None),
+                ("qwen2.5-3b", "train_4k", 2), ("dbrx-132b", "train_4k", 2))
 
 
 def k3_shard_cases(card: str, res: dict) -> None:
@@ -5434,50 +5439,67 @@ def roofline_path(card: str, seed: int) -> dict:
 
 
 def dryrun_start():
-    """Start the dry-run of DRYRUN_CELLS in a subprocess (its fake process
-    group never meets this process's NCCL group, and its tracing runs on
-    the host while the card's phases run) → (the process, its log file,
-    its start time).  Killed at exit if it is still running."""
+    """Start the dry-run of DRYRUN_CELLS, one subprocess a cell, all at
+    once (their fake process groups never meet this process's NCCL group;
+    they trace on the host, so they start after every timed phase) → per
+    cell (the process, its log file, its start time).  Each is killed at
+    exit if it is still running."""
     import atexit
     import tempfile
 
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
-    code = ("from repro_torch.launch import dryrun, specs\n"
-            f"for arch, shape in {list(DRYRUN_CELLS)!r}:\n"
-            "    r = dryrun.run_cell(specs.Cell(arch, shape), multi_pod=False, force=True)\n"
-            "    print(r['cell'], r['status'], r.get('error', ''), flush=True)\n")
-    log = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT, env=env,
-                            cwd=str(ROOT))
-    atexit.register(proc.kill)
-    return proc, log, time.perf_counter()
+    started = []
+    for arch, shape, layers in DRYRUN_CELLS:
+        code = ("import dataclasses\n"
+                "from repro_torch import configs\n"
+                "from repro_torch.launch import dryrun, specs\n"
+                "full = configs.get\n"
+                f"layers = {layers!r}\n"
+                "if layers is not None:\n"
+                "    configs.get = lambda name: dataclasses.replace(full(name), n_layers=layers)\n"
+                f"r = dryrun.run_cell(specs.Cell({arch!r}, {shape!r}), multi_pod=False, force=True,\n"
+                f"                    results_dir=None if layers is None else {str(DRYRUN_CUT_DIR)!r})\n"
+                "print(r['cell'], layers, r['status'], r.get('error', ''), flush=True)\n")
+        log = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT, env=env,
+                                cwd=str(ROOT))
+        atexit.register(proc.kill)
+        started.append((proc, log, time.perf_counter()))
+    return started
 
 
 def dryrun_cells(card: str, started) -> None:
-    """dryrun.cell: wait for ``dryrun_start``'s subprocess, then one line a
-    cell of DRYRUN_CELLS (16x16 mesh, fake tensors labelled ``cuda``):
-    status, rank 0's HBM, the bound and the trace time."""
+    """dryrun.cell: wait for ``dryrun_start``'s subprocesses, then one line
+    a cell of DRYRUN_CELLS (16x16 mesh, fake tensors labelled ``cuda``):
+    status, its depth (``layers``: the config's own, or the cut), rank 0's
+    HBM, the bound and the trace time.  A cell that failed fails the run."""
     import json as _json
 
-    proc, log, t0 = started
-    rc = proc.wait(timeout=600)
-    wall = time.perf_counter() - t0
-    log.seek(0)
-    out = log.read()
-    for arch, shape in DRYRUN_CELLS:
-        path = ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__pod16x16.json"
+    from repro_torch import configs
+
+    for (arch, shape, layers), (proc, log, t0) in zip(DRYRUN_CELLS, started):
+        rc = proc.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        log.seek(0)
+        out = log.read()
+        folder = ROOT / "results" / "dryrun_torch" if layers is None else DRYRUN_CUT_DIR
+        path = folder / f"{arch}__{shape}__pod16x16.json"
         r = _json.loads(path.read_text()) if path.exists() else {"status": "missing"}
         line = {"phase": "dryrun.cell", "card": card, "cell": f"{arch}×{shape}", "mesh": "16x16",
+                "layers": configs.get(arch).n_layers if layers is None else layers,
                 "status": r["status"], "subprocess_wall_s": wall, "rc": rc}
+        ratio = None
         if r["status"] == "ok":
+            ratio = r["useful_flop_ratio"]
             line.update(hbm_used_bytes=r["memory"]["hbm_used_bytes"], fits_80gb=r["memory"]["fits_80gb"],
                         bound=r["roofline"]["bound"], step_s_lower_bound=r["roofline"]["step_s_lower_bound"],
                         trace_s=r["trace_s"], flops=r["cost_global"]["flops"],
-                        hbm_bytes=r["cost_global"]["hbm_bytes"])
+                        hbm_bytes=r["cost_global"]["hbm_bytes"], useful_flop_ratio=ratio)
         else:
             line["error"] = r.get("error", out[-1500:])
-        line["ok"] = r["status"] == "ok" and rc == 0
+        # the model's FLOPs (of the depth traced) can be no more than the step's
+        line["ok"] = r["status"] == "ok" and rc == 0 and ratio is not None and 0 < ratio <= 1
         emit(line)
         check(line["ok"], f"dryrun.cell: {line}")
 
@@ -6477,14 +6499,12 @@ def main() -> int:
     # 6b. the remaining model families
     family_launches = family_paths(card, args.seed, engine_lens, res, mesh)
     torch.cuda.empty_cache()
-    # 6f's dry-run traces on the host, in a subprocess, while the card
-    # trains: after every phase whose times PERF.md's tables keep
-    dry = dryrun_start()
     # 6c. training
     train_launches = train_paths(card, args.seed, mesh)
     dist_close(store)
-    # 6f. two decode cells of the dry-run on a fake 16x16 mesh (started before 6c)
-    dryrun_cells(card, dry)
+    # 6f. four cells of the dry-run on a fake 16x16 mesh, traced on the
+    # host: after every timed phase
+    dryrun_cells(card, dryrun_start())
     launches = {k: launches[k] + demo_launches[k] + core_launches[k] + arena_launches[k]
                 + obs_arena_launches[k] + serve_launches[k] + family_launches[k] + train_launches[k]
                 + dense_launches[k] + roofline_launches[k] for k in KERNELS}

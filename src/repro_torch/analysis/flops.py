@@ -22,11 +22,12 @@ Conventions (the reference's):
 
 On a mesh the mode sees each ``DTensor`` op at its global shape, as the
 reference counts the global jaxpr; the dry-run divides by the chips.  The
-ops of a ``local_map`` region run on one rank's shard: they are counted
-``kernels.common.STEP.ranks`` times (the ranks that run the region), so the
-count stays global.  The reference counts a ``shard_map`` body once, at one
-shard's shape: on a cell whose step runs such a region (the MoE exchange,
-the sharded cache ops) the two conventions differ by design.  The local
+ops of a ``local_map`` region, forward and backward, run on one rank's
+shard: they are counted ``kernels.common.STEP.ranks`` times (the ranks that
+run the region), so the count stays global.  The reference counts a
+``shard_map`` body once, at one shard's shape: on a cell whose step runs
+such a region (the MoE exchange, the sharded cache ops) the two
+conventions differ by design.  The local
 copies of an explicit ``redistribute`` are counted at their local shape.
 
 Collectives — those DTensor's redistributions issue below the mode, those
@@ -202,7 +203,10 @@ class Counter:
         if self.ops is not None:
             self.ops.append((name, shapes, flops, byts))
 
-    def op(self, func, args, kwargs, out) -> None:
+    def op(self, func, args, kwargs, out, scale: int | None = None) -> None:
+        """One aten op; ``scale``: how many ranks run it (by default
+        ``kernels.common.STEP.ranks``; 1 for a ``DTensor`` op, counted at
+        its global shape)."""
         name = func._overloadpacket.__name__
         if func.namespace in _COLLECTIVE_NS:
             kind = _COLLECTIVES.get(name)
@@ -215,7 +219,7 @@ class Counter:
             return
         if func.is_view or name in _FREE_NAMES or func.namespace == "prim":
             return
-        scale = common.STEP.ranks
+        scale = common.STEP.ranks if scale is None else scale
         if self.formulas is not None:
             self.formulas(func, args, kwargs, out, scale)
         outs = _tensors(out)
@@ -284,9 +288,10 @@ class _CountMode(TorchDispatchMode):
 
             with unset_fake_temporarily(), _CommsOnly(self.c):
                 out = func(*args, **kwargs)
+            self.c.op(func, args, kwargs, out, scale=1)
         else:
             out = func(*args, **kwargs)
-        self.c.op(func, args, kwargs, out)
+            self.c.op(func, args, kwargs, out)
         self.c.track(_tensors(out))
         return out
 

@@ -30,7 +30,8 @@ import torch
 from repro_torch.tree import tree_map
 
 __all__ = ["PartitionSpec", "activation_mesh", "constrain", "constrain_tree", "active_mesh", "mesh_axes",
-           "placements", "redistribute", "logical_spec", "replicate_dims", "is_dtensor", "LOGICAL_AXES",
+           "placements", "redistribute", "logical_spec", "replicate_dims", "merge_ready", "merge_ready_grad",
+           "reduce_partial", "is_dtensor", "LOGICAL_AXES",
            "local_region", "placed_zeros", "as_dtensor", "rank_index"]
 
 LOGICAL_AXES: dict[str, Any] = {
@@ -204,6 +205,55 @@ def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     return x if target == list(x.placements) else x.redistribute(x.device_mesh, target)
 
 
+def merge_ready(x: torch.Tensor, start: int = 0, end: int | None = None) -> torch.Tensor:
+    """``x`` laid out so that a view may merge its dims ``start`` to
+    ``end`` (exclusive; all but the last by default) into one: of those
+    longer than 1, only the first stays sharded, the later ones are
+    gathered.  ``torch.matmul`` and ``torch.einsum`` fold their operands'
+    leading dims so; merging a sharded dim into the one before it rests on
+    one torch version's DTensor rule (2.13 flattens it through a strided
+    shard, 2.11 refuses).  A plain tensor unchanged."""
+    if not is_dtensor(x):
+        return x
+    live = [d for d in range(start, x.ndim - 1 if end is None else end) if x.shape[d] > 1]
+    return replicate_dims(x, *live[1:])
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` whose pending sums (``Partial`` placements: a sum or a
+    mean over a sharded dim) are reduced now, the rest of its layout kept;
+    anything else unchanged.  Left pending, the next op's sharding rule
+    decides where they are reduced, and torch versions decide differently
+    (2.13 reduce-scattered a norm's row statistics onto the sequence, 2.11
+    all-reduced them)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+
+
+class _MergeReadyGrad(torch.autograd.Function):
+    """The identity, whose backward hands on ``merge_ready(gradient)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return merge_ready(g)
+
+
+def merge_ready_grad(y: torch.Tensor) -> torch.Tensor:
+    """``y``, whose gradient is made ``merge_ready`` before it reaches the
+    op that made ``y``: the output of a product, whose backward folds the
+    gradient's leading dims as the forward folded its input's, while the
+    gradient arrives in the residual stream's layout (the sequence
+    sharded).  A plain tensor unchanged."""
+    return _MergeReadyGrad.apply(y) if is_dtensor(y) and y.requires_grad else y
+
+
 def constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     """Redistribute a ``DTensor`` by logical names; the identity without a
     mesh and on a plain tensor."""
@@ -213,22 +263,49 @@ def constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     return redistribute(x, logical_spec(tuple(x.shape), axes, mesh), mesh)
 
 
+class _RanksFrom(torch.autograd.Function):
+    """The identity on a region's local tensor, whose backward sets
+    ``kernels.common.STEP.ranks`` to ``ranks``: a region's outputs set its
+    rank count where the gradient enters the region, its inputs the count
+    outside where the gradient leaves, so a step counter counts the
+    region's backward ops as it counts its forward ones."""
+
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.common import STEP
+
+        STEP.ranks = ctx.ranks
+        return g, None
+
+
 def local_region(fn, mesh, in_placements, out_placements, in_grad_placements=None):
     """``local_map(fn)`` on ``mesh`` — PyTorch's ``shard_map``: ``DTensor``
     arguments are redistributed to ``in_placements`` and ``fn`` runs on
     each rank's local tensors; its outputs come back as ``DTensor``s laid
     out as ``out_placements`` (``()`` for a region that only writes its
-    arguments in place).  While ``fn`` runs, ``kernels.common.STEP.ranks``
-    is the mesh's rank count: a step counter counts each op of the region
-    that many times."""
+    arguments in place).  While ``fn`` runs, and while its backward runs,
+    ``kernels.common.STEP.ranks`` is the mesh's rank count: a step counter
+    counts each op of the region that many times."""
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.kernels.common import STEP
 
+    def marked(t, ranks):
+        if isinstance(t, torch.Tensor) and t.requires_grad and torch.is_grad_enabled():
+            return _RanksFrom.apply(t, ranks)
+        return t
+
     def body(*args):
         prev, STEP.ranks = STEP.ranks, mesh.size()
         try:
-            return fn(*args)
+            out = fn(*(marked(a, prev) for a in args))
+            return tuple(marked(o, mesh.size()) for o in out) if isinstance(out, tuple) else marked(
+                out, mesh.size())
         finally:
             STEP.ranks = prev
 

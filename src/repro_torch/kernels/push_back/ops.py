@@ -54,8 +54,8 @@ def push_back_fused_multi(
     (``ref.push_back``).  The counters describe the whole wave.
 
     On fake tensors (``FakeTensorMode``: the dry-run) the shape rule stands
-    in for the launch: the plain version, uncounted, then one noted
-    launch (``common.run_kernel``).
+    in for the launch: the plain version's scan, uncounted (a fake level
+    holds nothing to write), then one noted launch (``common.run_kernel``).
     """
     common.check_memory_space(memory_space)
     common.check_dispatch(dispatch)
@@ -78,6 +78,11 @@ def push_back_fused_multi(
             return level_groups, new_sizes, pos, vec
         return level_groups, new_sizes, pos
 
+    def rule():
+        pos, new_sizes = _ref.scan(sizes, mask)
+        out = (level_groups, new_sizes, torch.where(mask, pos, -1))
+        return out + (_ref.counters(mask, sizes, b0, len(level_groups[0])),) if instrument else out
+
     def launch():
         outs = _kernel.push_back_cuda_multi(
             level_groups, sizes.to(torch.int32).contiguous(), b0,
@@ -93,7 +98,7 @@ def push_back_fused_multi(
         return plain()
     levels_all = [lv for levels in level_groups for lv in levels]
     return common.run_kernel(_kernel.launch_name(len(level_groups)),
-                             [*levels_all, sizes, *elem_groups, mask], plain, launch)
+                             [*levels_all, sizes, *elem_groups, mask], rule, launch)
 
 
 def push_back_fused(

@@ -13,7 +13,16 @@ from repro_torch.core import indexing
 from repro_torch.kernels import common
 from repro_torch.obs import device as obs_device
 
-__all__ = ["push_back", "counters"]
+__all__ = ["push_back", "scan", "counters"]
+
+
+def scan(sizes: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The push-back's scan: → (each lane's in-block position, masked lanes
+    too; the new sizes)."""
+    mask_i = mask.to(torch.int32)
+    inclusive = torch.cumsum(mask_i, dim=-1, dtype=torch.int32)
+    counts = inclusive[:, -1] if mask.shape[1] else torch.zeros_like(sizes)
+    return sizes.to(torch.int32)[:, None] + inclusive - mask_i, sizes + counts
 
 
 def push_back(
@@ -33,14 +42,9 @@ def push_back(
     or one a level); a lane outside the slice writes nothing here, and
     sizes and positions are the whole wave's.  ``nshards=1`` is the whole
     level."""
-    mask_i = mask.to(torch.int32)
-    inclusive = torch.cumsum(mask_i, dim=-1, dtype=torch.int32)
-    offsets = inclusive - mask_i
-    m = mask.shape[1]
-    counts = inclusive[:, -1] if m else torch.zeros_like(sizes)
-    pos = sizes.to(torch.int32)[:, None] + offsets
+    pos, new_sizes = scan(sizes, mask)
     common.scatter_levels_(levels, b0, pos, mask, elems, shard=shard, nshards=nshards)
-    return levels, sizes + counts, torch.where(mask, pos, -1)
+    return levels, new_sizes, torch.where(mask, pos, -1)
 
 
 def counters(mask: torch.Tensor, sizes: torch.Tensor, b0: int, nlevels: int) -> torch.Tensor:

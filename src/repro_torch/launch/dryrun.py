@@ -45,15 +45,16 @@ import traceback
 
 import torch
 
+from repro_torch import configs
 from repro_torch.analysis import flops as flops_mod
 from repro_torch.analysis import roofline
-from repro_torch.configs import SHAPES, get as get_cfg
+from repro_torch.configs import SHAPES
 from repro_torch.distributed.context import activation_mesh, is_dtensor, placements
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import Cell, build_cell, plan_cells
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["run_cell", "fake_world", "fake_device", "RESULTS_DIR", "HBM_BYTES"]
+__all__ = ["run_cell", "trace_cell", "fake_world", "fake_device", "RESULTS_DIR", "HBM_BYTES"]
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results", "dryrun_torch")
 HBM_BYTES = 80e9  # one H100's device memory
@@ -152,10 +153,43 @@ class _FlopFormulas:
             self.flops += scale * f(*args, **kwargs, out_val=out)
 
 
-def run_cell(cell: Cell, *, multi_pod: bool, force: bool = False, opt: bool = False,
-             results_dir: str | None = None) -> dict:
+def trace_cell(cell: Cell, mesh, *, opt: bool = False, device: str = "cuda",
+               trace: bool = False) -> tuple[dict, dict, float]:
+    """One cell's step, run once on ``mesh`` (a fake process group of its
+    ranks started by the caller) under ``FakeTensorMode``,
+    ``activation_mesh`` and ``count_fn`` → (``count_fn``'s counts, rank 0's
+    memory as the module docstring defines it, the FLOPs of
+    ``torch.utils.flop_counter``'s formulas)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    # DTensor's redistributions may index fake shards with small real index
+    # tensors of their own (analysis.flops)
+    with FakeTensorMode(allow_non_fake_inputs=True), activation_mesh(mesh):
+        step, args, opts = build_cell(cell, mesh, opt=opt, device=device)
+        donated = [args[i] for i in opts.get("donate", ())]
+        arg_bytes, _ = _local_bytes(args)
+        _, donated_keys = _local_bytes(donated)
+        formulas = _FlopFormulas()
+
+        def run(*a):
+            res = step(*a)
+            if "out_specs" in opts:
+                res = _apply_out_specs(res, opts["out_specs"], mesh)
+            return res
+
+        jcount = flops_mod.count_fn(run, *args, trace=trace, formulas=formulas)
+        result = jcount.pop("result")
+        out_bytes, _ = _local_bytes(result)
+        alias_bytes, _ = _local_bytes(result, only=donated_keys)
+    temp = max(jcount["peak_bytes"] - (arg_bytes + out_bytes - alias_bytes), 0)
+    hbm_used = int(arg_bytes + out_bytes + temp - alias_bytes)
+    memory = dict(argument_bytes=int(arg_bytes), output_bytes=int(out_bytes), temp_bytes=int(temp),
+                  alias_bytes=int(alias_bytes), hbm_used_bytes=hbm_used, fits_80gb=bool(hbm_used < HBM_BYTES))
+    return jcount, memory, formulas.flops
+
+
+def run_cell(cell: Cell, *, multi_pod: bool, force: bool = False, opt: bool = False,
+             results_dir: str | None = None) -> dict:
     results_dir = results_dir or RESULTS_DIR
     path = _result_path(cell, multi_pod, opt, results_dir)
     if not force and os.path.exists(path):
@@ -184,25 +218,7 @@ def run_cell(cell: Cell, *, multi_pod: bool, force: bool = False, opt: bool = Fa
         with fake_world(out["chips"]):
             dev = fake_device()
             mesh = make_production_mesh(multi_pod=multi_pod, device=dev)  # outside: reads its ranks
-            # DTensor's redistributions may index fake shards with small
-            # real index tensors of their own (analysis.flops)
-            with FakeTensorMode(allow_non_fake_inputs=True), activation_mesh(mesh):
-                step, args, opts = build_cell(cell, mesh, opt=opt, device=dev)
-                donated = [args[i] for i in opts.get("donate", ())]
-                arg_bytes, _ = _local_bytes(args)
-                _, donated_keys = _local_bytes(donated)
-                formulas = _FlopFormulas()
-
-                def run(*a):
-                    res = step(*a)
-                    if "out_specs" in opts:
-                        res = _apply_out_specs(res, opts["out_specs"], mesh)
-                    return res
-
-                jcount = flops_mod.count_fn(run, *args, trace=True, formulas=formulas)
-                result = jcount.pop("result")
-                out_bytes, _ = _local_bytes(result)
-                alias_bytes, _ = _local_bytes(result, only=donated_keys)
+            jcount, memory, formula_flops = trace_cell(cell, mesh, opt=opt, device=dev, trace=True)
         t_trace = time.monotonic() - t0
         with gzip.open(path.replace(".json", ".ops.jsonl.gz"), "wt") as f:
             for name, shapes, fl, by in jcount.pop("ops"):
@@ -213,21 +229,13 @@ def run_cell(cell: Cell, *, multi_pod: bool, force: bool = False, opt: bool = Fa
             "bytes accessed": jcount["hbm_bytes"] / out["chips"],
         }
         terms = roofline.roofline_terms(per_dev, coll)
-        mf = roofline.model_flops(get_cfg(cell.arch), SHAPES[cell.shape], out["chips"])
-        temp = max(jcount["peak_bytes"] - (arg_bytes + out_bytes - alias_bytes), 0)
-        hbm_used = int(arg_bytes + out_bytes + temp - alias_bytes)
+        # the config build_cell traced (read now, as it read it)
+        mf = roofline.model_flops(configs.get(cell.arch), SHAPES[cell.shape], out["chips"])
         out.update(
             status="ok",
             trace_s=round(t_trace, 1),
-            memory=dict(
-                argument_bytes=int(arg_bytes),
-                output_bytes=int(out_bytes),
-                temp_bytes=int(temp),
-                alias_bytes=int(alias_bytes),
-                hbm_used_bytes=hbm_used,
-                fits_80gb=bool(hbm_used < HBM_BYTES),
-            ),
-            cost_flop_counter={"flops": float(formulas.flops)},
+            memory=memory,
+            cost_flop_counter={"flops": float(formula_flops)},
             cost_global={"flops": jcount["flops"], "hbm_bytes": jcount["hbm_bytes"]},
             collectives={k: round(v, 1) for k, v in coll.items()},
             collective_count=len(jcount["collectives"]),

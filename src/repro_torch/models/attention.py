@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import constrain, is_dtensor
+from repro_torch.distributed.context import (constrain, is_dtensor, local_region, logical_spec, merge_ready,
+                                             merge_ready_grad, mesh_axes, rank_index)
 from repro_torch.models.modules import Param, apply_rope, dense_init, rms_norm, rope
 
 __all__ = [
@@ -95,18 +96,22 @@ def softmax_update(state: SoftmaxState, qr, kk, vv, live) -> SoftmaxState:
     return SoftmaxState(m_new, l, state.acc * alpha[..., None] + pv)
 
 
+def _head_ranks(q: torch.Tensor) -> int:
+    """The ranks that split the heads dim of a ``DTensor`` (B, S, H, Dh)."""
+    n = 1
+    for d, p in enumerate(q.placements):
+        if p.is_shard(2):
+            n *= q.device_mesh.size(d)
+    return n
+
+
 def _group_heads(q: torch.Tensor, kh: int, group: int) -> torch.Tensor:
     """(B, S, H, Dh) → (B, S, KH, G, Dh) f32.  On a mesh whose ``'model'``
     axis shards the heads but not the KH kv heads, DTensor cannot split the
     heads dim: the heads first move off ``'model'`` onto the sequence, the
     layout the blockwise walk wants next anyway."""
-    if is_dtensor(q):
-        n = 1
-        for d, p in enumerate(q.placements):
-            if p.is_shard(2):
-                n *= q.device_mesh.size(d)
-        if kh % n:
-            q = constrain(q, ("batch", "seq", None, None))
+    if is_dtensor(q) and kh % _head_ranks(q):
+        q = constrain(q, ("batch", "seq", None, None))
     B, Sq, _, Dh = q.shape
     return q.reshape(B, Sq, kh, group, Dh).to(_F32)
 
@@ -212,22 +217,101 @@ def _diag_state(qr, k, v, q_offset, kv_offset):
     return SoftmaxState(m, l, acc)
 
 
-def _causal_tri_state(qr, k, v, chunk, q_offset=0):
+def _causal_tri_state(qr, k, v, chunk, q_offset=0, first=0, lo=0, hi=None):
     """Recursive triangular causal attention (flop-exact ~n(n+1)/2 chunks):
-    causal([A;B]) = [causal(A); merge(causal(B), rect(B→A))]."""
-    S = qr.shape[1]
-    if S <= chunk:
-        return _diag_state(qr, k, v, q_offset, q_offset)
-    half = S // 2
-    state_a = _causal_tri_state(qr[:, :half], k[:, :half], v[:, :half], chunk, q_offset)
-    state_b = _causal_tri_state(qr[:, half:], k[:, half:], v[:, half:], chunk, q_offset + half)
-    state_b = _merge_states(state_b, _rect_state(qr[:, half:], k[:, :half], v[:, :half], chunk))
-    return SoftmaxState(*(torch.cat([a, b], dim=1) for a, b in zip(state_a, state_b)))
+    causal([A;B]) = [causal(A); merge(causal(B), rect(B→A))].
+
+    ``qr`` holds query rows ``first`` to ``first + rows`` of the node
+    [lo, hi) of the recursion (the whole sequence by default); k and v hold
+    the whole sequence.  The rows get the states the whole recursion gives
+    them, in its arithmetic row for row, so a rank holding some of the rows
+    computes them alone (``_tri_zigzag``)."""
+    hi = k.shape[1] if hi is None else hi
+    if hi - lo <= chunk:
+        return _diag_state(qr, k[:, lo:hi], v[:, lo:hi], q_offset + first, q_offset + lo)
+    mid = lo + (hi - lo) // 2
+    if first + qr.shape[1] <= mid:
+        return _causal_tri_state(qr, k, v, chunk, q_offset, first, lo, mid)
+    if first >= mid:
+        state = _causal_tri_state(qr, k, v, chunk, q_offset, first, mid, hi)
+        return _merge_states(state, _rect_state(qr, k[:, lo:mid], v[:, lo:mid], chunk))
+    a = mid - first
+    state_a = _causal_tri_state(qr[:, :a], k, v, chunk, q_offset, first, lo, mid)
+    state_b = _causal_tri_state(qr[:, a:], k, v, chunk, q_offset, mid, lo, hi)
+    return SoftmaxState(*(torch.cat([x, y], dim=1) for x, y in zip(state_a, state_b)))
+
+
+def _zigzag_ranks(q: torch.Tensor, kh: int) -> int:
+    """How many ranks ``_group_heads`` will split q's sequence over (it
+    moves the heads there when the kv heads do not divide over them); 1
+    where it keeps the heads, or q is no ``DTensor``."""
+    if not is_dtensor(q) or any(p.is_shard(1) for p in q.placements) or kh % _head_ranks(q) == 0:
+        return 1
+    mesh = q.device_mesh
+    axis = logical_spec(tuple(q.shape), ("batch", "seq", None, None), mesh)[1]
+    sizes = mesh_axes(mesh)
+    n = 1
+    for a in (() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
+        n *= sizes[a]
+    return n
+
+
+def _tri_zigzag(q, k, v, *, group, chunk, q_offset, n):
+    """Triangular causal attention on a mesh that splits the sequence over
+    ``n`` ranks, each rank computing its own query rows alone in a
+    ``local_map`` region against the whole k and v.  Slicing the
+    sequence-sharded queries as the recursion halves them would gather
+    them on every rank (DTensor replicates a sliced sharded dim): every
+    rank would compute every query's scores.  The rows are dealt out as
+    2n half-blocks, rank r holding half-blocks r and 2n − 1 − r, so that
+    each rank's rows reach back over as many keys (the causal triangle's
+    work, balanced): the sequence is permuted while the heads still shard
+    q (no exchange), the heads then move to the sequence as
+    ``_group_heads`` moves them, and the output moves back onto the heads
+    (the layout ``project_out`` wants) before the inverse permutation."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    B, Sq, H, Dh = q.shape
+    KH = k.shape[2]
+    half = Sq // (2 * n)
+    order = [b for r in range(n) for b in (r, 2 * n - 1 - r)]
+    perm = torch.cat([torch.arange(b * half, (b + 1) * half, device=q.device) for b in order])
+    qr = _group_heads(_permute_seq(q, perm), KH, group) * (Dh ** -0.5)
+    mesh = qr.device_mesh
+    place = list(qr.placements)
+    seq_dims = [d for d, p in enumerate(place) if p.is_shard(1)]
+    kv = [p if p.is_shard(0) else Replicate() for p in place]
+    kv_grad = [p if p.is_shard(0) else Partial() if p.is_shard(1) else Replicate() for p in place]
+    r = rank_index(mesh, seq_dims)
+    firsts = (r * half, (2 * n - 1 - r) * half)
+
+    def block(qr_, k_, v_):
+        states = [_causal_tri_state(qr_[:, i * half:(i + 1) * half], k_, v_, chunk, q_offset, first)
+                  for i, first in enumerate(firsts)]
+        state = SoftmaxState(*(torch.cat(parts, dim=1) for parts in zip(*states)))
+        return state.acc / torch.clamp(state.l[..., None], min=1e-30)
+
+    out = local_region(block, mesh, (place, kv, kv), place, (place, kv_grad, kv_grad))(qr, k, v)
+    out = constrain(_pinned_reshape(out, (B, Sq, H, Dh)).to(q.dtype), ("batch", None, "heads", None))
+    return _permute_seq(out, torch.argsort(perm))
+
+
+def _permute_seq(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(1, perm)`` of a ``DTensor`` whose sequence (dim 1)
+    no mesh dim splits, on each rank's local tensor (a ``local_map``
+    region): DTensor has no rule for the gradient's ``index_add`` under
+    some torch versions (2.11)."""
+    place = list(x.placements)
+    return local_region(lambda t: t.index_select(1, perm), x.device_mesh, (place,), place)(x)
 
 
 def _blockwise_tri_attention(q, k, v, *, group, causal, chunk, q_offset=0):
     B, Sq, H, Dh = q.shape
     KH = k.shape[2]
+    if causal and Sq == k.shape[1]:
+        n = _zigzag_ranks(q, KH)
+        if n > 1 and Sq % (2 * n) == 0:
+            return _tri_zigzag(q, k, v, group=group, chunk=chunk, q_offset=q_offset, n=n)
     qr = _group_heads(q, KH, group) * (Dh ** -0.5)
     if not causal or Sq != k.shape[1]:
         state = _rect_state(qr, k, v, chunk)
@@ -319,8 +403,11 @@ def _split_head_dim(w: torch.Tensor, h_dim: int) -> bool:
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads; one
-    a head where the heads' head_dim is sharded (``_split_head_dim``)."""
+    a head where the heads' head_dim is sharded (``_split_head_dim``).  On
+    a mesh the sequence is gathered first (``merge_ready``: Megatron's
+    sequence-parallel gather), the output sharded as the weight's heads."""
     d, h, k = w.shape
+    x = merge_ready(x)
     if _split_head_dim(w, 1):
         return torch.stack([x @ w[:, j] for j in range(h)], dim=-2)
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
@@ -343,14 +430,20 @@ def project_qkv(p: Param, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
 
 def project_out(p: Param, attn_out: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul over the flattened heads; a
-    sum of one a head where the heads' head_dim is sharded."""
+    sum of one a head where the heads' head_dim is sharded.  On a mesh a
+    sequence-sharded ``attn_out`` moves onto the heads first (the weight's
+    layout: an all-to-all, not a gather); the output is the heads' partial
+    sums, which the residual add reduce-scatters onto the sequence."""
     h, k, d = p["wo"].shape
+    if is_dtensor(attn_out) and any(getattr(q, "dim", None) == 1 for q in attn_out.placements):
+        attn_out = constrain(attn_out, ("batch", None, "heads", None))
+    attn_out = merge_ready(attn_out, 0, attn_out.ndim - 2)
     if _split_head_dim(p["wo"], 0):
         out = attn_out[..., 0, :] @ p["wo"][0]
         for j in range(1, h):
             out = out + attn_out[..., j, :] @ p["wo"][j]
-        return out
-    return attn_out.reshape(*attn_out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+        return merge_ready_grad(out)
+    return merge_ready_grad(attn_out.reshape(*attn_out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d))
 
 
 def attention_block(

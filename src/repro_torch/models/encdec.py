@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.modules import DTYPES, Param, rms_norm
@@ -41,6 +42,12 @@ def encode(enc_params: Param, frames: torch.Tensor, cfg: ModelConfig) -> torch.T
     layers = unstack_layers(enc_params["layers"], cfg.n_enc_layers)
 
     def body(i: int, x: torch.Tensor):
+        # the decoder's residual layout (transformer.forward): on a mesh the
+        # attention's and the MLP's head- and ff-partial sums then
+        # reduce-scatter onto the sequence at the residual adds, where a
+        # replicated stream left the choice to a torch version's rule
+        # (2.13 reduce-scattered at the next norm, 2.11 all-reduced)
+        x = constrain(x, ("batch", "seq", None))
         lp = layers[i]
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + attn_mod.attention_block(lp["attn"], h, cfg, positions, causal=False)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import constrain, merge_ready, merge_ready_grad
 from repro_torch.models.modules import Param, dense_init
 
 __all__ = ["init_mlp", "mlp_block"]
@@ -35,12 +35,15 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
 
 
 def mlp_block(p: Param, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """The hidden is ff-sharded on a mesh (Megatron TP inside the block)."""
+    """The hidden is ff-sharded on a mesh (Megatron TP inside the block),
+    the sequence gathered before the first products and off the output's
+    gradient (``merge_ready``, ``merge_ready_grad``)."""
+    x = merge_ready(x)
     if activation == "swiglu":
-        return (F.silu(constrain(x @ p["w_gate"], ("batch", None, "ff")))
-                * constrain(x @ p["w_up"], ("batch", None, "ff"))) @ p["w_down"]
+        return merge_ready_grad((F.silu(constrain(x @ p["w_gate"], ("batch", None, "ff")))
+                                 * constrain(x @ p["w_up"], ("batch", None, "ff"))) @ p["w_down"])
     if activation == "gelu":
         h = F.gelu(constrain(x @ p["w_up"], ("batch", None, "ff")) + p["b_up"], approximate="tanh")
     else:
         h = F.relu(constrain(x @ p["w_up"], ("batch", None, "ff")) + p["b_up"])
-    return h @ p["w_down"] + p["b_down"]
+    return merge_ready_grad(h @ p["w_down"]) + p["b_down"]

@@ -16,7 +16,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.context import as_dtensor, is_dtensor, local_region
+from repro_torch.distributed.context import as_dtensor, is_dtensor, local_region, merge_ready, reduce_partial
 
 __all__ = ["rms_norm", "rope", "apply_rope", "embed", "unembed", "dense_init", "Param", "DTYPES"]
 
@@ -50,9 +50,16 @@ def dense_init(
     return out
 
 
+def _rstd(x32: torch.Tensor, eps: float) -> torch.Tensor:
+    """1 / RMS over the last dim; where a mesh shards that dim (Mamba's
+    gated norm over the inner dim) the row statistics are reduced at once
+    (``reduce_partial``)."""
+    return torch.rsqrt(reduce_partial(torch.mean(torch.square(x32), dim=-1, keepdim=True)) + eps)
+
+
 def _rms_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
-    rstd = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + eps)
+    rstd = _rstd(x32, eps)
     return (x32 * rstd * weight.to(torch.float32)).to(x.dtype)
 
 
@@ -70,13 +77,13 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         x32, dy32, w32 = x.to(torch.float32), dy.to(torch.float32), weight.to(torch.float32)
-        rstd = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + ctx.eps)
+        rstd = _rstd(x32, ctx.eps)
         xhat = x32 * rstd
         # dL/dw: reduce over all leading dims
         dw = torch.sum(dy32 * xhat, dim=tuple(range(dy.ndim - 1))) if dy.ndim > 1 else dy32 * xhat
         # dL/dx = rstd * (g - xhat * mean(g * xhat)) with g = dy * w
         g = dy32 * w32
-        dx = rstd * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+        dx = rstd * (g - xhat * reduce_partial(torch.mean(g * xhat, dim=-1, keepdim=True)))
         return dx.to(x.dtype), dw.to(weight.dtype), None
 
 
@@ -143,5 +150,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Project to vocab logits (fp32 for a stable softmax/CE)."""
-    return torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
+    """Project to vocab logits (fp32 for a stable softmax/CE); on a mesh the
+    sequence gathered first (``merge_ready``), the vocab sharded as the
+    table's."""
+    return torch.matmul(merge_ready(x).to(torch.float32), table.to(torch.float32).t())

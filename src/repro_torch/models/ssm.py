@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (is_dtensor, local_region, logical_spec, merge_ready,
+                                             merge_ready_grad, mesh_axes, placements)
 from repro_torch.models.modules import Param, dense_init, rms_norm
 
 __all__ = ["init_mamba", "mamba_block", "mamba_decode_step", "init_mamba_state", "MambaState"]
@@ -69,21 +71,53 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *,
 
 
 def _split_proj(p: Param, x: torch.Tensor):
+    x = merge_ready(x)
     z = x @ p["wz"]
     xBC = torch.cat([x @ p["wx"], x @ p["wBC"]], dim=-1)
     dt = x @ p["wdt"]
     return z, xBC, dt
 
 
-def _causal_conv(p: Param, xBC: torch.Tensor, d_conv: int) -> torch.Tensor:
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, xBC: torch.Tensor, d_conv: int) -> torch.Tensor:
     """Depthwise causal conv along L via shifted adds (the window is tiny)."""
-    w = p["conv_w"]
     out = xBC * w[-1]
     L = xBC.shape[1]
     for i in range(1, d_conv):
         shifted = F.pad(xBC, (0, 0, i, 0))[:, :L]
         out = out + shifted * w[-1 - i]
-    return F.silu(out + p["conv_b"])
+    return F.silu(out + b)
+
+
+def _conv(w, b, xBC, *hist, pad: int):
+    """The causal conv of the projections ``xBC`` (B, L, ch) behind
+    ``hist`` (B, d_conv − 1, ch), the raw history a resumed call reaches
+    back into (zeros without one), padded by ``pad`` steps → (the conv's
+    output (B, L + pad, ch), the last d_conv − 1 raw steps: the next call's
+    history)."""
+    d_conv = w.shape[0]
+    hist = hist[0].to(xBC.dtype) if hist else xBC.new_zeros((xBC.shape[0], d_conv - 1, xBC.shape[-1]))
+    xBC = torch.cat([hist, xBC], dim=1)  # (B, d_conv-1 + L, ch)
+    tail = xBC[:, xBC.shape[1] - (d_conv - 1):, :]
+    if pad:
+        xBC = F.pad(xBC, (0, 0, 0, pad))
+    return _causal_conv(w, b, xBC, d_conv)[:, d_conv - 1:], tail
+
+
+def _conv_region(conv, args: tuple):
+    """``conv(*args)`` (``_conv``) on a mesh, in a ``local_map`` region: the
+    batch split as the data axes split it, the sequence and the channels
+    whole on every rank (the conv runs along the sequence; its pads and
+    shifts of a ``DTensor`` rest on a torch version's rules).  The weights'
+    gradients are the ranks' shares of a sum over the batch."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    xBC = args[2]
+    mesh = xBC.device_mesh
+    batch = placements((logical_spec(tuple(xBC.shape[:1]), ("batch",), mesh)[0], None, None), mesh)
+    whole = [Replicate()] * mesh.ndim
+    summed = [Partial() if q.is_shard() else Replicate() for q in batch]
+    ins = (whole, whole, batch, batch)[:len(args)]
+    return local_region(conv, mesh, ins, (batch, batch), (summed, summed, *ins[2:]))(*args)
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -108,50 +142,26 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_block(
-    p: Param,
-    x: torch.Tensor,
-    cfg: ModelConfig,
-    state: MambaState | None = None,
-    *,
-    return_state: bool = False,
-):
-    """Full-sequence SSD pass. x: (B, L, D) → (B, L, D) [, final MambaState].
-
-    ``state`` makes this a resumable chunk step (chunked prefill):
-    ``state.ssd`` seeds the inter-chunk recurrence and ``state.conv`` is the
-    raw pre-conv history the causal conv reaches back into.
-    """
-    s, di, nh, hd, g, n = _dims(cfg)
-    B, L, _ = x.shape
-    # a resumed call keeps the full chunk grid, so a short tail pads up to
-    # the Q the monolithic pass used (pad steps are state-neutral)
-    Q = s.chunk_size if state is not None else min(s.chunk_size, L)
-    pad = (-L) % Q
-    Lp = L + pad
-    nc = Lp // Q
-
-    z, xBC, dt = _split_proj(p, x)
-    if state is not None:
-        hist = state.conv.to(xBC.dtype)
-    else:
-        hist = xBC.new_zeros((B, s.d_conv - 1, xBC.shape[-1]))
-    xBC = torch.cat([hist, xBC], dim=1)  # (B, d_conv-1 + L, ch)
-    conv_tail = xBC[:, xBC.shape[1] - (s.d_conv - 1):, :]
-    if pad:
-        z = F.pad(z, (0, 0, 0, pad))
-        xBC = F.pad(xBC, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-    xBC = _causal_conv(p, xBC, s.d_conv)[:, s.d_conv - 1:]
-    xs, Bm, Cm = torch.split(xBC, [di, g * n, g * n], dim=-1)
-
-    dt = _softplus(dt.to(_F32) + p["dt_bias"])  # (B, Lp, nh)
-    if pad:
-        dt = dt * (torch.arange(Lp, device=x.device) < L).to(dt.dtype)[None, :, None]
-    A = -torch.exp(p["A_log"])  # (nh,)
-    dA = dt * A  # (B, Lp, nh) log-decay
-
+def _ssd(xs, Bm, Cm, dt, A_log, D, dt_bias, ssd0=None, *, L: int, Q: int, g: int, hd: int,
+         out_dtype: torch.dtype):
+    """The SSD scan of the conv's outputs → (y (B, L, di) in ``out_dtype``,
+    the final state (B, nh, hd, n) f32).  xs (B, Lp, di), Bm/Cm (B, Lp,
+    g·n), dt (B, L, nh) raw; ``ssd0`` the state entering the first chunk.
+    A head reads only its own slices of xs, dt, A_log, D and dt_bias (and
+    its group's of Bm, Cm), so a mesh runs a slice of the heads on each
+    rank's local tensors (``_ssd_region``)."""
+    B, Lp, di = xs.shape
+    nh = dt.shape[-1]
+    n = Bm.shape[-1] // g
     hpg = nh // g
+    nc = Lp // Q
+    if Lp != L:
+        dt = F.pad(dt, (0, 0, 0, Lp - L))
+    dt = _softplus(dt.to(_F32) + dt_bias)  # (B, Lp, nh)
+    if Lp != L:
+        dt = dt * (torch.arange(Lp, device=xs.device) < L).to(dt.dtype)[None, :, None]
+    A = -torch.exp(A_log)  # (nh,)
+    dA = dt * A  # (B, Lp, nh) log-decay
     xc = xs.reshape(B, nc, Q, nh, hd).to(_F32)
     Bh = _heads(Bm.reshape(B, nc, Q, g, n).to(_F32), hpg)  # (B, nc, Q, nh, n)
     Ch = _heads(Cm.reshape(B, nc, Q, g, n).to(_F32), hpg)
@@ -175,7 +185,7 @@ def mamba_block(
 
     # ---- inter-chunk recurrence: the state entering each chunk ----
     chunk_decay = torch.exp(tot[:, :, 0, :])  # (B, nc, nh)
-    carry = state.ssd.to(_F32) if state is not None else x.new_zeros((B, nh, hd, n), dtype=_F32)
+    carry = ssd0.to(_F32) if ssd0 is not None else xs.new_zeros((B, nh, hd, n), dtype=_F32)
     prev = []
     for c in range(nc):
         prev.append(carry)
@@ -185,12 +195,75 @@ def mamba_block(
     # ---- state → output ----
     y_off = torch.einsum("bcqhn,bchpn->bcqhp", Ch * torch.exp(cs)[..., None], prev_states)
     y = (y_diag + y_off).reshape(B, Lp, nh, hd)
-    y = y + xs.to(_F32).reshape(B, Lp, nh, hd) * p["D"][None, None, :, None]
-    y = y.reshape(B, Lp, di)[:, :L].to(x.dtype)
-    z = z[:, :L]
+    y = y + xs.to(_F32).reshape(B, Lp, nh, hd) * D[None, None, :, None]
+    return y.reshape(B, Lp, di)[:, :L].to(out_dtype), carry
+
+
+def _ssd_region(core, args: tuple, g: int):
+    """``core(*args)`` (``_ssd``) on a mesh, in a ``local_map`` region: the
+    batch split as the data axes split it, the heads over ``'model'`` where
+    they divide and share one group, Bm and Cm whole on every rank of
+    ``'model'``.  Each rank runs the unmeshed scan on its own batch and
+    heads, so no view of a sharded ``DTensor`` is left to a torch version's
+    rule (the scan's einsums fold the batch, chunk and head dims).  A
+    rank's gradient of an input it reads whole over a mesh dim that splits
+    the work is its share of a sum (``Partial``): Bm's and Cm's over the
+    heads' dim, A_log's, D's and dt_bias's over the batch's."""
+    from torch.distributed.tensor import Partial
+
+    xs, dt = args[0], args[3]
+    mesh = xs.device_mesh
+    sizes = mesh_axes(mesh)
+    nh = dt.shape[-1]
+    heads = "model" if g == 1 and "model" in sizes and nh % sizes["model"] == 0 else None
+    batch = logical_spec(tuple(xs.shape[:1]), ("batch",), mesh)[0]
+    by_head = placements((batch, None, heads), mesh)
+    whole = placements((batch, None, None), mesh)
+    vec = placements((heads,), mesh)
+    state = placements((batch, heads, None, None), mesh)
+    ins = (by_head, whole, whole, by_head, vec, vec, vec, state)[:len(args)]
+
+    def summed(place, over):  # Partial() on the mesh dims where ``over`` shards
+        return [Partial() if o.is_shard() and not q.is_shard() else q for q, o in zip(place, over)]
+
+    grads = (by_head, summed(whole, by_head), summed(whole, by_head), by_head, *(summed(vec, whole),) * 3,
+             state)[:len(args)]
+    return local_region(core, mesh, ins, (by_head, state), grads)(*args)
+
+
+def mamba_block(
+    p: Param,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: MambaState | None = None,
+    *,
+    return_state: bool = False,
+):
+    """Full-sequence SSD pass. x: (B, L, D) → (B, L, D) [, final MambaState].
+
+    ``state`` makes this a resumable chunk step (chunked prefill):
+    ``state.ssd`` seeds the inter-chunk recurrence and ``state.conv`` is the
+    raw pre-conv history the causal conv reaches back into.
+    """
+    s, di, nh, hd, g, n = _dims(cfg)
+    L = x.shape[1]
+    # a resumed call keeps the full chunk grid, so a short tail pads up to
+    # the Q the monolithic pass used (pad steps are state-neutral)
+    Q = s.chunk_size if state is not None else min(s.chunk_size, L)
+    pad = (-L) % Q
+
+    z, xBC, dt = _split_proj(p, x)
+    conv = lambda *a: _conv(*a, pad=pad)  # noqa: E731
+    args = (p["conv_w"], p["conv_b"], xBC, *(() if state is None else (state.conv,)))
+    xBC, conv_tail = _conv_region(conv, args) if is_dtensor(xBC) else conv(*args)
+    xs, Bm, Cm = torch.split(xBC, [di, g * n, g * n], dim=-1)
+    ssd0 = () if state is None else (state.ssd,)
+    core = lambda *a: _ssd(*a, L=L, Q=Q, g=g, hd=hd, out_dtype=x.dtype)  # noqa: E731
+    args = (xs, Bm, Cm, dt, p["A_log"], p["D"], p["dt_bias"], *ssd0)
+    y, carry = _ssd_region(core, args, g) if is_dtensor(xs) else core(*args)
 
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = merge_ready_grad(y @ p["out_proj"])
     if return_state:
         return out, MambaState(conv=conv_tail, ssd=carry)
     return out

@@ -29,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import activation_mesh, active_mesh, constrain
+from repro_torch.distributed.context import activation_mesh, active_mesh, constrain, replicate_dims
 from repro_torch.distributed.sharding import constrain_param_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -196,7 +196,11 @@ def forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = run_periods(period, (x, aux), cfg.n_periods, cfg.remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    # the table's embed dim gathered first (FSDP's gather): left to its cost
+    # model, DTensor may split the product's contraction over 'data' instead
+    # and hold the microbatch's whole logits as partial sums, reduce-scattered
+    # onto the batch (two 5.0 GB f32 buffers a rank at qwen2.5-3b's train_4k)
+    table = replicate_dims(params["embed"] if cfg.tie_embeddings else params["unembed"], 1)
     logits = constrain(unembed(x, table), ("batch", None, "vocab"))
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding columns
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size

@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.distributed.context import (constrain_tree, is_dtensor, local_region, rank_index,
-                                             replicate_dims)
+                                             reduce_partial, replicate_dims)
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw, compression
 from repro_torch.tree import leaves, unflatten
@@ -62,23 +62,52 @@ def _vocab_sharded(logits: torch.Tensor) -> bool:
     return is_dtensor(logits) and any(p.is_shard(logits.ndim - 1) for p in logits.placements)
 
 
+class _VocabLSE(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of one rank's vocab slice of
+    ``logits``, the slices' maxima and sums reduced over ``groups`` (the
+    process groups of the mesh dims that split the vocab); its backward is
+    ``torch.logsumexp``'s, ``g · exp(logits − lse)``, on the slice alone."""
+
+    @staticmethod
+    def forward(ctx, lg, groups):
+        import torch.distributed as dist
+
+        m = torch.amax(lg, dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        s = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        for g in groups:
+            dist.all_reduce(s, group=g)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(lg, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(lg - lse[..., None]), None
+
+
 def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
-    """``torch.logsumexp`` over the vocab.  On a mesh that shards the vocab:
-    the row maximum from each slice's maximum (a ``local_map`` region, held
-    constant: the gradient is the softmax either way), then the sum of the
-    shifted exponentials, each rank summing its own slice — DTensor's
-    ``logsumexp`` would gather the whole rows on every rank."""
+    """``torch.logsumexp`` over the vocab.  On a mesh that shards the vocab,
+    each rank reduces its own slice in a ``local_map`` region and the
+    slices' maxima and sums are reduced across the vocab's ranks
+    (``_VocabLSE``); the gradient is each rank's slice, computed where it
+    lies.  DTensor's ``logsumexp`` would gather the whole rows on every
+    rank, and its backward of the same sum in DTensor ops regathers the
+    vocab (rank 0 held three f32 copies of a microbatch's whole logits in
+    the dry-run's ``train_4k`` cells: 19.9 GB each at qwen2.5-3b's vocab
+    under ``--opt``)."""
     if not _vocab_sharded(logits):
         return torch.logsumexp(logits, dim=-1)
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Replicate
 
     vdim = logits.ndim - 1
     mesh = logits.device_mesh
     lp = list(logits.placements)
-    m = local_region(lambda lg: torch.amax(lg, dim=-1), mesh, (lp,),
-                     [Partial("max") if p.is_shard(vdim) else p for p in lp])(logits.detach())
-    m = m.redistribute(mesh, [Replicate() if p.is_shard(vdim) else p for p in lp])
-    return m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    groups = [mesh.get_group(d) for d, p in enumerate(lp) if p.is_shard(vdim)]
+    out = [Replicate() if p.is_shard(vdim) else p for p in lp]
+    return local_region(lambda lg: _VocabLSE.apply(lg, groups), mesh, (lp,), out)(logits)
 
 
 def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -87,7 +116,8 @@ def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     the slice counts 0) and the slices' sums are reduced: no rank holds a
     whole row.  DTensor's own gather on a sharded dim fails, and gathering
     from the replicated rows would give every rank the whole logits in the
-    backward (80 GB a rank in the dry-run's ``train_4k`` cells)."""
+    backward (80 GB a rank in the dry-run's ``train_4k`` cells).  The
+    result is laid out as ``_logsumexp``'s."""
     vdim = logits.ndim - 1
     if not _vocab_sharded(logits):
         return torch.gather(replicate_dims(logits, -1), -1, targets[..., None].long())[..., 0]
@@ -103,9 +133,9 @@ def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         return torch.where(ok, torch.gather(lg, -1, torch.where(ok, t, 0)[..., None])[..., 0], 0.0)
 
     lp = list(logits.placements)
-    run = local_region(block, mesh, (lp, [Replicate() if p.is_shard(vdim) else p for p in lp]),
-                       [Partial() if p.is_shard(vdim) else p for p in lp])
-    return run(logits, targets)
+    whole = [Replicate() if p.is_shard(vdim) else p for p in lp]
+    run = local_region(block, mesh, (lp, whole), [Partial() if p.is_shard(vdim) else p for p in lp])
+    return reduce_partial(run(logits, targets))  # one slice holds each target
 
 
 def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -116,9 +146,9 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
     the denominator is at least 1."""
     nll = _logsumexp(logits) - _gold(logits, targets)
     if mask is None:
-        return torch.mean(nll)
+        return reduce_partial(torch.mean(nll))
     mask = mask.to(nll.dtype)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return reduce_partial(torch.sum(nll * mask)) / torch.clamp(reduce_partial(torch.sum(mask)), min=1.0)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:

@@ -10,7 +10,8 @@ the reference's (``repro.launch.{specs,dryrun}``).
   eight ranks in this process (destroyed after the module).
 - ``count_fn``'s FLOPs on reduced qwen2.5-3b train, prefill and decode cells
   within ``FLOPS_RTOL`` = 1e-6 relative of the reference's ``count_fn`` on the
-  same step.  One difference is by design: the reference's KV-chunk loop is
+  same step, and on the same cells under ``--opt`` (``build_cell(opt=True)``
+  of each package, at sequences that split the triangular recursion).  One difference is by design: the reference's KV-chunk loop is
   a ``lax.scan``, whose backward recomputes the scores q·kᵀ of every chunk
   (one ``bqkgd,bckd->bqkgc`` product a chunk, layer and microbatch); the
   port's Python loop keeps them for the backward.  The train cell is held
@@ -42,6 +43,10 @@ FLOPS_RTOL = 1e-6
 CELL_S = 60
 # reduced cells: (seq, batch); train takes the 8 microbatches of the reference's step
 REDUCED = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 4)}
+# the --opt cells' reduced shapes: sequences longer than its 2048-token
+# chunks, so the triangular recursion splits (train once, prefill twice)
+OPT_REDUCED = {"train": (4096, 2), "prefill": (8192, 1), "decode": (64, 4)}
+SHAPE_NAMES = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
 
 
 def _paths(tree, prefix=""):
@@ -213,6 +218,83 @@ def test_count_fn_flops_match_reference(kind):
                      * cfg.n_heads * cfg.head_dim)
     assert abs(got["flops"] - expected) <= FLOPS_RTOL * expected, (got["flops"], want["flops"], expected)
     assert got["hbm_bytes"] > 0 and not got["notes"]
+
+
+def _opt_counts(kind: str, monkeypatch):
+    """(port count, reference count) of one reduced qwen cell under
+    ``--opt``: each package's own ``build_cell(opt=True)``, its config and
+    shape swapped for the reduced ones (the port's on a one-rank fake
+    mesh, the reference's on one host device)."""
+    import jax
+
+    from repro import configs as rconfigs
+    from repro.analysis import flops as rflops
+    from repro.configs.base import ShapeConfig as RShapeConfig
+    from repro.distributed.context import activation_mesh as ractivation_mesh
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import flops
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    seq, batch = OPT_REDUCED[kind]
+    name = SHAPE_NAMES[kind]
+    rcfg, cfg = rconfigs.reduced("qwen2.5-3b"), configs.reduced("qwen2.5-3b")
+    monkeypatch.setattr(rconfigs, "get", lambda arch: rcfg)
+    monkeypatch.setattr(configs, "get", lambda arch: cfg)
+    monkeypatch.setitem(rspecs.SHAPES, name, RShapeConfig(name, seq, batch, kind))
+    monkeypatch.setitem(specs.SHAPES, name, ShapeConfig(name, seq, batch, kind))
+    rmesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    fn, args, _ = rspecs.build_cell(rspecs.Cell("qwen2.5-3b", name), rmesh, opt=True)
+    with rmesh, ractivation_mesh(rmesh):
+        want = rflops.count_fn(fn, *args)
+    with dryrun.fake_world(1):
+        dev = dryrun.fake_device()
+        mesh = make_host_mesh(1, 1, device=dev)
+        with FakeTensorMode(allow_non_fake_inputs=True), activation_mesh(mesh):
+            fn, args, _ = specs.build_cell(specs.Cell("qwen2.5-3b", name), mesh, opt=True, device=dev)
+            got = flops.count_fn(fn, *args)
+    return got, want
+
+
+@pytest.mark.parametrize("kind", list(OPT_REDUCED))
+def test_count_fn_flops_match_reference_under_opt(kind, monkeypatch):
+    """``--opt``: triangular attention in 2048-token chunks (train, prefill),
+    the int8 cache (decode), two microbatches (train).  The reference scans
+    no KV chunks here (each rectangle is one chunk), so nothing is
+    recomputed in its backward: the counts are held equal."""
+    got, want = _opt_counts(kind, monkeypatch)
+    assert want["flops"] > 0
+    assert abs(got["flops"] - want["flops"]) <= FLOPS_RTOL * want["flops"], (got["flops"], want["flops"])
+    assert got["hbm_bytes"] > 0 and not got["notes"]
+
+
+def test_count_fn_counts_a_region_backward_at_every_rank():
+    """A ``local_map`` region's ops count once a rank that runs them, in the
+    forward and in the backward alike: a product of a batch split over all
+    eight ranks of the fake (2, 4) mesh, and its two gradient products,
+    come to three times the product's global FLOPs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.analysis import flops
+    from repro_torch.distributed.context import activation_mesh, as_dtensor, local_region
+    from repro_torch.launch.mesh import make_host_mesh
+
+    B, K, N = 64, 32, 16
+    with dryrun.fake_world(8):
+        mesh = make_host_mesh(*MESH, device=dryrun.fake_device())
+        with FakeTensorMode(allow_non_fake_inputs=True), activation_mesh(mesh):
+            split = [Shard(0), Shard(0)]
+            x = as_dtensor(torch.zeros(B, K), mesh).redistribute(mesh, split).requires_grad_()
+            w = as_dtensor(torch.zeros(K, N), mesh).requires_grad_()
+            run = local_region(torch.matmul, mesh, (split, [Replicate()] * 2), split)
+
+            def step(x, w):
+                run(x, w).sum().backward()
+
+            got = flops.count_fn(step, x, w)
+    assert got["flops"] == 3 * 2 * B * K * N, got["flops"]
 
 
 @pytest.fixture(scope="module")

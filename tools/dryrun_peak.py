@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Which live tensors make rank 0's peak in a dry-run decode cell: the
+"""Which live tensors make rank 0's peak in a dry-run cell: by default the
 qwen2.5-3b and dbrx-132b x decode_32k cells of ``repro_torch.launch.dryrun``
 on the fake 16x16 mesh, with ``analysis.flops.Counter.track`` wrapped to
 remember each storage's size, shape, dtype, device and the Python frames
 that made it, and the largest dozen alive at the peak printed.
 
-    python3 tools/dryrun_peak.py [--src SRC] [--label cpu|cuda]
+    python3 tools/dryrun_peak.py [--src SRC] [--label cpu|cuda] [--cell ARCH:SHAPE[:opt] ...]
+
+``--cell`` picks other cells (``:opt`` the ``--opt`` variant), one line of
+totals and the dozen rows each.
 
 SRC: the port's source root, default src.  No card needed; on a CUDA build
 the fake tensors are labelled ``cuda`` (``launch.dryrun.fake_device``),
@@ -22,6 +25,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default="src")
     ap.add_argument("--label", choices=("cpu", "cuda"))
+    ap.add_argument("--cell", action="append", help="ARCH:SHAPE or ARCH:SHAPE:opt")
     opts = ap.parse_args()
     sys.path.insert(0, opts.src)
     import torch
@@ -61,14 +65,16 @@ def main() -> None:
     flops.Counter.__init__ = remember
     if opts.label:
         dryrun.fake_device = lambda: opts.label
-    for arch in ("qwen2.5-3b", "dbrx-132b"):
+    for name in opts.cell or ("qwen2.5-3b:decode_32k", "dbrx-132b:decode_32k"):
+        arch, shape, *variant = name.split(":")
         with dryrun.fake_world(256):
             dev = dryrun.fake_device()
             mesh = make_production_mesh(device=dev)
             with FakeTensorMode(allow_non_fake_inputs=True), activation_mesh(mesh):
-                step, args, _ = specs.build_cell(specs.Cell(arch, "decode_32k"), mesh, device=dev)
+                step, args, _ = specs.build_cell(specs.Cell(arch, shape), mesh, device=dev,
+                                                 opt=variant == ["opt"])
                 got = flops.count_fn(step, *args)
-        print(arch, dev, "torch", torch.__version__, "peak", got["peak_bytes"], flush=True)
+        print(name, dev, "torch", torch.__version__, "peak", got["peak_bytes"], flush=True)
         for row in getattr(counters[-1], "at_peak", []):
             print("  ", row, flush=True)
 

@@ -257,9 +257,10 @@ Run from the root of the repository.  Phases, one JSON line each:
    ``torch.use_deterministic_algorithms(True)``, for which the script sets
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (if unset) for the whole run.
 6f. ``dryrun.cell``: ``launch.dryrun.run_cell`` on qwen2.5-3b and
-   dbrx-132b x decode_32k, and x train_4k at full width and 2 layers, fake
-   16x16 mesh (PyTorch's ``fake`` process group, fake ``cuda`` tensors),
-   one subprocess a cell, all started after 6c (they trace on the host,
+   dbrx-132b x decode_32k on the fake 16x16 and 2x16x16 meshes, and x
+   train_4k at full width and 2 layers on 16x16 (PyTorch's ``fake``
+   process group, fake ``cuda`` tensors), one subprocess a cell, all six
+   started at once after 6c (they trace on the host,
    so no timed phase shares it with them): status, depth, rank 0's HBM,
    the bound, the useful-FLOP ratio (in (0, 1], else the run fails) and
    the trace time of each.
@@ -5199,10 +5200,12 @@ K3_SHARDS = (1, 2, 4)  # slice counts of the shard form's check
 DRYRUN_CUT_DIR = ROOT / "results" / "dryrun_torch" / "cut"  # the cells whose depth is cut
 DENSE_NEW = 8  # decode steps of dist.serve.dense (the cache does not grow)
 DENSE_TURNS = ("unmeshed", "meshed", "meshed", "unmeshed")
-# (arch, shape, layers: None for the config's own depth); the train cells
-# at full width, their depth cut so the subprocess ends well inside its wait
-DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k", None), ("dbrx-132b", "decode_32k", None),
-                ("qwen2.5-3b", "train_4k", 2), ("dbrx-132b", "train_4k", 2))
+# (arch, shape, layers: None for the config's own depth, mesh); the train
+# cells at full width, their depth cut so the subprocess ends well inside
+# its wait
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k", None, "16x16"), ("dbrx-132b", "decode_32k", None, "16x16"),
+                ("qwen2.5-3b", "train_4k", 2, "16x16"), ("dbrx-132b", "train_4k", 2, "16x16"),
+                ("qwen2.5-3b", "decode_32k", None, "2x16x16"), ("dbrx-132b", "decode_32k", None, "2x16x16"))
 
 
 def k3_shard_cases(card: str, res: dict) -> None:
@@ -5450,7 +5453,8 @@ def dryrun_start():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     started = []
-    for arch, shape, layers in DRYRUN_CELLS:
+    for arch, shape, layers, mesh in DRYRUN_CELLS:
+        multi_pod = mesh == "2x16x16"
         code = ("import dataclasses\n"
                 "from repro_torch import configs\n"
                 "from repro_torch.launch import dryrun, specs\n"
@@ -5458,7 +5462,8 @@ def dryrun_start():
                 f"layers = {layers!r}\n"
                 "if layers is not None:\n"
                 "    configs.get = lambda name: dataclasses.replace(full(name), n_layers=layers)\n"
-                f"r = dryrun.run_cell(specs.Cell({arch!r}, {shape!r}), multi_pod=False, force=True,\n"
+                f"r = dryrun.run_cell(specs.Cell({arch!r}, {shape!r}), multi_pod={multi_pod!r},\n"
+                "                    force=True,\n"
                 f"                    results_dir=None if layers is None else {str(DRYRUN_CUT_DIR)!r})\n"
                 "print(r['cell'], layers, r['status'], r.get('error', ''), flush=True)\n")
         log = tempfile.TemporaryFile(mode="w+")
@@ -5471,22 +5476,22 @@ def dryrun_start():
 
 def dryrun_cells(card: str, started) -> None:
     """dryrun.cell: wait for ``dryrun_start``'s subprocesses, then one line
-    a cell of DRYRUN_CELLS (16x16 mesh, fake tensors labelled ``cuda``):
+    a cell of DRYRUN_CELLS (its mesh, fake tensors labelled ``cuda``):
     status, its depth (``layers``: the config's own, or the cut), rank 0's
     HBM, the bound and the trace time.  A cell that failed fails the run."""
     import json as _json
 
     from repro_torch import configs
 
-    for (arch, shape, layers), (proc, log, t0) in zip(DRYRUN_CELLS, started):
+    for (arch, shape, layers, mesh), (proc, log, t0) in zip(DRYRUN_CELLS, started):
         rc = proc.wait(timeout=600)
         wall = time.perf_counter() - t0
         log.seek(0)
         out = log.read()
         folder = ROOT / "results" / "dryrun_torch" if layers is None else DRYRUN_CUT_DIR
-        path = folder / f"{arch}__{shape}__pod16x16.json"
+        path = folder / f"{arch}__{shape}__pod{mesh}.json"
         r = _json.loads(path.read_text()) if path.exists() else {"status": "missing"}
-        line = {"phase": "dryrun.cell", "card": card, "cell": f"{arch}×{shape}", "mesh": "16x16",
+        line = {"phase": "dryrun.cell", "card": card, "cell": f"{arch}×{shape}", "mesh": mesh,
                 "layers": configs.get(arch).n_layers if layers is None else layers,
                 "status": r["status"], "subprocess_wall_s": wall, "rc": rc}
         ratio = None

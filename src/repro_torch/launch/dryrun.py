@@ -32,6 +32,10 @@ the step's peak of live bytes beyond the arguments and the outputs, and
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod-only|--single-pod-only]
+    [--results-dir DIR]
+
+``tools/dryrun_sweep.py`` runs the cells in several processes at once,
+``tools/dryrun_compare.py`` compares two sweeps' folders.
 """
 from __future__ import annotations
 
@@ -264,6 +268,7 @@ def main() -> None:
     ap.add_argument("--single-pod-only", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--opt", action="store_true", help="the hill-climb variants")
+    ap.add_argument("--results-dir", help=f"where the JSONs go (default {RESULTS_DIR})")
     args = ap.parse_args()
 
     cells = plan_cells()
@@ -286,7 +291,8 @@ def main() -> None:
     for cell in cells:
         for multi_pod in meshes:
             tag = "2x16x16" if multi_pod else "16x16"
-            r = run_cell(cell, multi_pod=multi_pod, force=args.force, opt=args.opt)
+            r = run_cell(cell, multi_pod=multi_pod, force=args.force, opt=args.opt,
+                         results_dir=args.results_dir)
             status = r["status"]
             extra = ""
             if status == "ok":

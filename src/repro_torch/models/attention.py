@@ -402,14 +402,17 @@ def _split_head_dim(w: torch.Tensor, h_dim: int) -> bool:
 
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads; one
-    a head where the heads' head_dim is sharded (``_split_head_dim``).  On
-    a mesh the sequence is gathered first (``merge_ready``: Megatron's
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads; over
+    the (head_dim, heads)-ordered ones where the heads' head_dim is sharded
+    (``_split_head_dim``: only the first merged dim may be sharded, as
+    ``merge_ready`` keeps it), laid back out as (heads, head_dim).  On a
+    mesh the sequence is gathered first (``merge_ready``: Megatron's
     sequence-parallel gather), the output sharded as the weight's heads."""
     d, h, k = w.shape
     x = merge_ready(x)
     if _split_head_dim(w, 1):
-        return torch.stack([x @ w[:, j] for j in range(h)], dim=-2)
+        y = x @ w.transpose(1, 2).reshape(d, k * h)
+        return y.reshape(*x.shape[:-1], k, h).transpose(-1, -2)
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
@@ -429,20 +432,20 @@ def project_qkv(p: Param, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
 
 
 def project_out(p: Param, attn_out: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads; a
-    sum of one a head where the heads' head_dim is sharded.  On a mesh a
-    sequence-sharded ``attn_out`` moves onto the heads first (the weight's
-    layout: an all-to-all, not a gather); the output is the heads' partial
-    sums, which the residual add reduce-scatters onto the sequence."""
+    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads; over
+    the (head_dim, heads)-ordered ones where the heads' head_dim is sharded
+    (as ``project_heads``).  On a mesh a sequence-sharded ``attn_out``
+    moves onto the heads first (the weight's layout: an all-to-all, not a
+    gather); the output is the heads' partial sums, which the residual add
+    reduce-scatters onto the sequence (``steps.decode_step`` reduces them
+    before its adds)."""
     h, k, d = p["wo"].shape
     if is_dtensor(attn_out) and any(getattr(q, "dim", None) == 1 for q in attn_out.placements):
         attn_out = constrain(attn_out, ("batch", None, "heads", None))
     attn_out = merge_ready(attn_out, 0, attn_out.ndim - 2)
     if _split_head_dim(p["wo"], 0):
-        out = attn_out[..., 0, :] @ p["wo"][0]
-        for j in range(1, h):
-            out = out + attn_out[..., j, :] @ p["wo"][j]
-        return merge_ready_grad(out)
+        flat = attn_out.transpose(-1, -2).reshape(*attn_out.shape[:-2], k * h)
+        return merge_ready_grad(flat @ p["wo"].transpose(0, 1).reshape(k * h, d))
     return merge_ready_grad(attn_out.reshape(*attn_out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d))
 
 

@@ -45,6 +45,8 @@ def dense_init(
     fan_in = shape[0] if fan_in is None else fan_in
     dev = gen.device if device is None else device
     out = torch.empty((*lead, *shape), dtype=dtype, device=dev)
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return out  # a fake tensor holds no values: shapes only (the dry-run's)
     for piece in out.view(-1, *shape) if lead else (out,):
         piece.copy_(torch.randn(shape, generator=gen, device=dev) * (fan_in ** -0.5))
     return out

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import indexing
 from repro_torch.core.insertion import insertion_offsets
-from repro_torch.distributed.context import active_mesh, is_dtensor, mesh_axes, placements
+from repro_torch.distributed.context import active_mesh, is_dtensor, mesh_axes, placements, reduce_partial
 from repro_torch.kernels.common import put_drop_
 from repro_torch.models.modules import Param, dense_init
 
@@ -116,8 +116,12 @@ def _route_and_pack(p: Param, xt: torch.Tensor, cfg: ModelConfig, C: int):
 
 
 def _expert_ffn(p: Param, buf: torch.Tensor) -> torch.Tensor:
-    """SwiGLU per expert: (E, C, D) → (E, C, D), one batched product each."""
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    """SwiGLU per expert: (E, C, D) → (E, C, D), one batched product each.
+    On a mesh (``_moe_local_mesh``) the gate's and up's pending sums over a
+    sharded D are reduced before the activation (``reduce_partial``): left
+    to the activation's rule, torch versions reduce them differently (2.13
+    reduce-scatters, 2.11 all-reduces)."""
+    h = F.silu(reduce_partial(torch.bmm(buf, p["w_gate"]))) * reduce_partial(torch.bmm(buf, p["w_up"]))
     return torch.bmm(h, p["w_down"])
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (is_dtensor, local_region, logical_spec, merge_ready,
-                                             merge_ready_grad, mesh_axes, placements)
+                                             merge_ready_grad, mesh_axes, placements, reduce_partial)
 from repro_torch.models.modules import Param, dense_init, rms_norm
 
 __all__ = ["init_mamba", "mamba_block", "mamba_decode_step", "init_mamba_state", "MambaState"]
@@ -284,6 +284,23 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     )
 
 
+def _read_state(Ch: torch.Tensor, ssd: torch.Tensor) -> torch.Tensor:
+    """einsum("bhn,bhpn->bhp"): the state (B, nh, hd, n) read by Ch.  On a
+    mesh in a ``local_map`` region, each rank its batch and, where they
+    divide over ``'model'``, its heads: the einsum folds the batch and the
+    heads into one dim, both sharded, which a view of a ``DTensor`` leaves
+    to a torch version's rule (2.13 flattens it, 2.11 refuses)."""
+    read = lambda c, h: torch.einsum("bhn,bhpn->bhp", c, h)  # noqa: E731
+    if not is_dtensor(ssd):
+        return read(Ch, ssd)
+    mesh = ssd.device_mesh
+    sizes = mesh_axes(mesh)
+    heads = "model" if "model" in sizes and ssd.shape[1] % sizes["model"] == 0 else None
+    batch = logical_spec(tuple(ssd.shape[:1]), ("batch",), mesh)[0]
+    by_head = placements((batch, heads, None), mesh)
+    return local_region(read, mesh, (by_head, placements((batch, heads, None, None), mesh)), by_head)(Ch, ssd)
+
+
 def mamba_decode_step(
     p: Param, x: torch.Tensor, state: MambaState, cfg: ModelConfig
 ) -> tuple[torch.Tensor, MambaState]:
@@ -291,6 +308,10 @@ def mamba_decode_step(
     s, di, nh, hd, g, n = _dims(cfg)
     B = x.shape[0]
     z, xBC, dt = _split_proj(p, x)  # (B, 1, ...)
+    # on a mesh the gate's and dt's pending sums over a sharded D are
+    # reduced before their activations, not where a torch version's rule
+    # for them chooses
+    z, dt = reduce_partial(z), reduce_partial(dt)
     xBC = xBC[:, 0]
 
     window = torch.cat([state.conv, xBC[:, None]], dim=1)  # (B, d_conv, ch)
@@ -308,7 +329,7 @@ def mamba_decode_step(
     decay = torch.exp(dt * -torch.exp(p["A_log"]))  # (B, nh)
 
     new_ssd = state.ssd * decay[..., None, None] + (dt[..., None] * xs)[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhn,bhpn->bhp", Ch, new_ssd) + xs * p["D"][None, :, None]
+    y = _read_state(Ch, new_ssd) + xs * p["D"][None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], MambaState(conv=new_conv, ssd=new_ssd)

@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.distributed.context import active_mesh, as_dtensor, constrain, is_dtensor, placed_zeros
+from repro_torch.distributed.context import (active_mesh, as_dtensor, constrain, is_dtensor, placed_zeros,
+                                             reduce_partial)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import inner_attention, project_heads, project_out, project_qkv
 from repro_torch.models.mlp import mlp_block
@@ -67,21 +68,27 @@ def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return logits
 
 
-def _mlp_or_moe(sp, x, slot: int, cfg: ModelConfig):
+def _keep(y: torch.Tensor) -> torch.Tensor:
+    return y
+
+
+def _mlp_or_moe(sp, x, slot: int, cfg: ModelConfig, settle=_keep):
+    """``settle``: applied to the block's output before the residual add
+    (``reduce_partial`` in the decode step)."""
     h = rms_norm(x, sp["norm2"], cfg.norm_eps)
     if cfg.is_moe_layer(slot):
         out, _ = moe_block(sp["moe"], h, cfg)
-        return x + out
-    return x + mlp_block(sp["mlp"], h, cfg.activation)
+        return x + settle(out)
+    return x + settle(mlp_block(sp["mlp"], h, cfg.activation))
 
 
-def _cross(sp, x, ck, cv, cfg: ModelConfig, attend):
+def _cross(sp, x, ck, cv, cfg: ModelConfig, attend, settle=_keep):
     """The cross-attention sub-block: q from the normed residual (no bias,
     no rope, as the reference's steps), ``attend(q, k, v)`` over the
     encoder's K/V."""
     hc = rms_norm(x, sp["cross_norm"], cfg.norm_eps)
     qc = project_heads(hc, sp["cross"]["wq"])
-    return x + project_out(sp["cross"], attend(qc, ck, cv))
+    return x + settle(project_out(sp["cross"], attend(qc, ck, cv)))
 
 
 def _scope(cfg: ModelConfig):
@@ -290,7 +297,13 @@ def decode_step(
 
     ``active`` gates the Mamba state writes of rows mid-chunked-prefill:
     their KV appends already drop (page table −1), but the batch-wide
-    recurrence would overwrite their conv/SSD rows."""
+    recurrence would overwrite their conv/SSD rows.
+
+    On a mesh every block's output is reduced before its residual add
+    (``reduce_partial``: an all-reduce of the heads', channels' or hidden
+    units' partial sums over ``'model'``): left pending, DTensor's rule for
+    the add decides where they are reduced, and torch versions decide
+    differently (2.11 at the add, 2.13 at the next norm)."""
     check_supported(cfg)
     token = token.reshape(token.shape[0], 1)
     x = embed(params["embed"], token).to(DTYPES[cfg.dtype])
@@ -307,7 +320,7 @@ def decode_step(
                 if kind == "mamba":
                     y, st = ssm_mod.mamba_decode_step(
                         sp["mamba"], h, ssm_mod.MambaState(c["conv"], c["ssd"]), cfg)
-                    x = x + y
+                    x = x + reduce_partial(y)
                     new_conv, new_ssd = st.conv, st.ssd
                     if active is not None:
                         keep = active[:, None, None]
@@ -319,11 +332,12 @@ def decode_step(
                 q, k, v = project_qkv(sp["attn"], h, cfg, positions)
                 kv = {key: val for key, val in c.items() if not key.startswith("cross")}
                 kvcache.append(kv, k, v, pos, cfg)
-                x = x + project_out(sp["attn"], kvcache.attend(kv, q, pos + 1, cfg))
+                x = x + reduce_partial(project_out(sp["attn"], kvcache.attend(kv, q, pos + 1, cfg)))
                 if "cross_k" in c:
                     enc_len = c["cross_k"].shape[-3]
                     full = torch.full((B,), enc_len, dtype=torch.int32, device=x.device)
                     x = _cross(sp, x, c["cross_k"], c["cross_v"], cfg,
-                               lambda q_, k_, v_: kvcache.attend({"k": k_, "v": v_}, q_, full, cfg))
-                x = _mlp_or_moe(sp, x, slot, cfg)
+                               lambda q_, k_, v_: kvcache.attend({"k": k_, "v": v_}, q_, full, cfg),
+                               settle=reduce_partial)
+                x = _mlp_or_moe(sp, x, slot, cfg, settle=reduce_partial)
     return _with_counters(cfg, (logits_from_hidden(params, x[:, 0], cfg), caches), t, x.device)

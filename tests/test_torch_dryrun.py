@@ -20,7 +20,9 @@ the reference's (``repro.launch.{specs,dryrun}``).
   ``launch/dryrun.py``, and the full-size qwen2.5-3b and dbrx decode_32k
   cells reach ``status: ok`` on the 16×16 mesh within ``CELL_S`` = 60 s;
   seamless-m4t's train step, cut to one layer each side, runs its
-  backward there.
+  backward there; qwen2.5-3b's decode_32k cell at full width and
+  ``POD_LAYERS`` layers reaches it on the 2×16×16 mesh, its batch over
+  ('pod', 'data').
 """
 import json
 import os
@@ -41,6 +43,7 @@ SRC = os.path.join(HERE, "..", "src")
 MESH = (2, 4)
 FLOPS_RTOL = 1e-6
 CELL_S = 60
+POD_LAYERS = 2  # the 2×16×16 decode cell's depth, cut as chip_smoke.py cuts its cells
 # reduced cells: (seq, batch); train takes the 8 microbatches of the reference's step
 REDUCED = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 4)}
 # the --opt cells' reduced shapes: sequences longer than its 2048-token
@@ -318,6 +321,46 @@ def test_full_size_decode_cell_ok_on_16x16(decode_cells, arch):
     assert r["memory"]["fits_80gb"] and r["memory"]["alias_bytes"] > 0  # the caches, in place
     assert r["roofline"]["bound"] == "memory"  # one token against a 32k cache
     assert r["cost_flop_counter"]["flops"] == r["cost_global"]["flops"]
+
+
+@pytest.fixture(scope="module")
+def pod_decode_cell(tmp_path_factory):
+    """qwen2.5-3b × decode_32k on the 2×16×16 mesh at full width, its depth
+    cut to ``POD_LAYERS`` as ``chip_smoke.py``'s cut cells are (``configs.get``
+    replaced), in a fixture of its own → (run_cell's result, the token
+    batch's placement on each mesh dim)."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    d = str(tmp_path_factory.mktemp("dryrun_pod"))
+    full = configs.get
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(configs, "get", lambda name: dataclasses.replace(full(name), n_layers=POD_LAYERS))
+        r = dryrun.run_cell(specs.Cell("qwen2.5-3b", "decode_32k"), multi_pod=True, results_dir=d)
+        with dryrun.fake_world(512):
+            dev = dryrun.fake_device()
+            mesh = make_production_mesh(multi_pod=True, device=dev)
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                _, token, _, _ = specs.input_specs("qwen2.5-3b", "decode_32k", mesh, device=dev)
+                batch = {name: repr(p) for name, p in zip(mesh.mesh_dim_names, token.placements)}
+    return r, batch
+
+
+def test_pod_mesh_decode_cell_ok(pod_decode_cell):
+    r, _ = pod_decode_cell
+    assert r["status"] == "ok", r.get("traceback", r)
+    assert r["mesh"] == "2x16x16" and r["chips"] == 512
+    assert r["memory"]["fits_80gb"] and r["roofline"]["bound"] == "memory"
+    # the model's FLOPs of the depth traced can be no more than the step's
+    assert 0 < r["useful_flop_ratio"] <= 1, r["useful_flop_ratio"]
+
+
+def test_pod_mesh_decode_batch_over_pod_and_data(pod_decode_cell):
+    _, batch = pod_decode_cell
+    assert batch == {"pod": "Shard(dim=0)", "data": "Shard(dim=0)", "model": "Replicate()"}, batch
 
 
 def test_run_cell_writes_the_reference_keys(decode_cells):

@@ -18,7 +18,7 @@ unmeshed run's:
   contraction the mesh splits (``project_out``, the MLP's down projection)
   and sums over ranks gives the unmeshed bits as well.  Cases: the
   attention's q projection (heads over 'model') and k projection (kv
-  heads that do not divide: head_dim over 'model', one product a head),
+  heads that do not divide: head_dim over 'model'),
   ``project_out``, a ReLU MLP, the Mamba projections (``ssm._split_proj``),
   ``unembed``;
 - bitwise, on standard-normal data: the outputs of the SSD scan in its

@@ -7,15 +7,17 @@ view merges into the dim before it (a ``(B, S, D)`` activation sharded over
 rule decides: torch 2.13 flattens it through a strided shard, the card's
 2.11 refuses ("Sharding propagation failed for aten.view.default(...
 S(0)S(1) ...)"), so the dry-run's train and prefill cells ran in one
-version only.  The port gathers such dims before the product
+version only (and Mamba's decode cells: the state read's einsum folds the
+batch and the heads).  The port gathers such dims before the product
 (``context.merge_ready``, ``merge_ready_grad``) or runs the block on local
-tensors (``ssm._ssd_region``), whatever the version's rule.
+tensors (``ssm._ssd_region``, ``ssm._read_state``), whatever the version's
+rule.
 
 A ``TorchDispatchMode`` records every ``aten.view``, ``aten._unsafe_view``
 and ``aten.reshape`` whose ``DTensor`` input has a dim longer than 1, and
 sharded over a mesh dim of more than one rank, that the output merges with
-an earlier dim longer than 1 (size-1 dims merge freely).  The reduced train
-and prefill cells of four families (and qwen2.5-3b's under ``--opt``'s
+an earlier dim longer than 1 (size-1 dims merge freely).  The reduced train,
+prefill and decode cells of four families (and qwen2.5-3b's under ``--opt``'s
 triangular attention) run forward and backward on the fake
 (2, 4) mesh of ``tests/test_torch_dryrun.py`` under ``count_fn``, as the
 dry-run runs them; nothing may be recorded.  The train cell takes 4
@@ -40,7 +42,7 @@ ARCHS = {
     "seamless-m4t-large-v2": ("seamless-m4t-large-v2", {}),
     "qwen-tri": ("qwen2.5-3b", {"attention_impl": "blockwise_tri", "attention_chunk": 16}),
 }
-REDUCED = {"train": (64, 4), "prefill": (64, 4)}  # (seq, batch)
+REDUCED = {"train": (64, 4), "prefill": (64, 4), "decode": (64, 4)}  # (seq, batch)
 MICROBATCHES = 2  # the train cell's: each of 2 sequences, split over 'data' as the full cell's 32
 VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
          torch.ops.aten.reshape.default)
@@ -107,7 +109,7 @@ def _trace(name: str, kind: str) -> list:
     from repro_torch.launch.mesh import make_host_mesh
 
     seq, batch = REDUCED[kind]
-    builder = {"train": "_build_train", "prefill": "_build_prefill"}[kind]
+    builder = {"train": "_build_train", "prefill": "_build_prefill", "decode": "_build_decode"}[kind]
     record = ViewRecord()
     with dryrun.fake_world(MESH[0] * MESH[1]):
         dev = dryrun.fake_device()
